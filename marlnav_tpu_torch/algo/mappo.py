@@ -1,0 +1,313 @@
+"""MAPPO — multi-agent PPO with a centralized critic.
+
+Port of ``marlnav_tpu/algo/mappo.py``'s XLA update path: the rollout is a
+T-step loop over ``env.step``, the updates run torch autograd plus
+``torch.optim.Adam`` over epochs x minibatches.  A training repeat is
+``collect -> train_actor -> train_critic``.
+
+Faithful-semantics notes (SURVEY.md §2.5), active when ``cfg.faithful``
+(default):
+
+* Returns, not GAE: reverse loop ``curr = where(done, 0, r + gamma*curr)``
+  (reference models.py:131-148), then the WHOLE buffer of returns is
+  z-normalized with the unbiased sample std.
+* Advantage mis-pairing: the reference tiles returns/values with
+  ``Tensor.repeat`` where the log-prob flatten order needs a
+  repeat-interleave (reference models.py:285-286).
+* Last-step drop: a minibatch that reaches the buffer end slices to ``-1``,
+  silently dropping the final buffer step (reference models.py:167-171).
+* The actor objective is maximized in the reference (Adam
+  ``maximize=True``); here its negation is minimized, identical
+  update-for-update.
+
+``faithful=False`` fixes the pairing and the last-step drop;
+``use_gae=True`` switches the advantage estimator to bootstrapped GAE.
+
+Clip edges follow JAX's gradient rule: ``clip`` below is
+``minimum(maximum(x, lo), hi)``, whose gradient at an exact bound is 1/2
+(an autograd tie split), where ``torch.clamp`` passes the full gradient.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from marlnav_tpu_torch.config import MAPPOConfig, NormalizerConfig, ScalerConfig
+from marlnav_tpu_torch.env.env import Env
+from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
+from marlnav_tpu_torch.models import Actor, Critic, DiagGaussian
+from marlnav_tpu_torch.utils.transforms import (make_action_scaler,
+                                                make_obs_normalizer)
+
+
+@dataclasses.dataclass
+class TrainState:
+    actor: Actor
+    critic: Critic
+    actor_opt: torch.optim.Adam
+    critic_opt: torch.optim.Adam
+
+
+@dataclasses.dataclass
+class Buffer:
+    """Stacked rollout buffer, time-major (T leading), matching the
+    reference's per-step record layout (reference models.py:121)."""
+
+    obs: torch.Tensor  # (T, P, A, obs) normalized pre-step observations
+    actions: torch.Tensor  # (T, P, A, 2) raw [-1,1]-scale sampled actions
+    log_probs: torch.Tensor  # (T, P*A)
+    values: torch.Tensor  # (T, P, 1) critic on pre-step obs
+    returns: torch.Tensor  # (T, P) normalized discounted returns
+    done: torch.Tensor  # (T, P) bool
+
+    def time_slice(self, start: int, stop: int) -> "Buffer":
+        """Steps [start, stop) of every field (views, no copy)."""
+        return Buffer(*(getattr(self, f.name)[start:stop]
+                        for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass
+class RolloutMetrics:
+    mean_rew: torch.Tensor  # () mean of unnormalized returns
+    stats: EpisodeStats  # episode endings during this rollout
+
+
+@dataclasses.dataclass
+class MAPPO:
+    """Bundle of MAPPO functions over fixed configs."""
+
+    cfg: MAPPOConfig
+    init: Callable  # generator -> (TrainState, EnvState)
+    collect: Callable  # (TrainState, EnvState, generator) -> (EnvState, Buffer, RolloutMetrics)
+    train_actor: Callable  # (TrainState, Buffer) -> (TrainState, losses)
+    train_critic: Callable  # (TrainState, Buffer) -> (TrainState, losses)
+
+
+# ----------------------------------------------------------------------
+# Returns (reference models.py:131-148)
+# ----------------------------------------------------------------------
+
+def _sample_std(x: torch.Tensor) -> torch.Tensor:
+    """Unbiased (N-1) std — torch.std_mean default (reference models.py:140)."""
+    mean = torch.mean(x)
+    return torch.sqrt(torch.sum((x - mean) ** 2) / (x.numel() - 1))
+
+
+def discounted_returns(rewards: torch.Tensor, done: torch.Tensor,
+                       gamma: float) -> torch.Tensor:
+    """Reverse-loop zero-at-done discounted returns
+    (reference models.py:131-148).  rewards/done (T, P) -> returns (T, P)."""
+    rets = torch.empty_like(rewards)
+    curr = torch.zeros_like(rewards[0])
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        curr = torch.where(done[t], 0.0, rewards[t] + gamma * curr)
+        rets[t] = curr
+    return rets
+
+
+def reference_returns(rewards: torch.Tensor, done: torch.Tensor,
+                      cfg: MAPPOConfig):
+    """Zero-at-done discounted returns + whole-buffer z-normalization
+    (reference models.py:131-148).  Returns ``(normalized (T, P), mean of
+    unnormalized returns)``."""
+    rets = discounted_returns(rewards, done, cfg.gamma)
+    mean_rew = torch.mean(rets)
+    normed = (rets - mean_rew) / (_sample_std(rets) + 1e-12)
+    return normed, mean_rew
+
+
+def gae_advantages(rewards, done, values, last_value, gamma, lam):
+    """Bootstrapped GAE(lambda) — the corrected estimator behind
+    ``use_gae``.  rewards/done/values (T, P), last_value (P,)."""
+    adv = torch.empty_like(rewards)
+    gae = torch.zeros_like(last_value)
+    next_value = last_value
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        not_done = 1.0 - done[t].to(rewards.dtype)
+        delta = rewards[t] + gamma * next_value * not_done - values[t]
+        gae = delta + gamma * lam * not_done * gae
+        adv[t] = gae
+        next_value = values[t]
+    return adv
+
+
+# ----------------------------------------------------------------------
+# Losses (reference models.py:270-316)
+# ----------------------------------------------------------------------
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip`` with its gradient: ``minimum(maximum(x, lo), hi)``.
+    At an exact bound autograd splits the tie, passing half the gradient
+    to ``x`` as JAX does; ``torch.clamp`` would pass all of it."""
+    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _flatten_minibatch(mb: Buffer, cfg: MAPPOConfig):
+    """Concatenate a (size, ...) minibatch along the step axis the way the
+    reference's ``torch.cat(..., dim=0)`` does (reference models.py:272-277)."""
+    size = mb.obs.shape[0]
+    p, a = cfg.num_parallel, cfg.num_agents
+    return (mb.obs.reshape(size * p, a, cfg.obs_size),
+            mb.actions.reshape(size * p * a, cfg.action_size),
+            mb.log_probs.reshape(size * p * a),
+            mb.values.reshape(size * p),
+            mb.returns.reshape(size * p))
+
+
+def _pair_per_agent(x: torch.Tensor, cfg: MAPPOConfig) -> torch.Tensor:
+    """Expand (size*P,) to (size*P*A,) to pair with per-agent log-probs.
+
+    faithful: ``Tensor.repeat`` tiling (reference models.py:285-286) — the
+    verified mis-pairing.  fixed: repeat-interleave, the correct
+    (step, env, agent) pairing."""
+    if cfg.faithful:
+        return x.repeat(cfg.num_agents)
+    return torch.repeat_interleave(x, cfg.num_agents)
+
+
+def actor_loss(actor: Actor, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
+    """Negated PPO-clip + entropy objective (the reference *maximizes* it,
+    reference models.py:71-72, 270-299)."""
+    obs, actions, old_log_probs, values, returns = _flatten_minibatch(mb, cfg)
+    mean, var = actor(obs)
+    dist = DiagGaussian(mean, var)
+    new_log_probs = dist.log_prob(actions)
+    entropies = dist.entropy()
+
+    advantages = _pair_per_agent(returns, cfg) - _pair_per_agent(values, cfg)
+    ratios = torch.exp(new_log_probs - old_log_probs)
+    clip_obj = torch.mean(torch.minimum(
+        ratios * advantages,
+        clip(ratios, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * advantages))
+    return -(clip_obj + cfg.ent_const * torch.mean(entropies))
+
+
+def critic_loss(critic: Critic, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
+    """Clipped-value loss (reference models.py:301-316)."""
+    obs, _, _, values, returns = _flatten_minibatch(mb, cfg)
+    new_values = critic(obs)[:, 0]
+    diff = (new_values - returns) ** 2
+    clamped = clip(new_values, values - cfg.epsilon, values + cfg.epsilon)
+    clamped_diff = (clamped - returns) ** 2
+    return torch.mean(torch.maximum(diff, clamped_diff))
+
+
+def minibatch_slices(buffer: Buffer, cfg: MAPPOConfig):
+    """Contiguous time-slices per the reference's minibatching
+    (reference models.py:165-172): full batches, plus — in faithful mode
+    when the last batch reaches the buffer end — a tail batch with the
+    final buffer step dropped."""
+    slices = []
+    bs = cfg.batch_size
+    for j in range(cfg.num_minibatches):
+        start = j * bs
+        if cfg.faithful and start + bs >= cfg.buffer_len:
+            size = cfg.buffer_len - 1 - start  # slice end == -1
+        else:
+            size = bs
+        slices.append(buffer.time_slice(start, start + size))
+    return slices
+
+
+# ----------------------------------------------------------------------
+# The MAPPO bundle
+# ----------------------------------------------------------------------
+
+def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
+               scaler_cfg: ScalerConfig) -> MAPPO:
+    """Build the MAPPO function bundle on ``env.device``.  The train
+    functions update the networks and optimizers of ``ts`` in place."""
+    unported = [name for name in ("returns_f64", "bf16_updates",
+                                  "fused_updates") if getattr(cfg, name)]
+    if unported:
+        raise NotImplementedError(
+            f"MAPPOConfig.{', '.join(unported)} is not ported to "
+            "marlnav_tpu_torch yet (see ROADMAP.md)")
+    device = env.device
+    normalize = make_obs_normalizer(normalizer_cfg, device)
+    scale_up = make_action_scaler(scaler_cfg, device)
+    p, a = cfg.num_parallel, cfg.num_agents
+
+    def init(generator: torch.Generator):
+        """Networks drawn from a CPU generator seeded from ``generator``'s
+        seed (so CPU and CUDA runs start from the same weights); the env
+        draws from ``generator`` itself."""
+        g_cpu = torch.Generator().manual_seed(generator.initial_seed())
+        actor = Actor(cfg.obs_size, cfg.hidden_size, cfg.action_size,
+                      generator=g_cpu).to(device)
+        critic = Critic(cfg.obs_size, a, cfg.hidden_size,
+                        generator=g_cpu).to(device)
+        # torch Adam defaults (betas 0.9/0.999, eps 1e-8) == optax.adam's.
+        ts = TrainState(actor, critic,
+                        torch.optim.Adam(actor.parameters(), lr=cfg.lr),
+                        torch.optim.Adam(critic.parameters(), lr=cfg.lr))
+        return ts, env.init(generator)
+
+    @torch.no_grad()
+    def collect(ts: TrainState, env_state: EnvState,
+                generator: torch.Generator):
+        """The rollout (reference models.py:106-129 ``get_data``); action
+        noise from ``generator``, reset draws from the env's generator."""
+        # Stats counters are harvested per rollout and reset
+        # (reference models.py:151-158).
+        env_state = dataclasses.replace(env_state,
+                                        stats=EpisodeStats.zeros(device))
+        obs = normalize(env.observations(env_state))
+        records = []
+        for _ in range(cfg.buffer_len):
+            mean, var = ts.actor(obs)
+            dist = DiagGaussian(mean, var)
+            flat_actions = dist.sample(generator)  # (P*A, 2) in ~[-1, 1]
+            log_probs = dist.log_prob(flat_actions)  # (P*A,)
+            actions = flat_actions.reshape(p, a, cfg.action_size)
+            env_state, out = env.step(env_state, scale_up(actions))
+            values = ts.critic(obs)  # pre-step obs (P, 1)
+            records.append((obs, actions, log_probs, values, out.rewards,
+                            out.terminated | out.truncated))
+            obs = normalize(out.obs)
+        obs_b, actions, log_probs, values, rewards, done = (
+            torch.stack(x) for x in zip(*records))
+
+        if cfg.use_gae:
+            # Bootstrapped GAE advantages stored as "returns" = advantage +
+            # value, so the losses still read returns - values.
+            mean_rew = torch.mean(discounted_returns(rewards, done, cfg.gamma))
+            last_value = ts.critic(obs)[:, 0]
+            adv = gae_advantages(rewards, done, values[..., 0], last_value,
+                                 cfg.gamma, cfg.gae_lambda)
+            rets = adv + values[..., 0]
+        else:
+            rets, mean_rew = reference_returns(rewards, done, cfg)
+
+        buffer = Buffer(obs_b, actions, log_probs, values, rets, done)
+        return env_state, buffer, RolloutMetrics(mean_rew, env_state.stats)
+
+    def _train_phase(loss_fn, get_module, get_opt):
+        def train(ts: TrainState, buffer: Buffer):
+            """Epochs x minibatches of Adam steps (reference
+            models.py:160-198); returns ``(ts, losses)``, the per-minibatch
+            losses as one (epochs * minibatches,) tensor."""
+            module, opt = get_module(ts), get_opt(ts)
+            slices = minibatch_slices(buffer, cfg)
+            losses = []
+            for _ in range(cfg.num_epochs):
+                for mb in slices:
+                    loss = loss_fn(module, mb, cfg)
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.detach())
+            return ts, torch.stack(losses)
+
+        return train
+
+    train_actor = _train_phase(actor_loss, lambda ts: ts.actor,
+                               lambda ts: ts.actor_opt)
+    train_critic = _train_phase(critic_loss, lambda ts: ts.critic,
+                                lambda ts: ts.critic_opt)
+    return MAPPO(cfg, init, collect, train_actor, train_critic)

@@ -1,0 +1,160 @@
+"""Actor and centralized-critic MLPs as ``nn.Module``s.
+
+Port of ``marlnav_tpu/models/networks.py``; the architectures replicate the
+reference (reference models.py:14-56), including the actor's *missing*
+hidden activation (reference models.py:29):
+
+  Actor : (..., A, obs) -> flatten agents into batch -> Linear(obs, H)
+          -> heads tanh(Linear(H, 2)) = mean, softplus(Linear(H, 2)) = var
+  Critic: (..., A, obs) -> flatten agents into features (CTDE) ->
+          Linear(A*obs, H) -> ReLU -> Linear(H, 1)
+
+Initialization: orthogonal weights (reference models.py:21-25, 46-49) and
+uniform(-1/sqrt(fan_in), +1/sqrt(fan_in)) biases, drawn from an explicit
+generator.
+
+Weights interchange with the JAX package: the JAX ``Dense`` stores ``w`` as
+(in, out) and ``nn.Linear.weight`` is (out, in).  ``from_jax_params`` and
+``to_jax_params`` convert; ``flat_params`` / ``load_flat_params`` use the
+``.npz`` key format of ``marlnav_tpu/utils/stats.py`` ("fc1.w", "fc1.b",
+...), so weight files written by either package load in the other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+def _orthogonal(out_size: int, in_size: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """(out, in) matrix with orthonormal rows or columns (whichever is the
+    smaller set) — the orthogonal initializer of torch and of JAX."""
+    rows, cols = (out_size, in_size) if out_size >= in_size else (
+        in_size, out_size)
+    a = torch.randn((rows, cols), generator=generator, dtype=torch.float32)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return q if out_size >= in_size else q.T
+
+
+def _dense(in_size: int, out_size: int, generator: torch.Generator):
+    layer = nn.Linear(in_size, out_size)
+    bound = 1.0 / math.sqrt(in_size)
+    with torch.no_grad():
+        layer.weight.copy_(_orthogonal(out_size, in_size, generator))
+        layer.bias.uniform_(-bound, bound, generator=generator)
+    return layer
+
+
+class Actor(nn.Module):
+    """obs (..., A, obs_size) -> (mean, var), each (...*A, action_size);
+    ``var`` is the covariance diagonal (see distributions.py)."""
+
+    def __init__(self, obs_size: int, hidden_size: int, action_size: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator()
+        self.fc1 = _dense(obs_size, hidden_size, g)
+        self.fc_mu = _dense(hidden_size, action_size, g)
+        self.fc_var = _dense(hidden_size, action_size, g)
+
+    def forward(self, obs: torch.Tensor):
+        x = obs.reshape(-1, obs.shape[-1])
+        h = self.fc1(x)  # NB: no activation (reference models.py:29)
+        return torch.tanh(self.fc_mu(h)), F.softplus(self.fc_var(h))
+
+
+class Critic(nn.Module):
+    """obs (N, A, obs_size) -> values (N, 1): agents fold into the feature
+    axis — the centralized critic (reference models.py:44, 51-55)."""
+
+    def __init__(self, obs_size: int, num_agents: int, hidden_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator()
+        self.fc1 = _dense(obs_size * num_agents, hidden_size, g)
+        self.fc2 = _dense(hidden_size, 1, g)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = obs.reshape(obs.shape[0], -1)
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+# ----------------------------------------------------------------------
+# Weight interchange with the JAX package
+# ----------------------------------------------------------------------
+
+def _layers(module: nn.Module) -> Dict[str, nn.Linear]:
+    return {name: m for name, m in module.named_children()
+            if isinstance(m, nn.Linear)}
+
+
+def flat_params(module: nn.Module) -> Dict[str, np.ndarray]:
+    """{"fc1.w": (in, out), "fc1.b": (out,), ...} float32 numpy arrays —
+    the JAX package's ``.npz`` weight-file keys and layout."""
+    out = {}
+    for name, layer in _layers(module).items():
+        out[f"{name}.w"] = layer.weight.detach().cpu().numpy().T.copy()
+        out[f"{name}.b"] = layer.bias.detach().cpu().numpy().copy()
+    return out
+
+
+def load_flat_params(module: nn.Module, flat) -> nn.Module:
+    """Inverse of ``flat_params``: copy ``flat`` (a mapping in the ``.npz``
+    key format) into ``module`` in place, checking every shape."""
+    with torch.no_grad():
+        for name, layer in _layers(module).items():
+            for key, param, to_torch in (
+                    (f"{name}.w", layer.weight, np.transpose),
+                    (f"{name}.b", layer.bias, np.asarray)):
+                arr = np.asarray(flat[key])
+                want = tuple(to_torch(np.empty(param.shape)).shape)
+                if arr.shape != want:
+                    raise ValueError(
+                        f"weight {key}: file shape {arr.shape} != model {want}")
+                param.copy_(torch.tensor(to_torch(arr), dtype=torch.float32))
+    return module
+
+
+def _tree_to_flat(tree) -> Dict[str, np.ndarray]:
+    """A JAX ``ActorParams``/``CriticParams`` (or the same nesting as dicts)
+    holding numpy arrays -> the flat ``.npz`` key format."""
+    items = tree._asdict().items() if hasattr(tree, "_asdict") else tree.items()
+    flat = {}
+    for name, dense in items:
+        get = dense.get if isinstance(dense, dict) else (
+            lambda k, d=dense: getattr(d, k))
+        flat[f"{name}.w"] = np.asarray(get("w"))
+        flat[f"{name}.b"] = np.asarray(get("b"))
+    return flat
+
+
+def from_jax_params(np_tree):
+    """``(actor_params, critic_params)`` of the JAX package, as numpy arrays
+    -> ``(Actor, Critic)`` with the same weights."""
+    actor_tree, critic_tree = np_tree
+    af, cf = _tree_to_flat(actor_tree), _tree_to_flat(critic_tree)
+    obs_size, hidden = af["fc1.w"].shape
+    actor = Actor(obs_size, hidden, af["fc_mu.w"].shape[1])
+    critic = Critic(obs_size, cf["fc1.w"].shape[0] // obs_size, hidden)
+    return load_flat_params(actor, af), load_flat_params(critic, cf)
+
+
+def to_jax_params(actor: Actor, critic: Critic):
+    """Inverse of ``from_jax_params``: nested dicts
+    ``{"fc1": {"w": (in, out), "b": (out,)}, ...}`` of numpy arrays, one
+    per network, in the JAX package's ``Dense`` layout."""
+    def nest(flat):
+        out = {}
+        for key, arr in flat.items():
+            layer, leaf = key.split(".")
+            out.setdefault(layer, {})[leaf] = arr
+        return out
+
+    return nest(flat_params(actor)), nest(flat_params(critic))

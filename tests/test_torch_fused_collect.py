@@ -1,0 +1,287 @@
+"""The fused collect's plain PyTorch version against the JAX package's
+Pallas collect kernel (interpret mode, host-injected uniforms), plus the
+CPU routing of the port's kernel wrapper.
+
+Both sides consume the same uniforms: the JAX kernel takes them in its
+tile layout (T, n_draws, 8, P/8), the port in (T, n_draws, P), mapped by
+``noise_per_env`` as tests/test_fused_collect.py does.  Both run the same
+float32 step math (Hastings acos, bounded sin/cos polynomials), so the
+differences are last-ulp ones between two frameworks' tanh/log/exp and
+reduction orders.
+
+Tolerances (those of tests/test_fused_collect.py:148-160): obs rtol 1e-4,
+atol 5e-4 (view angles near dot ~ 1, where acos amplifies one ulp of the
+dot to 3.45e-4 rad); actions 1e-4; log-probs and values 1e-3; returns
+rtol 1e-3, atol 2e-3 (the JAX collect reduces its returns with an
+associative scan, the port with the sequential loop); done and the
+episode counters exactly.  Multi-step cases use ``tame_policy``: an
+untamed random actor steers up to +-pi per step and amplifies ulp
+differences chaotically within a few steps.
+
+The CUDA kernel itself cannot run here; chip_smoke.py holds it against
+this plain version on the card (``test_kernel_matches_plain_on_card``
+does the same under pytest where a card is present).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marlnav_tpu.algo import make_mappo as j_make_mappo
+from marlnav_tpu.config import EnvParams as JEnvParams
+from marlnav_tpu.config import MAPPOConfig as JMAPPOConfig
+from marlnav_tpu.config import NormalizerConfig as JNormalizerConfig
+from marlnav_tpu.config import ScalerConfig as JScalerConfig
+from marlnav_tpu.config import TriangleInitConfig as JTriangleInit
+from marlnav_tpu.env import make_env as j_make_env
+from marlnav_tpu.ops import env_state_to_rows as j_env_state_to_rows
+from marlnav_tpu.ops import make_fused_collect as j_make_fused_collect
+from marlnav_tpu.ops import step_math as j_step_math
+from marlnav_tpu.ops.fused_update import _affine_compose as j_affine_compose
+from marlnav_tpu_torch.config import (EnvParams, MAPPOConfig, NormalizerConfig,
+                                      ScalerConfig, TriangleInitConfig)
+from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
+from marlnav_tpu_torch.models import from_jax_params
+from marlnav_tpu_torch.ops import fused_collect as fc
+from marlnav_tpu_torch.ops import step_math as t_step_math
+from marlnav_tpu_torch.utils.seeding import make_generator
+
+P, A, O = 1024, 3, 3
+
+
+class TS:
+    """The two fields of a TrainState that collect reads."""
+
+    def __init__(self, actor, critic):
+        self.actor, self.critic = actor, critic
+
+
+def tame_policy(ts):
+    """tests/test_fused_collect.py tame_policy: mean head x1e-3, variance
+    bias -20, so trajectories stay near-straight and no env collides."""
+    actor = ts.actor._replace(
+        fc_mu=ts.actor.fc_mu._replace(w=ts.actor.fc_mu.w * 1e-3,
+                                      b=ts.actor.fc_mu.b * 1e-3),
+        fc_var=ts.actor.fc_var._replace(b=ts.actor.fc_var.b - 20.0))
+    return ts._replace(actor=actor)
+
+
+def noise_per_env(noise):
+    """(T, k, 8, nb*128) tile layout -> (T, k, P), fused_rollout.untile's
+    env mapping (tests/test_fused_collect.py:80-86)."""
+    t, k = noise.shape[0], noise.shape[1]
+    nb = noise.shape[3] // 128
+    return np.asarray(noise).reshape(t, k, 8, nb, 128).transpose(
+        0, 1, 3, 2, 4).reshape(t, k, nb * 8 * 128)
+
+
+def run_both(t, episode_len=200, noisy=False, tame=True, **mode):
+    """One collect of t steps through the JAX kernel (interpret mode) and
+    the port's collect (CPU: the plain version), from the same state,
+    weights and uniforms."""
+    kw = dict(num_parallel=P, buffer_len=t, batch_size=t, num_epochs=1,
+              num_total=t * P, **mode)
+    ep_kw = dict(num_parallel=P, num_agents=A, episode_len=episode_len)
+    ic_kw = dict(num_parallel=P, num_obstacles=O, noisy_ags=noisy)
+    j_cfg, j_ep, j_ic = (JMAPPOConfig(**kw), JEnvParams(**ep_kw),
+                         JTriangleInit(**ic_kw))
+    j_env = j_make_env(j_ep, j_ic, None)
+    ts, s0 = j_make_mappo(j_cfg, j_env, JNormalizerConfig(),
+                          JScalerConfig()).init(jax.random.PRNGKey(0))
+    if tame:
+        ts = tame_policy(ts)
+    n_draws = 2 * A + 2 * O + (3 * A if noisy else 0)
+    noise = jax.random.uniform(jax.random.PRNGKey(5), (t, n_draws, 8, P // 8),
+                               jnp.float32)
+    j_collect = j_make_fused_collect(j_cfg, j_ep, j_ic, JNormalizerConfig(),
+                                     JScalerConfig(), interpret=True,
+                                     noise_input=True)
+    j_rows, j_buf, j_met = j_collect(ts, j_env_state_to_rows(s0), 7,
+                                     noise=noise)
+
+    actor, critic = from_jax_params(jax.tree.map(np.asarray,
+                                                 (ts.actor, ts.critic)))
+    state = EnvState(*(torch.tensor(np.asarray(x)) for x in
+                       (s0.states, s0.obstacles, s0.target, s0.step_num,
+                        s0.terminates)), EpisodeStats.zeros("cpu"),
+                     make_generator(0))
+    t_collect = fc.make_fused_collect(
+        MAPPOConfig(**kw), EnvParams(**ep_kw), TriangleInitConfig(**ic_kw),
+        NormalizerConfig(), ScalerConfig())
+    t_rows, t_buf, t_met = t_collect(TS(actor, critic),
+                                     fc.env_state_to_rows(state), 7,
+                                     noise=torch.tensor(noise_per_env(noise)))
+    return (j_rows, j_buf, j_met), (t_rows, t_buf, t_met)
+
+
+def assert_buffers_match(j, t):
+    (j_rows, j_buf, j_met), (t_rows, t_buf, t_met) = j, t
+    np.testing.assert_array_equal(t_buf.done.numpy(), np.asarray(j_buf.done))
+    for name, rtol, atol in (("obs", 1e-4, 5e-4), ("actions", 1e-4, 1e-4),
+                             ("log_probs", 1e-3, 1e-3),
+                             ("values", 1e-3, 1e-3),
+                             ("returns", 1e-3, 2e-3)):
+        np.testing.assert_allclose(getattr(t_buf, name).numpy(),
+                                   np.asarray(getattr(j_buf, name)),
+                                   rtol=rtol, atol=atol, err_msg=name)
+    np.testing.assert_allclose(float(t_met.mean_rew), float(j_met.mean_rew),
+                               rtol=1e-4)
+    for name in ("num_trunc", "num_col", "num_tar"):
+        assert int(getattr(t_met.stats, name)) == int(
+            getattr(j_met.stats, name)), name
+    for x, y, name in zip(t_rows.fields(), j_rows, t_rows.__dataclass_fields__):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-5,
+                                   atol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["faithful", "gae"])
+def test_plain_collect_matches_jax_kernel(mode):
+    """T=8 tamed: no env finishes, every buffer field and the final state
+    match (GAE mode adds the final-state bootstrap value)."""
+    j, t = run_both(8, **({} if mode == "faithful" else
+                          dict(faithful=False, use_gae=True)))
+    assert not np.asarray(j[1].done).any()  # premise: nothing finished
+    assert_buffers_match(j, t)
+
+
+def test_plain_collect_matches_jax_kernel_through_resets():
+    """episode_len=4, T=8, noisy_ags: every env truncates at steps 3 and 7
+    and redraws obstacles, positions and headings from the injected reset
+    uniforms; both sides read the same draws, so every buffer field after a
+    reset and the final state must match too.  Pins the reset-draw
+    indexing ([0, 2A) actions, obstacle x, obstacle y, 3 per agent)."""
+    j, t = run_both(8, episode_len=4, noisy=True)
+    done = np.asarray(j[1].done)
+    assert done[3].all() and done[7].all() and not done[[0, 1, 2, 4, 5, 6]].any()
+    assert int(j[2].stats.num_trunc) == 2 * P
+    assert_buffers_match(j, t)
+
+
+def test_plain_collect_one_step_untamed():
+    """One step of a random (untamed) actor: the per-step math contract at
+    full steering (tests/test_ops.py:84)."""
+    j, t = run_both(1, tame=False)
+    assert_buffers_match(j, t)
+
+
+def test_step_math_primitives_match_jax():
+    """The polynomials, the bits -> uniform map and Box-Muller: the same
+    float32 operations in both packages."""
+    x = np.linspace(-1.0, 1.0, 20001, dtype=np.float32)
+    np.testing.assert_allclose(t_step_math.acos(torch.tensor(x)).numpy(),
+                               np.asarray(j_step_math.acos(jnp.asarray(x))),
+                               rtol=0, atol=1e-6)
+    th = np.linspace(-np.pi, np.pi, 20001, dtype=np.float32)
+    for name in ("sin_pi", "cos_pi"):
+        np.testing.assert_allclose(
+            getattr(t_step_math, name)(torch.tensor(th)).numpy(),
+            np.asarray(getattr(j_step_math, name)(jnp.asarray(th))),
+            rtol=0, atol=1e-6, err_msg=name)
+    bits = np.random.default_rng(0).integers(
+        -2**31, 2**31, size=4096, dtype=np.int64).astype(np.int32)
+    u = t_step_math.bits_to_uniform(torch.tensor(bits)).numpy()
+    np.testing.assert_array_equal(
+        u, np.asarray(j_step_math.bits_to_uniform(jnp.asarray(bits))))
+    assert u.min() >= 0.0 and u.max() < 1.0
+    z_t = t_step_math.box_muller(torch.tensor(u[:2048]), torch.tensor(u[2048:]))
+    z_j = j_step_math.box_muller(jnp.asarray(u[:2048]), jnp.asarray(u[2048:]))
+    for a, b in zip(z_t, z_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_affine_compose_matches_jax():
+    """The (4, obs) actor operator in full float32 (HIGHEST precision in
+    JAX): products of width 50 in another order, 1e-6 relative."""
+    ts, _ = j_make_mappo(
+        JMAPPOConfig(num_parallel=8, buffer_len=4, batch_size=4,
+                     num_total=32),
+        j_make_env(JEnvParams(num_parallel=8), JTriangleInit(num_parallel=8),
+                   None), JNormalizerConfig(), JScalerConfig()
+    ).init(jax.random.PRNGKey(1))
+    a_j, c_j = j_affine_compose(ts.actor)
+    actor, _ = from_jax_params(jax.tree.map(np.asarray, (ts.actor, ts.critic)))
+    a_t, c_t = fc._affine_compose(actor)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_row_state_round_trip_and_layout():
+    """env_state_to_rows / rows_to_env_state invert each other and lay the
+    rows out exactly as the JAX package's RowState."""
+    j_env = j_make_env(JEnvParams(num_parallel=64),
+                       JTriangleInit(num_parallel=64), None)
+    s0 = j_env.init(jax.random.PRNGKey(2))
+    s0 = s0._replace(step_num=jnp.arange(64, dtype=jnp.int32) % 7,
+                     terminates=jnp.arange(64) % 3 == 0)
+    state = EnvState(*(torch.tensor(np.asarray(x)) for x in
+                       (s0.states, s0.obstacles, s0.target, s0.step_num,
+                        s0.terminates)), EpisodeStats.zeros("cpu"),
+                     make_generator(0))
+    rows = fc.env_state_to_rows(state)
+    for got, want in zip(rows.fields(), j_env_state_to_rows(s0)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    back = fc.rows_to_env_state(rows, make_generator(0))
+    for name in ("states", "obstacles", "target", "step_num", "terminates"):
+        assert torch.equal(getattr(back, name), getattr(state, name)), name
+
+
+def test_cpu_routing_runs_plain_version_and_launches_nothing():
+    """On CPU tensors the wrapper runs the plain version — on the given
+    uniforms, or on uniforms drawn from a generator seeded with ``seed`` —
+    and the kernel's launch counter does not move."""
+    t, p = 5, 16
+    ep = EnvParams(num_parallel=p, episode_len=3)
+    ic = TriangleInitConfig(num_parallel=p)
+    sm = t_step_math.StepMath(ep, ic, NormalizerConfig(), ScalerConfig())
+    from marlnav_tpu_torch.env import make_env
+
+    state = make_env(ep, ic, "cpu").init(make_generator(1))
+    rows = fc.env_state_to_rows(state)
+    g = torch.Generator().manual_seed(2)
+    a_comp, c_comp = torch.randn(4, 12, generator=g), torch.randn(4, generator=g)
+    before = fc.fused_collect_rows.launches
+    out = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, t)
+    uniforms = torch.rand((t, sm.n_draws, p), generator=make_generator(9))
+    ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, uniforms)
+    for name in ("obs", "actions", "log_probs", "rewards", "done", "stats"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert out.done[2].all() and int(out.stats[0]) == p  # truncation fired
+    assert fc.fused_collect_rows.launches == before == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        fc.fused_collect_rows(sm, fc.RowState(*(x.to("meta") for x in
+                                                rows.fields())),
+                              a_comp, c_comp, 9, t)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """The CUDA kernel against its plain version on the same uniforms (the
+    check chip_smoke.py runs): both perform the same float32 operations in
+    the same order, so every output matches exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    t, p = 32, 2048
+    ep = EnvParams(num_parallel=p, episode_len=10)
+    ic = TriangleInitConfig(num_parallel=p, noisy_ags=True)
+    sm = t_step_math.StepMath(ep, ic, NormalizerConfig(), ScalerConfig())
+    from marlnav_tpu_torch.env import make_env
+
+    rows = fc.env_state_to_rows(make_env(ep, ic, dev).init(
+        make_generator(1, dev)))
+    g = torch.Generator(device=dev).manual_seed(2)
+    a_comp = 0.1 * torch.randn(4, 12, generator=g, device=dev)
+    c_comp = torch.randn(4, generator=g, device=dev)
+    noise = torch.rand((t, sm.n_draws, p), generator=g, device=dev)
+    out = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, t, noise)
+    ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
+    torch.cuda.synchronize()
+    for name in ("obs", "actions", "log_probs", "rewards", "done", "stats"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    for x, y in zip(out.rows.fields(), ref.rows.fields()):
+        assert torch.equal(x, y)
