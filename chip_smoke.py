@@ -3,19 +3,24 @@
     python3 chip_smoke.py [--out DIR]
 
 Run from the root of the repository on a machine with a CUDA card and
-``nvcc``.  It builds the port's CUDA kernel from the sources in the
-checkout, holds it against its plain PyTorch version, checks its random
+``nvcc``.  It builds the port's CUDA kernels from the sources in the
+checkout (one ``nvcc`` per source, started together), holds each kernel
+against its plain PyTorch version, checks the collect kernel's random
 numbers, trains MAPPO through the port's entry point at the default
 configuration (1024 envs, buffer 1000, 50 + 50 epochs) for 2 repeats with
-the fused collect, and times the kernel.  Every phase prints as it goes;
-any failure exits non-zero.  The last two lines are one JSON object per
-kernel and ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
-no result, where CUDA is unavailable.  The training artifacts and a JSON
-record of the run go to ``--out`` (default: a temporary directory, removed
-at exit).
+``--fused-collect --fused-updates`` (the main path: every kernel's launch
+count is read around it), times each phase of a repeat on the fused and on
+the autograd update route, runs one repeat with sliced minibatches, and
+times every kernel.  Every phase prints as it goes; any failure exits
+non-zero.  The last three lines are the kernels' JSON object, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  It exits
+non-zero, printing no result, where CUDA is unavailable.  The training
+artifacts and a JSON record of the run go to ``--out`` (default: a
+temporary directory, removed at exit).
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -35,10 +40,37 @@ import torch
 # and log-prob) = 477; dynamics 3 x 48 = 144; rewards and done 332; reset
 # blend 83; step counter 2.  Philox's integer work is not counted.
 OPS_PER_ENV_STEP = 1830
+# Float operations of one actor row of ops/csrc/fused_update.cu, counted
+# the same way: z = A x + c, 8F + 4; the PPO chain (ppo_row), 91; the sums
+# g_z x^T and g_z, 8F + 4; the loss sum, 1.  At F = 12: 292.
+
+
+def actor_ops_per_row(f):
+    return 16 * f + 100
+
+
+# One critic row: W1 x + b1 and ReLU, 2 In H + 2H; v, 2H + 1; the loss
+# chain (critic_row), 27; g_pre = w2 g_v (h > 0), 3H; dW2, 2H; db1, H; dW1,
+# 2 In H; the loss and db2 sums, 2.  At In = 36, H = 50: 7,730.
+def critic_ops_per_row(n_in, h):
+    return 4 * n_in * h + 10 * h + 30
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 without tensor cores
-REPLACES = "marlnav_tpu/ops/fused_collect.py:327"
-SOURCE = "marlnav_tpu_torch/ops/csrc/fused_collect.cu"
+KERNELS = {
+    "fused_collect": dict(
+        source="marlnav_tpu_torch/ops/csrc/fused_collect.cu",
+        replaces="marlnav_tpu/ops/fused_collect.py:327"),
+    "fused_actor_grad": dict(
+        source="marlnav_tpu_torch/ops/csrc/fused_update.cu",
+        replaces="marlnav_tpu/ops/fused_update_tiled.py:226 and "
+                 "marlnav_tpu/ops/fused_update.py:758"),
+    "fused_critic_grad": dict(
+        source="marlnav_tpu_torch/ops/csrc/fused_update.cu",
+        replaces="marlnav_tpu/ops/fused_update_tiled.py:347 and "
+                 "marlnav_tpu/ops/fused_update.py:844"),
+}
 
 
 def phase(title):
@@ -53,19 +85,59 @@ def card_line():
 
 
 def cuda_ms(fn, reps=1, warmup=0):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events.
+    Each run is enqueued behind a ~5 ms spin of the device
+    (``torch.cuda._sleep``), so the events time the device's work and not
+    the host's gaps between a wrapper's launches."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn, reps=3):
+    """Medians over ``reps`` runs of ``fn()``, in ms: the device time (CUDA
+    events), the host's time to enqueue the work (until ``fn`` returns),
+    and the host's wall time until the device is done."""
+    dev_ms, enq_ms, wall_ms = [], [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        t1 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dev_ms.append(start.elapsed_time(end))
+        enq_ms.append((t1 - t0) * 1e3)
+        wall_ms.append((t2 - t0) * 1e3)
+    return {"device": statistics.median(dev_ms),
+            "enqueue": statistics.median(enq_ms),
+            "wall": statistics.median(wall_ms)}
+
+
+def ptxas_summary(log):
+    """One line per kernel of a build log: its name and ptxas -v's
+    register, stack and spill figures."""
+    lines, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def main(out_dir):
@@ -80,14 +152,18 @@ def main(out_dir):
                  f"{marlnav_tpu_torch.__file__}, not from this checkout")
     from marlnav_tpu_torch.__main__ import build_parser
     from marlnav_tpu_torch.algo import make_mappo
+    from marlnav_tpu_torch.algo.mappo import (minibatch_advantages,
+                                              minibatch_slices)
     from marlnav_tpu_torch.config import (EnvParams, MAPPOConfig,
                                           NormalizerConfig, ScalerConfig,
                                           TriangleInitConfig,
                                           resolve_run_config)
     from marlnav_tpu_torch.env import make_env
-    from marlnav_tpu_torch.models import Actor
+    from marlnav_tpu_torch.models import Actor, Critic
     from marlnav_tpu_torch.ops import fused_collect as fc
-    from marlnav_tpu_torch.ops._build import find_nvcc
+    from marlnav_tpu_torch.ops import fused_update as fu
+    from marlnav_tpu_torch.ops import update_math as um
+    from marlnav_tpu_torch.ops._build import find_nvcc, load_libraries
     from marlnav_tpu_torch.ops.step_math import StepMath
     from marlnav_tpu_torch.train import train
     from marlnav_tpu_torch.utils.seeding import make_generator
@@ -104,12 +180,13 @@ def main(out_dir):
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(subprocess.run([find_nvcc(), "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[-1])
-    build = fc.build_kernel()
-    print(f"kernel build: {build['seconds']:.1f} s -> {build['path']}")
-    for line in build["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
-    record["build_s"] = build["seconds"]
+    t0 = time.perf_counter()
+    builds = load_libraries(["fused_collect", "fused_update"])
+    record["build_s"] = time.perf_counter() - t0
+    print(f"both libraries built in parallel: {record['build_s']:.1f} s")
+    for name, (_, build) in builds.items():
+        print(f"{name}: {build['seconds']:.1f} s -> {build['path']}")
+        print("\n".join(ptxas_summary(build["log"])))
 
     def setup(p, t, episode_len=200, noisy=False, tame=False, seed=0):
         """Step math, start rows and the actor operator for one case."""
@@ -207,63 +284,146 @@ def main(out_dir):
     assert same and differ
 
     # ------------------------------------------------------------------
-    phase("4. training: default configuration, 2 repeats, fused collect")
+    phase("4. training (the main path): default configuration, 2 repeats, "
+          "--fused-collect --fused-updates")
     p, t = 1024, 1000
-    args = build_parser().parse_args(
-        ["-np", str(p), "-nt", str(2 * p * t), "-se", "0",
-         "--output-root", out_dir])  # defaults: -bl 1000 -bs 1000 -ne 50
-    cfg = resolve_run_config(args)
+
+    def run_config(extra, repeats=2):
+        # defaults: -bl 1000 -bs 1000 -ne 50
+        return resolve_run_config(build_parser().parse_args(
+            ["-np", str(p), "-nt", str(repeats * p * t), "-se", "0",
+             "--output-root", out_dir] + extra))
+
+    counters = {"fused_collect": fc.fused_collect_rows,
+                "fused_actor_grad": fu.actor_grad_sums,
+                "fused_critic_grad": fu.critic_grad_sums}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    cfg = run_config(["--fused-updates"])
     os.makedirs(out_dir, exist_ok=True)
-    fc.fused_collect_rows.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     ts, rows_out, logger = train(cfg, device="cuda", fused_collect=True,
                                  output_root=out_dir)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = fc.fused_collect_rows.launches
+    launches = read_counts()
     logs = logger.logs
-    print(f"train: {train_s:.2f} s for 2 repeats; kernel launches {launches}; "
-          f"mean_rew {logs['mean_rews']}; actor losses {len(logs['actor'])}, "
-          f"critic losses {len(logs['critic'])}")
-    assert launches == 2, f"the main path launched the kernel {launches}x"
-    assert len(logs["mean_rews"]) == 2 and len(logs["actor"]) == 100
+    print(f"train: {train_s:.2f} s for 2 repeats; kernel launches "
+          f"{launches}; mean_rew {logs['mean_rews']}; actor losses "
+          f"{len(logs['actor'])}, critic losses {len(logs['critic'])}")
+    assert launches == {"fused_collect": 2, "fused_actor_grad": 100,
+                        "fused_critic_grad": 100}, launches
+    assert len(logs["mean_rews"]) == 2 and len(logs["actor"]) == 100 \
+        and len(logs["critic"]) == 100
     for key in ("mean_rews", "actor", "critic"):
         assert all(math.isfinite(v) for v in logs[key]), key
     assert all(x.shape[-1] == p and bool(torch.isfinite(x).all())
                for x in rows_out.fields())
 
-    # Per-phase times of one more repeat through the same functions.
+    # Per-phase times of one more repeat through the same functions, on the
+    # fused and on the autograd update route.
+    routes = {"fused": cfg.model,
+              "autograd": dataclasses.replace(cfg.model, fused_updates=False)}
     env = make_env(cfg.env, cfg.init, dev)
-    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler)
-    ts, es = mappo.init(make_generator(0, dev))
     collect = fc.make_fused_collect(cfg.model, cfg.env, cfg.init,
                                     cfg.normalizer, cfg.scaler)
-    rows = fc.env_state_to_rows(es)
-    out = {}
-    times = {"kernel": [], "collect": [], "actor": [], "critic": []}
-    for r in range(3):
-        times["kernel"].append(cuda_ms(lambda: collect.run_kernel(ts, rows,
-                                                                  100 + r)))
+    record["phases_ms"] = {}
+    for route, model_cfg in routes.items():
+        mappo = make_mappo(model_cfg, env, cfg.normalizer, cfg.scaler)
+        ts, es = mappo.init(make_generator(0, dev))
+        rows = fc.env_state_to_rows(es)
+        out = {}
 
         def run_collect():
-            out["c"] = collect(ts, rows, 100 + r)
-        times["collect"].append(cuda_ms(run_collect))
+            out["c"] = collect(ts, rows, 100)
+        ph = {"kernel": timed(lambda: collect.run_kernel(ts, rows, 100)),
+              "collect": timed(run_collect)}
         buf = out["c"][1]
-        times["actor"].append(cuda_ms(lambda: mappo.train_actor(ts, buf)))
-        times["critic"].append(cuda_ms(lambda: mappo.train_critic(ts, buf)))
-    ph = {k: statistics.median(v) for k, v in times.items()}
-    ph["returns_tail"] = ph["collect"] - ph["kernel"]
-    repeat_ms = ph["collect"] + ph["actor"] + ph["critic"]
-    print(f"per repeat (median of 3, CUDA events): kernel {ph['kernel']:.3f} "
-          f"ms, critic values + returns tail {ph['returns_tail']:.3f} ms, "
-          f"actor phase {ph['actor']:.3f} ms, critic phase "
-          f"{ph['critic']:.3f} ms; repeat {repeat_ms:.3f} ms = "
-          f"{p * t / repeat_ms * 1e3:,.0f} env-steps/s")
-    record["phases_ms"] = ph
-    record["env_steps_per_s"] = p * t / repeat_ms * 1e3
+        ph["actor"] = timed(lambda: mappo.train_actor(ts, buf))
+        ph["critic"] = timed(lambda: mappo.train_critic(ts, buf))
+        ph["returns_tail"] = {k: ph["collect"][k] - ph["kernel"][k]
+                              for k in ph["collect"]}
+        ph["repeat"] = {k: ph["collect"][k] + ph["actor"][k]
+                        + ph["critic"][k] for k in ph["collect"]}
+        for name in ("kernel", "returns_tail", "actor", "critic", "repeat"):
+            v = ph[name]
+            print(f"{route} route, {name}: device {v['device']:.3f} ms, host "
+                  f"enqueue {v['enqueue']:.3f} ms, host wall "
+                  f"{v['wall']:.3f} ms (medians of 3)")
+        rep = ph["repeat"]["device"]
+        print(f"{route} route: repeat {rep:.3f} ms on the device = "
+              f"{p * t / rep * 1e3:,.0f} env-steps/s")
+        record["phases_ms"][route] = ph
+
+    # Where a fused repeat's time goes, by torch.profiler (its own overhead
+    # included): the device's busy share of the wall time, and the largest
+    # device kernels and host operations.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler)
+    ts, es = mappo.init(make_generator(0, dev))
+    rows = fc.env_state_to_rows(es)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        buf = collect(ts, rows, 101)[1]
+        mappo.train_actor(ts, buf)
+        mappo.train_critic(ts, buf)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Device-side ranges of host annotations (Adam's "Optimizer.step")
+    # overlap the kernels: count kernels and copies only.
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.key not in host_keys]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    if busy_ms > 0:
+        print(f"profiled fused repeat: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.1%}; largest kernels:")
+        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6}"
+                  f" {e.key[:70]}")
+    else:
+        print(f"profiled fused repeat: wall {wall_ms:.3f} ms; the profiler "
+              "recorded no device time: busy share not measured")
+    print("largest host operations (self CPU time):")
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6}"
+              f" {e.key[:70]}")
+    record["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms}
+
+    # One repeat with sliced minibatches (-bs 250: 4 slices, the last one
+    # short by the faithful last-step drop).
+    cfg_s = run_config(["--fused-updates", "-bs", "250"], repeats=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, logger_s = train(cfg_s, device="cuda", fused_collect=True,
+                           output_root=out_dir, verbose=False)
+    torch.cuda.synchronize()
+    sliced = read_counts()
+    print(f"-bs 250, 1 repeat: {time.perf_counter() - t0:.2f} s; kernel "
+          f"launches {sliced}")
+    assert sliced == {"fused_collect": 1, "fused_actor_grad": 200,
+                      "fused_critic_grad": 200}, sliced
+    assert len(logger_s.logs["actor"]) == 200
+    for key in ("mean_rews", "actor", "critic"):
+        assert all(math.isfinite(v) for v in logger_s.logs[key]), key
 
     # ------------------------------------------------------------------
-    phase("5. times, and the kernel against its plain version at these shapes")
+    phase("5. collect kernel: times, and against its plain version at these "
+          "shapes")
     shapes = {}
     for p, t in ((1024, 1000), (16384, 200)):
         sm, rows, a_comp, c_comp = setup(p, t)
@@ -303,24 +463,148 @@ def main(out_dir):
               f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB -> "
               f"{bytes_ms * 1e3:.1f} us; {ops / 1e9:.2f} GFLOP -> "
               f"{ops_ms * 1e3:.1f} us); {p * t / k_ms * 1e3:,.0f} env-steps/s")
-    record["times"] = {f"{p}x{t}": v for (p, t), v in shapes.items()}
-    record["max_abs_err"] = max_err
+    times = {"fused_collect": shapes}
+    errors = {"fused_collect": max_err}
+
+    # ------------------------------------------------------------------
+    phase("6. update kernels against their plain versions, and their times")
+    # Inputs: the buffer of a real collect (the fused collect kernel, initial
+    # networks) at each shape, faithful full batch (T - 1 steps), with
+    # networks of another seed: their ratios spread around 1 (some rows
+    # clipped) and their values leave the old ones' band.  With the
+    # networks that collected, every ratio is ~1 and every value equals
+    # its old one: all rows tie.  Errors:
+    # each output sum divided by its row count (what Adam sees) against the
+    # float64 plain version, with the float32 plain version's error beside
+    # it.  Asserted: the kernel within 1e-4 of the output's largest
+    # magnitude (+1e-7), and two launches equal bit for bit.
+    fns = {"fused_actor_grad": (fu.actor_grad_sums,
+                                um.actor_grad_sums_reference),
+           "fused_critic_grad": (fu.critic_grad_sums,
+                                 um.critic_grad_sums_reference)}
+
+    def actor_inputs(actor, mb, mcfg):
+        n = mb.log_probs.numel()
+        a_comp, c_comp = fc._affine_compose(actor)
+        return (a_comp, c_comp, mb.obs.reshape(n, -1),
+                mb.actions.reshape(n, -1), mb.log_probs.reshape(n),
+                minibatch_advantages(mb, mcfg), mcfg.epsilon, mcfg.ent_const)
+
+    def critic_inputs(c, mb, mcfg):
+        n = mb.returns.numel()
+        return (c.fc1.weight.detach(), c.fc1.bias.detach(),
+                c.fc2.weight.detach(), c.fc2.bias.detach(),
+                mb.obs.reshape(n, -1), mb.values.reshape(n),
+                mb.returns.reshape(n), mcfg.epsilon)
+
+    def check(name, label, args):
+        kernel, plain = fns[name]
+        n = args[4].shape[0]  # log-probs (actor) or obs rows (critic)
+        k1, k2 = kernel(*args), kernel(*args)
+        p32 = plain(*args)
+        p64 = plain(*(x.double() if torch.is_tensor(x) else x for x in args))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k1, k2)), \
+            f"{name} {label}: two launches differ"
+        err_k = err_p = 0.0
+        for k, q, w in zip(k1, p32, p64):
+            w = w / n
+            ek = (k.double() / n - w).abs().max().item()
+            ep = (q.double() / n - w).abs().max().item()
+            tol = 1e-4 * w.abs().max().item() + 1e-7
+            assert ek <= tol, f"{name} {label}: error {ek} > {tol}"
+            err_k, err_p = max(err_k, ek), max(err_p, ep)
+        print(f"{name} {label}: {n:,} rows; max abs err against float64: "
+              f"kernel {err_k:.3e}, plain float32 {err_p:.3e}; two launches "
+              f"bitwise equal")
+        errors[name] = max(errors.get(name, 0.0), err_k)
+
+    for name in fns:
+        times[name] = {}
+    for p, t in ((1024, 1000), (16384, 200)):
+        scfg = resolve_run_config(build_parser().parse_args(
+            ["-np", str(p), "-bl", str(t), "-bs", str(t), "-nt", str(p * t),
+             "-se", "0"]))
+        mcfg = scfg.model
+        mappo = make_mappo(mcfg, make_env(scfg.env, scfg.init, dev),
+                           scfg.normalizer, scfg.scaler)
+        ts, es = mappo.init(make_generator(1, dev))
+        _, buf, _ = fc.make_fused_collect(
+            mcfg, scfg.env, scfg.init, scfg.normalizer, scfg.scaler)(
+                ts, fc.env_state_to_rows(es), 7)
+        mb = minibatch_slices(buf, mcfg)[0]
+        g = torch.Generator().manual_seed(2)
+        actor = Actor(mcfg.obs_size, mcfg.hidden_size, generator=g).to(dev)
+        critic = Critic(mcfg.obs_size, mcfg.num_agents, mcfg.hidden_size,
+                        generator=g).to(dev)
+        inputs = {"fused_actor_grad": actor_inputs(actor, mb, mcfg),
+                  "fused_critic_grad": critic_inputs(critic, mb, mcfg)}
+        for name, args in inputs.items():
+            check(name, f"P={p} T={t} full batch", args)
+        if (p, t) == (1024, 1000):
+            sliced_cfg = dataclasses.replace(mcfg, batch_size=250)
+            for i, smb in enumerate(minibatch_slices(buf, sliced_cfg)):
+                if i in (0, sliced_cfg.num_minibatches - 1):
+                    label = f"-bs 250 slice {i} ({smb.obs.shape[0]} steps)"
+                    check("fused_actor_grad", label,
+                          actor_inputs(actor, smb, sliced_cfg))
+                    check("fused_critic_grad", label,
+                          critic_inputs(critic, smb, sliced_cfg))
+            check("fused_actor_grad", "collecting actor (ratios ~1, tied)",
+                  actor_inputs(ts.actor, mb, mcfg))
+            check("fused_critic_grad", "collecting critic (all rows tied)",
+                  critic_inputs(ts.critic, mb, mcfg))
+
+        f, h = mcfg.obs_size, mcfg.hidden_size
+        n_in = mcfg.num_agents * f
+        n_par = h * n_in + 2 * h + 1
+        work = {
+            "fused_actor_grad": (
+                inputs["fused_actor_grad"][4].shape[0],
+                lambda n: n * (4 * f + 16) + 4 * (4 * f + 4) + 4 * (4 * f + 5),
+                lambda n: n * actor_ops_per_row(f)),
+            "fused_critic_grad": (
+                inputs["fused_critic_grad"][4].shape[0],
+                lambda n: n * (4 * n_in + 8) + 4 * (2 * n_par + 1),
+                lambda n: n * critic_ops_per_row(n_in, h))}
+        for name, (n, nbytes, ops) in work.items():
+            kernel, plain = fns[name]
+            args = inputs[name]
+            k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            bytes_ms = nbytes(n) / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops(n) / FP32_OPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            times[name][(p, t)] = dict(
+                ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"{name} P={p} T={t}: {n:,} rows, kernel {k_ms:.4f} ms "
+                  f"(median of 7), plain version {plain_ms:.3f} ms (median "
+                  f"of 3), bound {bound_ms * 1e3:.1f} us ({nbytes(n) / 1e6:.1f}"
+                  f" MB -> {bytes_ms * 1e3:.1f} us; {ops(n) / 1e9:.2f} GFLOP "
+                  f"-> {ops_ms * 1e3:.1f} us), {bound_ms / k_ms:.1%} of the "
+                  f"bound")
+
+    record["times"] = {name: {f"{p}x{t}": v for (p, t), v in by.items()}
+                       for name, by in times.items()}
+    record["max_abs_err"] = errors
+    record["launches"] = launches
     record["card"] = card
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
 
-    main_shape = shapes[(1024, 1000)]
+    def entry(name):
+        main_, big = times[name][(1024, 1000)], times[name][(16384, 200)]
+        return {"name": name, "route": "cuda", **KERNELS[name],
+                "launches": launches[name], "max_abs_err": errors[name],
+                "ms": main_["ms"], "plain_ms": main_["plain_ms"],
+                "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
+                "library_ms": None, "ms_16384x200": big["ms"],
+                "plain_ms_16384x200": big["plain_ms"],
+                "bound_ms_16384x200": big["bound_ms"]}
+
+    print(json.dumps({"kernels": [entry(name) for name in KERNELS]}))
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "fused_collect", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "launched": launches > 0,
-        "checked": True, "max_abs_err": max_err,
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None,
-        "ms_16384x200": shapes[(16384, 200)]["ms"],
-        "plain_ms_16384x200": shapes[(16384, 200)]["plain_ms"],
-        "bound_ms_16384x200": shapes[(16384, 200)]["bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,8 @@ Package layout (file names follow ``marlnav_tpu``):
   env/         environment core (dynamics, observations, rewards, auto-reset)
   models/      actor / critic ``nn.Module``s and the Gaussian policy
   algo/        MAPPO: rollout loop, returns, PPO losses, Adam update loops
-  ops/         the fused collect kernel (CUDA C++ under ops/csrc/) and its
-               plain PyTorch version
+  ops/         the fused collect and fused update kernels (CUDA C++ under
+               ops/csrc/) and their plain PyTorch versions
   utils/       seeding, transforms, stats and weight files
   train.py     the training loop; __main__.py the CLI
 

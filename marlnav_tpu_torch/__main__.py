@@ -8,10 +8,14 @@ This port runs the training mode.  Flags whose features are not ported
 yet raise ``NotImplementedError`` naming ROADMAP.md instead of being
 ignored: ``--num-data``, ``--num-model``, ``--multihost``,
 ``--checkpoint-dir``/``--resume``, ``--jit-repeats``,
-``--pipeline-repeats``, ``--fused-updates``, ``--bf16-updates``,
-``--returns-f64``, ``-re`` and ``-rc``.  ``--allow-interpret`` has no
-counterpart (the port has no kernel interpreter: ``--device cpu`` runs the
-fused collect's plain PyTorch version) and raises as well.
+``--pipeline-repeats``, ``--bf16-updates``, ``--returns-f64``, ``-re`` and
+``-rc``.  ``--allow-interpret`` has no counterpart (the port has no kernel
+interpreter: ``--device cpu`` runs the kernels' plain PyTorch versions) and
+raises as well.
+
+``--fused-collect`` and ``--fused-updates`` route the rollout and the PPO
+gradients through the port's CUDA kernels (ops/csrc/); on ``--device cpu``
+they run the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -114,7 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "(triangle scenarios; its plain PyTorch version "
                              "on --device cpu)")
     parser.add_argument("--fused-updates", action="store_true",
-                        help="fused PPO-update kernels (not ported)")
+                        help="PPO gradients from the fused CUDA kernels, "
+                             "Adam outside (their plain PyTorch versions "
+                             "on --device cpu)")
     parser.add_argument("--returns-f64", action="store_true",
                         help="float64 returns accumulation (not ported)")
     parser.add_argument("--bf16-updates", action="store_true",
@@ -142,7 +148,6 @@ _UNPORTED = (
     ("--resume", lambda a: a.resume),
     ("--jit-repeats", lambda a: a.jit_repeats != 1),
     ("--pipeline-repeats", lambda a: a.pipeline_repeats),
-    ("--fused-updates", lambda a: a.fused_updates),
     ("--bf16-updates", lambda a: a.bf16_updates),
     ("--returns-f64", lambda a: a.returns_f64),
     ("-re/--rendering", lambda a: a.rendering),
@@ -160,8 +165,8 @@ def reject_unported(args) -> None:
     if args.allow_interpret:
         raise NotImplementedError(
             "--allow-interpret has no counterpart in marlnav_tpu_torch: it "
-            "has no kernel interpreter; --device cpu runs the fused "
-            "collect's plain PyTorch version")
+            "has no kernel interpreter; --device cpu runs the kernels' "
+            "plain PyTorch versions")
 
 
 def cli(argv=None) -> None:

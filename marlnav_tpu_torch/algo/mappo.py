@@ -23,6 +23,11 @@ Faithful-semantics notes (SURVEY.md §2.5), active when ``cfg.faithful``
 ``faithful=False`` fixes the pairing and the last-step drop;
 ``use_gae=True`` switches the advantage estimator to bootstrapped GAE.
 
+``fused_updates=True`` computes each minibatch's loss and gradients with the
+hand-derived backwards of ``ops/fused_update.py`` (CUDA kernels on the card,
+their plain versions on the CPU) instead of autograd; the same Adam steps
+consume them (marlnav_tpu/algo/mappo.py:383-471).
+
 Clip edges follow JAX's gradient rule: ``clip`` below is
 ``minimum(maximum(x, lo), hi)``, whose gradient at an exact bound is 1/2
 (an autograd tie split), where ``torch.clamp`` passes the full gradient.
@@ -170,16 +175,24 @@ def _pair_per_agent(x: torch.Tensor, cfg: MAPPOConfig) -> torch.Tensor:
     return torch.repeat_interleave(x, cfg.num_agents)
 
 
+def minibatch_advantages(mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
+    """(size*P*A,) advantages in the minibatch's (step, env, agent) row
+    order: returns - values paired per agent within the slice, so the
+    faithful tiling wraps modulo size*P (reference models.py:285-286)."""
+    _, _, _, values, returns = _flatten_minibatch(mb, cfg)
+    return _pair_per_agent(returns, cfg) - _pair_per_agent(values, cfg)
+
+
 def actor_loss(actor: Actor, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
     """Negated PPO-clip + entropy objective (the reference *maximizes* it,
     reference models.py:71-72, 270-299)."""
-    obs, actions, old_log_probs, values, returns = _flatten_minibatch(mb, cfg)
+    obs, actions, old_log_probs, _, _ = _flatten_minibatch(mb, cfg)
     mean, var = actor(obs)
     dist = DiagGaussian(mean, var)
     new_log_probs = dist.log_prob(actions)
     entropies = dist.entropy()
 
-    advantages = _pair_per_agent(returns, cfg) - _pair_per_agent(values, cfg)
+    advantages = minibatch_advantages(mb, cfg)
     ratios = torch.exp(new_log_probs - old_log_probs)
     clip_obj = torch.mean(torch.minimum(
         ratios * advantages,
@@ -222,8 +235,8 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
                scaler_cfg: ScalerConfig) -> MAPPO:
     """Build the MAPPO function bundle on ``env.device``.  The train
     functions update the networks and optimizers of ``ts`` in place."""
-    unported = [name for name in ("returns_f64", "bf16_updates",
-                                  "fused_updates") if getattr(cfg, name)]
+    unported = [name for name in ("returns_f64", "bf16_updates")
+                if getattr(cfg, name)]
     if unported:
         raise NotImplementedError(
             f"MAPPOConfig.{', '.join(unported)} is not ported to "
@@ -287,27 +300,47 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         buffer = Buffer(obs_b, actions, log_probs, values, rets, done)
         return env_state, buffer, RolloutMetrics(mean_rew, env_state.stats)
 
-    def _train_phase(loss_fn, get_module, get_opt):
+    if cfg.fused_updates:
+        from marlnav_tpu_torch.ops.fused_update import actor_grad, critic_grad
+
+        # (module, minibatch, staged) -> (loss, grads by parameter name)
+        actor_step = lambda m, mb, adv: actor_grad(m, mb, adv, cfg)  # noqa: E731
+        critic_step = lambda m, mb, _: critic_grad(m, mb, cfg)  # noqa: E731
+    else:
+        actor_step = critic_step = None
+
+    def _train_phase(loss_fn, grad_fn, stage_fn, get_module, get_opt):
         def train(ts: TrainState, buffer: Buffer):
             """Epochs x minibatches of Adam steps (reference
             models.py:160-198); returns ``(ts, losses)``, the per-minibatch
-            losses as one (epochs * minibatches,) tensor."""
+            losses as one (epochs * minibatches,) tensor.  Fused: each
+            slice's advantages are staged once per phase, not per epoch."""
             module, opt = get_module(ts), get_opt(ts)
             slices = minibatch_slices(buffer, cfg)
+            params = dict(module.named_parameters())
+            if grad_fn is not None:
+                staged = [stage_fn(mb) for mb in slices]
             losses = []
             for _ in range(cfg.num_epochs):
-                for mb in slices:
-                    loss = loss_fn(module, mb, cfg)
-                    opt.zero_grad(set_to_none=True)
-                    loss.backward()
+                for i, mb in enumerate(slices):
+                    if grad_fn is None:
+                        loss = loss_fn(module, mb, cfg)
+                        opt.zero_grad(set_to_none=True)
+                        loss.backward()
+                    else:
+                        loss, grads = grad_fn(module, mb, staged[i])
+                        for name, g in grads.items():
+                            params[name].grad = g
                     opt.step()
                     losses.append(loss.detach())
             return ts, torch.stack(losses)
 
         return train
 
-    train_actor = _train_phase(actor_loss, lambda ts: ts.actor,
-                               lambda ts: ts.actor_opt)
-    train_critic = _train_phase(critic_loss, lambda ts: ts.critic,
-                                lambda ts: ts.critic_opt)
+    train_actor = _train_phase(
+        actor_loss, actor_step, lambda mb: minibatch_advantages(mb, cfg),
+        lambda ts: ts.actor, lambda ts: ts.actor_opt)
+    train_critic = _train_phase(
+        critic_loss, critic_step, lambda mb: None, lambda ts: ts.critic,
+        lambda ts: ts.critic_opt)
     return MAPPO(cfg, init, collect, train_actor, train_critic)

@@ -1,4 +1,6 @@
-"""Kernels: the fused collect (CUDA C++ under csrc/) and its plain version.
+"""Kernels (CUDA C++ under csrc/) and their plain PyTorch versions: the
+fused collect, and the actor- and critic-gradient kernels of the fused
+updates.
 
 Importing this package builds nothing; a kernel is compiled with ``nvcc``
 at its first launch (ops/_build.py).
@@ -13,10 +15,26 @@ from marlnav_tpu_torch.ops.fused_collect import (
     rows_to_env_arrays,
     rows_to_env_state,
 )
+from marlnav_tpu_torch.ops.fused_update import (
+    actor_grad,
+    actor_grad_sums,
+    critic_grad,
+    critic_grad_sums,
+)
+from marlnav_tpu_torch.ops.update_math import (
+    actor_grad_sums_reference,
+    critic_grad_sums_reference,
+)
 
 __all__ = [
     "RowState",
+    "actor_grad",
+    "actor_grad_sums",
+    "actor_grad_sums_reference",
     "collect_rows_reference",
+    "critic_grad",
+    "critic_grad_sums",
+    "critic_grad_sums_reference",
     "env_state_to_rows",
     "fused_collect_rows",
     "make_fused_collect",

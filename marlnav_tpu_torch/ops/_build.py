@@ -45,33 +45,54 @@ def find_nvcc() -> str:
         "kernels are built from source on first use")
 
 
-def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
-    """Build (if needed) and load ``csrc/<name>.cu``.  Returns the library
-    and a record ``{"path", "seconds", "log"}``: the build time (0 when an
-    up-to-date library was found) and the compiler's output, which
-    includes ``ptxas -v``'s register and spill report."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _library_path(name: str) -> str:
     sources = sorted(f for f in os.listdir(CSRC)
                      if f.endswith((".cu", ".cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sources:
         with open(os.path.join(CSRC, f), "rb") as fh:
             digest.update(f.encode() + fh.read())
-    path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-    record = {"path": path, "seconds": 0.0, "log": ""}
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        record["seconds"] = time.perf_counter() - t0
-        record["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                               f"{record['log']}")
-        os.replace(tmp, path)  # atomic: a concurrent build loses nothing
-    _LOADED[name] = (ctypes.CDLL(path), record)
-    return _LOADED[name]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
+    """Build (where needed) and load ``csrc/<name>.cu`` for each name, one
+    ``nvcc`` per source, all started together.  Returns, per name, the
+    library and a record ``{"path", "seconds", "log"}``: the build time (0
+    when an up-to-date library was found) and the compiler's output, which
+    includes ``ptxas -v``'s register and spill report."""
+    builds = {}
+    for name in names:
+        if name in _LOADED or name in builds:
+            continue
+        path = _library_path(name)
+        record = {"path": path, "seconds": 0.0, "log": ""}
+        proc = None
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, f"{name}.cu")]
+            proc = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    cmd, tmp, time.perf_counter())
+        builds[name] = (record, proc)
+    for record, proc in builds.values():  # wait for every build first
+        if proc is not None:
+            record["log"] = proc[0].communicate()[0]
+            record["seconds"] = time.perf_counter() - proc[3]
+    for name, (record, proc) in builds.items():
+        if proc is not None:
+            popen, cmd, tmp, _ = proc
+            if popen.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                                   f"{record['log']}")
+            # atomic: a concurrent build loses nothing
+            os.replace(tmp, record["path"])
+        _LOADED[name] = (ctypes.CDLL(record["path"]), record)
+    return {name: _LOADED[name] for name in names}
+
+
+def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
+    """``load_libraries([name])[name]``."""
+    return load_libraries([name])[name]

@@ -1,0 +1,479 @@
+// PPO update gradients for Hopper: the actor's and the critic's loss and
+// parameter-gradient sums over a set of rows, in one streaming pass each.
+//
+// Replaces four Pallas TPU kernels of marlnav_tpu/ops/, which compute two
+// functions in two VMEM layouts each:
+//   actor_grad_kernel   <- fused_update_tiled.py:157 make_tiled_actor_grad
+//                          (pallas_call :226, the full-batch route) and
+//                          fused_update.py:706 _make_actor_grad_affine
+//                          (pallas_call :758, staged, sliced minibatches);
+//   critic_grad_kernel  <- fused_update_tiled.py:265 make_tiled_critic_grad
+//                          (pallas_call :347) and fused_update.py:787
+//                          make_fused_critic_grad (pallas_call :844).
+// The layouts were the TPU's concern; both kernels read a time slice of the
+// canonical Buffer as flat rows (actor (t, p, a) rows of obs (N, F); critic
+// (t, p) rows of obs (N, A*F)), so one kernel serves the full batch and any
+// minibatch slice.  The plain PyTorch versions are ops/update_math.py
+// actor_grad_sums_reference / critic_grad_sums_reference; the per-row
+// arithmetic here follows ops/update_math.py ppo_chain / critic_chain op for
+// op (JAX's balanced min/max ties, the half-weight clip edges, relu'(0) = 0).
+//
+// No sequential grid: a TPU kernel carries its sums across grid steps in
+// VMEM.  Here each block writes one partial per output into `partials`
+// (gridDim.x, n_out), and reduce_partials_kernel, launched next on the same
+// stream, sums the blocks' partials in a fixed order (in double).  There is
+// no float atomicAdd, and the grid depends only on the row count and the
+// card's SM count, so two launches on the same input agree bit for bit.
+//
+// Bounds on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32 without tensor
+// cores), default configuration (F = 12, A*F = 36, H = 50), faithful full
+// batch: 999 x 1024 x 3 = 3,068,928 actor rows, 1,022,976 critic rows.
+//   actor:  64 B a row (obs 48, action 8, log-prob 4, advantage 4)
+//           = 196 MB -> 58.6 us; ~292 float operations a row (0.9 GFLOP,
+//           13 us).  Bytes bound it.  Design: one thread per row in a
+//           grid-stride loop over 4 blocks an SM, the 4 x F + 4 operator in
+//           shared memory, the 4F + 5 sums in registers, coalesced float2
+//           loads; one warp-shuffle + shared-memory reduction a block.
+//   critic: 152 B a row = 155 MB -> 46 us; ~4*In*H + 10*H operations a row
+//           (7,700: two 36 x 50 products forward and backward) = 7.9 GFLOP
+//           -> 118 us.  Float operations bound it.  Design: a block stages
+//           a 64-row tile of obs and of the hidden activations (then g_pre)
+//           in shared memory; the H*In + 2H + 2 accumulators are split over
+//           the block's 256 threads, which keep them in registers across
+//           every tile the block visits.  The products run from shared
+//           memory in float32 on the CUDA cores; tensor cores, TMA and a
+//           register-tiled product are later work.
+// Built with -fmad=false like the collect kernel (one flag set for the
+// port's libraries): every multiply and add rounds separately, as PyTorch's
+// elementwise operations do, at the price of the fused multiply-adds the
+// products would otherwise use (about half the critic's issue rate).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace marlnav {
+namespace update {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 4;  // the wrapper sizes the grid with it
+constexpr int kMaxObs = 24;      // actor widths instantiated: even 2 .. 24
+constexpr int kTileRows = 64;    // critic rows staged a tile
+constexpr int kMaxHidden = 64;
+constexpr int kMaxIn = 96;
+constexpr int kMaxEntries = (kMaxHidden * kMaxIn + kThreads - 1) / kThreads;
+constexpr float kLog2Pi2 = static_cast<float>(2.0 * 1.8378770664093453);
+constexpr float kEnt0 = static_cast<float>(1.0 + 1.8378770664093453);
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float flag(bool b) { return b ? 1.f : 0.f; }
+
+// d clip(x, lo, hi) / dx: 1 inside, 0 outside, 1/2 exactly on a bound.
+__device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
+  const float inside = flag(x > lo) * flag(x < hi);
+  const float on_edge = flag(x == lo) + flag(x == hi);
+  return inside + 0.5f * on_edge;
+}
+
+struct ActorArgs {
+  const float* obs;  // (N, F)
+  const float* act;  // (N, 2)
+  const float* lp;   // (N,) behaviour log-probs
+  const float* adv;  // (N,)
+  const float* op;   // (4F + 4): a_comp row-major, then c_comp
+  long long n_rows;
+  float lo, hi;      // 1 - eps, 1 + eps
+  float ent_c, ent_half;  // ent_const, ent_const * 0.5
+  float* partials;   // (gridDim.x, 1 + 4F + 4)
+};
+
+// One row of update_math.ppo_chain: the row's loss term, and g_z =
+// [g_u0, g_u1, g_s0, g_s1] from z = [u0, u1, s0, s1].
+__device__ __forceinline__ float ppo_row(const float z[4], float2 a,
+                                         float lp_b, float adv,
+                                         const ActorArgs& k, float g_z[4]) {
+  const float act[2] = {a.x, a.y};
+  float mu[2], e_s[2], var[2], diff[2], inv_var[2], log_var[2], zz[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const float s = z[2 + c];
+    mu[c] = tanhf(z[c]);
+    e_s[c] = expf(-fabsf(s));
+    var[c] = fmaxf(s, 0.f) + log1pf(e_s[c]);
+    diff[c] = act[c] - mu[c];
+    inv_var[c] = 1.f / var[c];
+    log_var[c] = logf(var[c]);
+    zz[c] = diff[c] * diff[c] * inv_var[c];
+  }
+  const float lv_sum = log_var[0] + log_var[1];
+  const float lp_new = -0.5f * (kLog2Pi2 + lv_sum + zz[0] + zz[1]);
+  const float ent = kEnt0 + 0.5f * lv_sum;
+
+  const float ratio = expf(lp_new - lp_b);
+  const float clipped = fminf(fmaxf(ratio, k.lo), k.hi);
+  const float o1 = ratio * adv;
+  const float o2 = clipped * adv;
+  const float obj = fminf(o1, o2);
+  const float loss = -(obj + k.ent_c * ent);
+
+  const float w_o1 = flag(o1 < o2) + 0.5f * flag(o1 == o2);
+  const float w_o2 = 1.f - w_o1;
+  const float dclip = clip_grad(ratio, k.lo, k.hi);
+  const float g_ratio = -adv * (w_o1 + w_o2 * dclip);
+  const float g_lp = g_ratio * ratio;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const float s = z[2 + c];
+    const float g_mu = g_lp * diff[c] * inv_var[c];
+    const float g_var =
+        g_lp * 0.5f * (zz[c] - 1.f) * inv_var[c] - k.ent_half * inv_var[c];
+    g_z[c] = g_mu * (1.f - mu[c] * mu[c]);
+    const float r_e = 1.f / (1.f + e_s[c]);
+    g_z[2 + c] = g_var * (s >= 0.f ? r_e : e_s[c] * r_e);
+  }
+  return loss;
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    actor_grad_kernel(const ActorArgs args) {
+  constexpr int kOut = 1 + 4 * F + 4;  // loss, dz (4, F), dzs (4)
+  __shared__ float s_op[4 * F + 4];
+  __shared__ float s_red[kWarps][kOut];
+  for (int i = threadIdx.x; i < 4 * F + 4; i += kThreads) s_op[i] = args.op[i];
+  __syncthreads();
+
+  float loss = 0.f, dz[4][F], dzs[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    dzs[c] = 0.f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) dz[c][f] = 0.f;
+  }
+
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long row = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+       row < args.n_rows; row += stride) {
+    float x[F];
+    const float2* xr = reinterpret_cast<const float2*>(args.obs + row * F);
+#pragma unroll
+    for (int f = 0; f < F / 2; ++f) {
+      const float2 v = xr[f];
+      x[2 * f] = v.x;
+      x[2 * f + 1] = v.y;
+    }
+    float z[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc = acc + s_op[c * F + f] * x[f];
+      z[c] = acc + s_op[4 * F + c];
+    }
+    float g_z[4];
+    loss += ppo_row(z, reinterpret_cast<const float2*>(args.act)[row],
+                    args.lp[row], args.adv[row], args, g_z);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dzs[c] += g_z[c];
+#pragma unroll
+      for (int f = 0; f < F; ++f) dz[c][f] += g_z[c] * x[f];
+    }
+  }
+
+  // Block reduction: warp shuffles, then the warps in order.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v = warp_sum(loss);
+  if (lane == 0) s_red[warp][0] = v;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      v = warp_sum(dz[c][f]);
+      if (lane == 0) s_red[warp][1 + c * F + f] = v;
+    }
+    v = warp_sum(dzs[c]);
+    if (lane == 0) s_red[warp][1 + 4 * F + c] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kOut; k += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += s_red[w][k];
+    args.partials[static_cast<long long>(blockIdx.x) * kOut + k] = s;
+  }
+}
+
+struct CriticArgs {
+  const float* obs;   // (N, In)
+  const float* vold;  // (N,) behaviour values
+  const float* ret;   // (N,)
+  const float* w1;    // (H, In)
+  const float* b1;    // (H,)
+  const float* w2;    // (1, H)
+  const float* b2;    // (1,)
+  long long n_rows;
+  int in_size, hidden;
+  float eps;
+  float* partials;  // (gridDim.x, 1 + H*In + 2H + 1)
+};
+
+// Dynamic shared memory of critic_grad_kernel, in floats.  Odd row strides
+// for W1 and the activations keep the column-wise reads free of bank
+// conflicts.
+__host__ __device__ inline int critic_smem_floats(int in_size, int hidden) {
+  return hidden * (in_size | 1) + 2 * hidden + kTileRows * in_size +
+         kTileRows * (hidden | 1) + 3 * kTileRows;
+}
+
+// One row of update_math.critic_chain; returns g_v, the loss term in *loss.
+__device__ __forceinline__ float critic_row(float v, float vold, float ret,
+                                           float eps, float* loss) {
+  const float lo = vold - eps, hi = vold + eps;
+  const float clamped = fminf(fmaxf(v, lo), hi);
+  const float e1 = v - ret;
+  const float e2 = clamped - ret;
+  const float d1 = e1 * e1;
+  const float d2 = e2 * e2;
+  *loss = fmaxf(d1, d2);
+  const float w_d2 = flag(d1 < d2) + 0.5f * flag(d1 == d2);
+  const float w_d1 = 1.f - w_d2;
+  return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    critic_grad_kernel(const CriticArgs args) {
+  extern __shared__ float smem[];
+  const int in = args.in_size, hid = args.hidden;
+  const int ldw = in | 1, ldh = hid | 1, tid = threadIdx.x;
+  float* s_w1 = smem;                       // (H, ldw)
+  float* s_b1 = s_w1 + hid * ldw;           // (H,)
+  float* s_w2 = s_b1 + hid;                 // (H,)
+  float* s_x = s_w2 + hid;                  // (kTileRows, In)
+  float* s_h = s_x + kTileRows * in;        // (kTileRows, ldh): h, then g_pre
+  float* s_gv = s_h + kTileRows * ldh;      // (kTileRows,)
+  float* s_red = s_gv + kTileRows;          // (2, kTileRows)
+  for (int i = tid; i < hid * in; i += kThreads)
+    s_w1[(i / in) * ldw + i % in] = args.w1[i];
+  for (int j = tid; j < hid; j += kThreads) {
+    s_b1[j] = args.b1[j];
+    s_w2[j] = args.w2[j];
+  }
+  const float b2 = args.b2[0];
+  __syncthreads();
+
+  const int n_w1 = hid * in;
+  float acc[kMaxEntries];  // dW1 entries tid + m * kThreads, row-major (j, k)
+#pragma unroll
+  for (int m = 0; m < kMaxEntries; ++m) acc[m] = 0.f;
+  float acc_b1 = 0.f, acc_w2 = 0.f;    // unit tid < H
+  float acc_loss = 0.f, acc_b2 = 0.f;  // tile row tid < kTileRows
+
+  const long long n_tiles = (args.n_rows + kTileRows - 1) / kTileRows;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * kTileRows;
+    const int rows = static_cast<int>(
+        args.n_rows - r0 < kTileRows ? args.n_rows - r0 : kTileRows);
+    const float* src = args.obs + r0 * in;
+    for (int i = tid; i < kTileRows * in; i += kThreads)
+      s_x[i] = i < rows * in ? src[i] : 0.f;
+    __syncthreads();
+
+    // Forward: h = relu(W1 x + b1), one (row, unit) pair a thread.
+    for (int p = tid; p < kTileRows * hid; p += kThreads) {
+      const int r = p / hid, j = p - r * hid;
+      const float* w = s_w1 + j * ldw;
+      const float* x = s_x + r * in;
+      float a = 0.f;
+      for (int k = 0; k < in; ++k) a = a + w[k] * x[k];
+      s_h[r * ldh + j] = fmaxf(a + s_b1[j], 0.f);
+    }
+    __syncthreads();
+
+    // v = w2 . h + b2 and the loss chain, one row a thread; padding rows
+    // get g_v = 0.
+    if (tid < kTileRows) {
+      float gv = 0.f;
+      if (tid < rows) {
+        const float* h = s_h + tid * ldh;
+        float a = 0.f;
+        for (int j = 0; j < hid; ++j) a = a + s_w2[j] * h[j];
+        float loss;
+        gv = critic_row(a + b2, args.vold[r0 + tid], args.ret[r0 + tid],
+                        args.eps, &loss);
+        acc_loss += loss;
+        acc_b2 += gv;
+      }
+      s_gv[tid] = gv;
+    }
+    __syncthreads();
+
+    // dW2 = sum g_v h; g_pre = (w2 g_v) * (h > 0), in place of h; db1.
+    if (tid < hid) {
+      const float w2j = s_w2[tid];
+      float sw2 = 0.f, sb1 = 0.f;
+      for (int r = 0; r < kTileRows; ++r) {
+        const float h = s_h[r * ldh + tid], gv = s_gv[r];
+        sw2 = sw2 + gv * h;
+        const float gp = (w2j * gv) * flag(h > 0.f);
+        s_h[r * ldh + tid] = gp;
+        sb1 = sb1 + gp;
+      }
+      acc_w2 += sw2;
+      acc_b1 += sb1;
+    }
+    __syncthreads();
+
+    // dW1 = sum g_pre x^T over the tile, each thread its own entries.
+#pragma unroll
+    for (int m = 0; m < kMaxEntries; ++m) {
+      const int e = tid + m * kThreads;
+      if (e < n_w1) {
+        const int j = e / in, k = e - j * in;
+        float s = 0.f;
+        for (int r = 0; r < kTileRows; ++r)
+          s = s + s_h[r * ldh + j] * s_x[r * in + k];
+        acc[m] += s;
+      }
+    }
+    __syncthreads();
+  }
+
+  // This block's partials: loss, dW1 (H, In), db1 (H), dW2 (H), db2.
+  const int n_out = 1 + n_w1 + 2 * hid + 1;
+  float* out = args.partials + static_cast<long long>(blockIdx.x) * n_out;
+#pragma unroll
+  for (int m = 0; m < kMaxEntries; ++m) {
+    const int e = tid + m * kThreads;
+    if (e < n_w1) out[1 + e] = acc[m];
+  }
+  if (tid < hid) {
+    out[1 + n_w1 + tid] = acc_b1;
+    out[1 + n_w1 + hid + tid] = acc_w2;
+  }
+  if (tid < kTileRows) {
+    s_red[tid] = acc_loss;
+    s_red[kTileRows + tid] = acc_b2;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float l = 0.f, b = 0.f;
+    for (int r = 0; r < kTileRows; ++r) {
+      l += s_red[r];
+      b += s_red[kTileRows + r];
+    }
+    out[0] = l;
+    out[n_out - 1] = b;
+  }
+}
+
+// out[c] = sum over blocks b, in order, of partials[b, c] (in double).
+__global__ void reduce_partials_kernel(const float* partials, int blocks,
+                                       int n_out, float* out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_out) return;
+  double s = 0.0;
+  for (int b = 0; b < blocks; ++b)
+    s += static_cast<double>(partials[static_cast<long long>(b) * n_out + c]);
+  out[c] = static_cast<float>(s);
+}
+
+inline cudaError_t reduce(const float* partials, int blocks, int n_out,
+                          float* out, cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<<<(n_out + kThreads - 1) / kThreads, kThreads, 0,
+                           s>>>(partials, blocks, n_out, out);
+  return cudaGetLastError();
+}
+
+}  // namespace update
+}  // namespace marlnav
+
+extern "C" {
+
+int marlnav_update_blocks_per_sm() { return marlnav::update::kBlocksPerSm; }
+int marlnav_actor_max_obs() { return marlnav::update::kMaxObs; }
+int marlnav_critic_max_hidden() { return marlnav::update::kMaxHidden; }
+int marlnav_critic_max_in() { return marlnav::update::kMaxIn; }
+int marlnav_critic_tile_rows() { return marlnav::update::kTileRows; }
+
+// Both launch on `stream` (a cudaStream_t from torch.cuda.current_stream()):
+// the grad kernel on `blocks` blocks, then the fixed-order reduction of its
+// partials into `out`.  They return cudaGetLastError(): 0 when both
+// launches were accepted.
+
+// out: loss_sum, dz (4, F), dzs (4).
+int marlnav_actor_grad_sums(const float* obs, const float* act,
+                            const float* lp, const float* adv,
+                            const float* op, long long n_rows, int obs_size,
+                            float lo, float hi, float ent_c, float ent_half,
+                            int blocks, float* partials, float* out,
+                            int device, void* stream) {
+  using namespace marlnav::update;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ActorArgs args{obs, act, lp, adv, op, n_rows, lo, hi, ent_c,
+                       ent_half, partials};
+#define MARLNAV_LAUNCH(F)                                         \
+  case F:                                                        \
+    actor_grad_kernel<F><<<blocks, kThreads, 0, s>>>(args);       \
+    break;
+  switch (obs_size) {
+    MARLNAV_LAUNCH(2)
+    MARLNAV_LAUNCH(4)
+    MARLNAV_LAUNCH(6)
+    MARLNAV_LAUNCH(8)
+    MARLNAV_LAUNCH(10)
+    MARLNAV_LAUNCH(12)
+    MARLNAV_LAUNCH(14)
+    MARLNAV_LAUNCH(16)
+    MARLNAV_LAUNCH(18)
+    MARLNAV_LAUNCH(20)
+    MARLNAV_LAUNCH(22)
+    MARLNAV_LAUNCH(24)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MARLNAV_LAUNCH
+  return static_cast<int>(reduce(partials, blocks, 1 + 4 * obs_size + 4,
+                                 out, s));
+}
+
+// out: loss_sum, dW1 (H, In), db1 (H), dW2 (H), db2.
+int marlnav_critic_grad_sums(const float* obs, const float* vold,
+                             const float* ret, const float* w1,
+                             const float* b1, const float* w2,
+                             const float* b2, long long n_rows, int in_size,
+                             int hidden, float eps, int blocks,
+                             float* partials, float* out, int device,
+                             void* stream) {
+  using namespace marlnav::update;
+  if (in_size < 1 || in_size > kMaxIn || hidden < 1 || hidden > kMaxHidden)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * critic_smem_floats(in_size, hidden);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(critic_grad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const CriticArgs args{obs, vold, ret, w1, b1, w2, b2, n_rows,
+                        in_size, hidden, eps, partials};
+  critic_grad_kernel<<<blocks, kThreads, smem, s>>>(args);
+  return static_cast<int>(reduce(partials, blocks,
+                                 1 + hidden * in_size + 2 * hidden + 1, out,
+                                 s));
+}
+
+}  // extern "C"

@@ -280,12 +280,6 @@ def _library():
     return lib, record
 
 
-def build_kernel() -> dict:
-    """Build and load the kernel library now; returns the build record
-    (path, seconds, compiler log).  Launching builds it anyway."""
-    return _library()[1]
-
-
 def _check(name, x: torch.Tensor, shape, dtype, device):
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():

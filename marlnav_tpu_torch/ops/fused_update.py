@@ -1,0 +1,212 @@
+"""PPO update gradients through two CUDA kernels (``--fused-updates``).
+
+Port of ``marlnav_tpu/ops/fused_update.py`` and ``fused_update_tiled.py``.
+Each kernel (``ops/csrc/fused_update.cu``) computes one loss and all its
+parameter-gradient sums in one streaming pass over a ``Buffer`` time slice;
+the optimizer stays outside, as in the JAX package: the caller hands the
+gradients to the same ``torch.optim.Adam`` the autograd route uses.
+
+* ``actor_grad_sums`` replaces the affine actor kernels (the full-batch
+  ``make_tiled_actor_grad`` and the staged ``_make_actor_grad_affine``):
+  the actor has no hidden activation (reference models.py:29), so obs ->
+  head pre-activations is the affine operator ``z = a_comp x + c_comp``
+  (``ops.fused_collect._affine_compose``); the kernel accumulates ``Σ g_z
+  xᵀ`` and ``Σ g_z``, and ``affine_recompose`` rebuilds the five true
+  gradients outside.
+* ``critic_grad_sums`` replaces ``make_tiled_critic_grad`` and the staged
+  ``make_fused_critic_grad``: the clipped-value loss through ``In -> H ReLU
+  -> 1`` and ``dW1, db1, dW2, db2``.
+
+The TPU needed two layouts of each (tiled and staged); here the Buffer's
+time slice is already a contiguous block of rows, so one kernel serves the
+full batch and every minibatch slice, in faithful, fixed and GAE modes.
+
+Routing, with no fallback: CPU tensors run the plain versions of
+``ops/update_math.py``; CUDA tensors launch the kernel or raise.  Each
+wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from marlnav_tpu_torch.ops.fused_collect import _affine_compose, _check
+from marlnav_tpu_torch.ops.update_math import (
+    actor_grad_sums_reference,
+    affine_recompose,
+    critic_grad_sums_reference,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from marlnav_tpu_torch.ops._build import load_library
+
+    lib, _ = load_library("fused_update")
+    # Every pointer and the stream as c_void_p: an undeclared argument is
+    # passed as a 32-bit int and cuts the pointer.
+    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    lib.marlnav_actor_grad_sums.argtypes = (
+        [ptr] * 5 + [ctypes.c_longlong, i32] + [f32] * 4
+        + [i32, ptr, ptr, i32, ptr])
+    lib.marlnav_critic_grad_sums.argtypes = (
+        [ptr] * 7 + [ctypes.c_longlong, i32, i32, f32, i32, ptr, ptr, i32,
+                     ptr])
+    for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums):
+        fn.restype = i32
+    for getter in (lib.marlnav_update_blocks_per_sm,
+                   lib.marlnav_actor_max_obs, lib.marlnav_critic_max_hidden,
+                   lib.marlnav_critic_max_in, lib.marlnav_critic_tile_rows):
+        getter.argtypes, getter.restype = [], i32
+    return lib
+
+
+def _split(sums: torch.Tensor, shapes) -> Tuple[torch.Tensor, ...]:
+    """Cut the kernel's flat vector of sums into views of these shapes."""
+    out, start = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(sums[start:start + n].view(shape))
+        start += n
+    return tuple(out)
+
+
+def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int):
+    """(library, grid blocks, device index, stream) for a launch over
+    ``n_rows`` rows: at most a few persistent blocks an SM, so the grid,
+    and with it every sum's order, depends only on the rows and the card."""
+    lib = _library()
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    blocks = min(math.ceil(n_rows / rows_per_block),
+                 sms * lib.marlnav_update_blocks_per_sm())
+    return lib, blocks, index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_rows(device, n_rows, named):
+    if device.type != "cuda":
+        raise ValueError(f"fused update: unsupported device {device}")
+    if n_rows < 1:
+        raise ValueError("fused update: no rows")
+    for name, x, shape in named:
+        _check(name, x, shape, torch.float32, device)
+
+
+def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
+                    eps: float, ent_c: float):
+    """``(loss_sum (), Σ g_z xᵀ (4, F), Σ g_z (4,))`` of the PPO actor
+    objective over all rows (``update_math.actor_grad_sums_reference``).
+    obs (N, F), actions (N, 2), log_probs and adv (N,)."""
+    if obs.device.type == "cpu":
+        return actor_grad_sums_reference(a_comp, c_comp, obs, actions,
+                                         log_probs, adv, eps, ent_c)
+    n, f = obs.shape
+    _check_rows(obs.device, n, (
+        ("a_comp", a_comp, (4, f)), ("c_comp", c_comp, (4,)),
+        ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
+        ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
+    lib, blocks, index, stream = _launch_setup(obs.device, n, 256)
+    max_f = lib.marlnav_actor_max_obs()
+    if f % 2 or not 2 <= f <= max_f:
+        raise ValueError(f"actor grad kernel takes even obs widths 2..{max_f}"
+                         f", got {f}")
+    if obs.data_ptr() % 8 or actions.data_ptr() % 8:
+        raise ValueError("actor grad kernel: obs and actions must be 8-byte "
+                         "aligned (float2 loads)")
+    op = torch.cat([a_comp.reshape(-1), c_comp])
+    n_out = 1 + 4 * f + 4
+    partials = torch.empty((blocks, n_out), dtype=torch.float32,
+                           device=obs.device)
+    out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
+    err = lib.marlnav_actor_grad_sums(
+        obs.data_ptr(), actions.data_ptr(), log_probs.data_ptr(),
+        adv.data_ptr(), op.data_ptr(), n, f, 1.0 - eps, 1.0 + eps, ent_c,
+        ent_c * 0.5, blocks, partials.data_ptr(), out.data_ptr(), index,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"actor grad kernel launch failed: CUDA error {err}")
+    actor_grad_sums.launches += 1
+    return _split(out, ((), (4, f), (4,)))
+
+
+actor_grad_sums.launches = 0
+
+
+def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
+    """``(loss_sum (), dW1 (H, In), db1 (H,), dW2 (1, H), db2 (1,))`` of
+    the clipped-value loss over all rows
+    (``update_math.critic_grad_sums_reference``).  obs (N, In), vold and
+    ret (N,); weights in ``nn.Linear`` layout."""
+    if obs.device.type == "cpu":
+        return critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps)
+    n, n_in = obs.shape
+    h = w1.shape[0]
+    _check_rows(obs.device, n, (
+        ("w1", w1, (h, n_in)), ("b1", b1, (h,)), ("w2", w2, (1, h)),
+        ("b2", b2, (1,)), ("obs", obs, (n, n_in)), ("vold", vold, (n,)),
+        ("ret", ret, (n,))))
+    lib, blocks, index, stream = _launch_setup(
+        obs.device, n, _library().marlnav_critic_tile_rows())
+    max_h, max_in = lib.marlnav_critic_max_hidden(), lib.marlnav_critic_max_in()
+    if not (1 <= h <= max_h and 1 <= n_in <= max_in):
+        raise ValueError(f"critic grad kernel takes hidden 1..{max_h} and "
+                         f"input 1..{max_in}, got {h} and {n_in}")
+    n_out = 1 + h * n_in + 2 * h + 1
+    partials = torch.empty((blocks, n_out), dtype=torch.float32,
+                           device=obs.device)
+    out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
+    err = lib.marlnav_critic_grad_sums(
+        obs.data_ptr(), vold.data_ptr(), ret.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), n, n_in, h, eps, blocks,
+        partials.data_ptr(), out.data_ptr(), index, stream)
+    if err != 0:
+        raise RuntimeError(f"critic grad kernel launch failed: CUDA error "
+                           f"{err}")
+    critic_grad_sums.launches += 1
+    return _split(out, ((), (h, n_in), (h,), (1, h), (1,)))
+
+
+critic_grad_sums.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Loss and gradients of a minibatch (the JAX package's grad(params, ...))
+# ----------------------------------------------------------------------
+
+@torch.no_grad()
+def actor_grad(actor, mb, adv: torch.Tensor,
+               cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mean actor loss of a ``Buffer`` slice ``mb`` and its gradients
+    keyed as ``actor.named_parameters()``; ``adv`` (N,) holds the slice's
+    per-agent advantages in its (t, p, a) row order
+    (``algo.mappo.minibatch_advantages``)."""
+    n = adv.shape[0]
+    a_comp, c_comp = _affine_compose(actor)
+    loss, dz, dzs = actor_grad_sums(
+        a_comp, c_comp, mb.obs.reshape(n, -1), mb.actions.reshape(n, -1),
+        mb.log_probs.reshape(n), adv, cfg.epsilon, cfg.ent_const)
+    grads = affine_recompose(actor, dz, dzs)
+    inv_n = 1.0 / n
+    return loss * inv_n, {k: g * inv_n for k, g in grads.items()}
+
+
+@torch.no_grad()
+def critic_grad(critic, mb, cfg) -> Tuple[torch.Tensor,
+                                          Dict[str, torch.Tensor]]:
+    """The mean clipped-value loss of a ``Buffer`` slice ``mb`` and its
+    gradients keyed as ``critic.named_parameters()``."""
+    n = mb.returns.numel()
+    loss, dw1, db1, dw2, db2 = critic_grad_sums(
+        critic.fc1.weight, critic.fc1.bias, critic.fc2.weight,
+        critic.fc2.bias, mb.obs.reshape(n, -1), mb.values.reshape(n),
+        mb.returns.reshape(n), cfg.epsilon)
+    inv_n = 1.0 / n
+    grads = {"fc1.weight": dw1, "fc1.bias": db1, "fc2.weight": dw2,
+             "fc2.bias": db2}
+    return loss * inv_n, {k: g * inv_n for k, g in grads.items()}

@@ -1,0 +1,153 @@
+"""The PPO update gradients of the fused-update kernels, as plain PyTorch.
+
+Port of the elementwise chains of ``marlnav_tpu/ops/fused_update.py``
+(``_balanced_sel`` :336, ``_ppo_chain`` :345, ``_critic_chain`` :403,
+``_affine_recompose`` :689), on flat row tensors instead of the TPU's
+sublane-packed tiles.  Each follows its source op for op: JAX's balanced
+min/max tie (both branches get half the gradient on an exact tie), the clip
+derivative 1 inside the band, 1/2 on an exact bound and 0 outside, softplus
+and sigmoid sharing one ``exp(-|s|)``, and ``relu'(0) = 0``.
+
+These are hand-derived backwards, not autograd: they are what the CUDA
+kernels of ``ops/csrc/fused_update.cu`` compute, and the plain versions
+those kernels are held against.  ``actor_grad_sums_reference`` and
+``critic_grad_sums_reference`` return sums over all rows; the caller
+divides by the row count.  They run in the dtype of their inputs, so a
+float64 call gives the reference that sum-order noise is measured against.
+
+Rows: an actor row is one (step, env, agent), in the ``Buffer``'s flat
+(t, p, a) order (``obs.reshape(-1, F)``, ``log_probs.reshape(-1)``); a
+critic row is one (step, env) with the agents' observations side by side
+(``obs.reshape(-1, A * F)``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def balanced_sel(a: torch.Tensor, b: torch.Tensor):
+    """JAX's min/max tie rule: (weight on the a-branch, weight on the
+    b-branch) of ``min(a, b)``; swap the pair for ``max``."""
+    lt = (a < b).to(a.dtype)
+    eq = (a == b).to(a.dtype)
+    wa = lt + 0.5 * eq
+    return wa, 1.0 - wa
+
+
+def _clip_grad(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """d clip(x, lo, hi) / dx under JAX's balanced ties: 1 inside, 0
+    outside, 1/2 exactly on a bound."""
+    inside = (x > lo).to(x.dtype) * (x < hi).to(x.dtype)
+    on_edge = (x == lo).to(x.dtype) + (x == hi).to(x.dtype)
+    return inside + 0.5 * on_edge
+
+
+def ppo_chain(u, s, act, lp_b, adv, eps: float, ent_c: float):
+    """The actor objective from the head pre-activations, and its backward.
+
+    u, s, act: (N, 2) mean pre-activation, variance pre-activation and the
+    behaviour action; lp_b, adv: (N,).  Returns ``(loss_rows (N,), g_u,
+    g_s)``: each row's term of the negated PPO-clip + entropy objective
+    and its gradient with respect to u and s."""
+    mu = torch.tanh(u)
+    # softplus(s) = max(s, 0) + log1p(e) and sigmoid(s) = {1, e} / (1 + e)
+    # for s {>=, <} 0 share e = exp(-|s|).
+    e_s = torch.exp(-torch.abs(s))
+    var = torch.clamp_min(s, 0.0) + torch.log1p(e_s)
+
+    diff = act - mu
+    inv_var = 1.0 / var
+    log_var = torch.log(var)
+    zz = diff * diff * inv_var
+    lv_sum = log_var[:, 0] + log_var[:, 1]
+    lp_new = -0.5 * (2.0 * _LOG_2PI + lv_sum + zz[:, 0] + zz[:, 1])
+    ent = (1.0 + _LOG_2PI) + 0.5 * lv_sum
+
+    ratio = torch.exp(lp_new - lp_b)
+    lo, hi = 1.0 - eps, 1.0 + eps
+    clipped = torch.clamp_max(torch.clamp_min(ratio, lo), hi)
+    o1 = ratio * adv
+    o2 = clipped * adv
+    obj = torch.minimum(o1, o2)
+    loss_rows = -(obj + ent_c * ent)
+
+    w_o1, w_o2 = balanced_sel(o1, o2)
+    dclip = _clip_grad(ratio, lo, hi)
+    g_ratio = -adv * (w_o1 + w_o2 * dclip)
+    g_lp = (g_ratio * ratio)[:, None]
+    g_mu = g_lp * diff * inv_var
+    g_var = g_lp * 0.5 * (zz - 1.0) * inv_var - (ent_c * 0.5) * inv_var
+    g_u = g_mu * (1.0 - mu * mu)
+    r_e = 1.0 / (1.0 + e_s)
+    g_s = g_var * torch.where(s >= 0.0, r_e, e_s * r_e)
+    return loss_rows, g_u, g_s
+
+
+def critic_chain(v, vold, ret, eps: float):
+    """The clipped-value loss from the new values, and its backward
+    (reference models.py:301-316).  All (N,).  Returns ``(loss_rows,
+    g_v)``."""
+    lo, hi = vold - eps, vold + eps
+    clamped = torch.minimum(torch.maximum(v, lo), hi)
+    e1 = v - ret
+    e2 = clamped - ret
+    d1 = e1 * e1
+    d2 = e2 * e2
+    loss_rows = torch.maximum(d1, d2)
+    w_d2, w_d1 = balanced_sel(d1, d2)  # max: the weight goes to the larger
+    g_v = 2.0 * (w_d1 * e1 + w_d2 * e2 * _clip_grad(v, lo, hi))
+    return loss_rows, g_v
+
+
+def actor_grad_sums_reference(a_comp, c_comp, obs, actions, log_probs, adv,
+                              eps: float, ent_c: float):
+    """The actor kernel's function: over all rows, ``(loss_sum, Σ g_z xᵀ
+    (4, F), Σ g_z (4,))`` through the affine operator ``z = a_comp x +
+    c_comp`` (rows 0-1 of z are the mean pre-activations, 2-3 the
+    variance ones).  obs (N, F), actions (N, 2), log_probs and adv (N,)."""
+    z = obs @ a_comp.T + c_comp
+    loss_rows, g_u, g_s = ppo_chain(z[:, :2], z[:, 2:], actions, log_probs,
+                                    adv, eps, ent_c)
+    g_z = torch.cat([g_u, g_s], dim=1)  # (N, 4)
+    return loss_rows.sum(), g_z.T @ obs, g_z.sum(0)
+
+
+def critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps: float):
+    """The critic kernel's function: over all rows of the critic
+    ``In -> H ReLU -> 1`` (weights in ``nn.Linear`` layout: w1 (H, In), b1
+    (H,), w2 (1, H), b2 (1,)), ``(loss_sum, dW1, db1, dW2, db2)`` shaped
+    as the parameters.  obs (N, In), vold and ret (N,)."""
+    h = torch.relu(obs @ w1.T + b1)
+    v = h @ w2[0] + b2[0]
+    loss_rows, g_v = critic_chain(v, vold, ret, eps)
+    g_h = g_v[:, None] * w2
+    g_pre = g_h * (h > 0.0).to(h.dtype)  # relu'(0) = 0
+    return (loss_rows.sum(), g_pre.T @ obs, g_pre.sum(0),
+            (g_v @ h)[None, :], g_v.sum()[None])
+
+
+@torch.no_grad()
+def affine_recompose(actor, dz: torch.Tensor,
+                     dzs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Chain-rule the operator's sums ``dz = [Σ g_u xᵀ; Σ g_s xᵀ]`` (4, F)
+    and ``dzs = [Σ g_u; Σ g_s]`` (4,) back into the five parameters'
+    gradients, keyed and shaped as ``actor.named_parameters()``."""
+    w1, b1 = actor.fc1.weight, actor.fc1.bias  # (H, F), (H,)
+    wmu, wvar = actor.fc_mu.weight, actor.fc_var.weight  # (2, H)
+    guxt, gsxt = dz[:2], dz[2:]
+    su, ss = dzs[:2], dzs[2:]
+    return {
+        "fc1.weight": wmu.T @ guxt + wvar.T @ gsxt,
+        "fc1.bias": wmu.T @ su + wvar.T @ ss,
+        "fc_mu.weight": guxt @ w1.T + su[:, None] * b1[None, :],
+        "fc_mu.bias": su,
+        "fc_var.weight": gsxt @ w1.T + ss[:, None] * b1[None, :],
+        "fc_var.bias": ss,
+    }
+

@@ -5,7 +5,9 @@ Port of ``marlnav_tpu/train.py`` for one device:
 (collect rollout -> train actor -> train critic), then the artifact dump.
 The rollout runs either as the plain T-step loop over ``env.step``
 (``MAPPO.collect``) or, with ``fused_collect``, through the fused collect
-kernel (``ops.fused_collect``).
+kernel (``ops.fused_collect``).  ``cfg.model.fused_updates`` takes the PPO
+gradients from the fused update kernels (``ops.fused_update``), for the full
+batch and for sliced minibatches alike.
 
 The reference's save-every-rollout weights quirk (its best-reward gate
 never updates, reference models.py:93, 127-129) is kept: weights are

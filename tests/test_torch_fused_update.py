@@ -1,0 +1,438 @@
+"""The port's fused-update gradients against the JAX package's Pallas
+update kernels (interpret mode) and against the port's own autograd.
+
+The plain versions of ``marlnav_tpu_torch/ops/update_math.py`` are what the
+CUDA kernels of ``ops/csrc/fused_update.cu`` compute; on the CPU the
+wrappers run them.  Held here against:
+
+* the JAX chains ``_ppo_chain`` / ``_critic_chain`` at exact ties and clip
+  edges (the tie rule decides between a gradient and half of it, so a fault
+  shows as a factor of 2; the rows built to sit exactly on an edge agree to
+  rtol 1e-6, the random rows to rtol 2e-5 / atol 1e-6: last-ulp
+  differences of tanh, exp and log between the frameworks);
+* the staged kernels (``make_fused_actor_grad`` affine layout and
+  ``make_fused_critic_grad``, rows 5 and 4 of the PERF.md table) on every
+  minibatch slice: rtol 2e-5 / atol 2e-5, the tolerance of
+  tests/test_fused_update.py;
+* the tiled trainers (``make_tiled_actor_trainer`` /
+  ``make_tiled_critic_trainer``, rows 2 and 3) over 3 epochs of Adam:
+  rtol 1e-4 / atol 1e-5, the tolerance of tests/test_fused_update_tiled.py;
+* the port's autograd losses in the faithful, fixed and GAE modes:
+  rtol 1e-4 / atol 1e-6 (sums over rows in another order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marlnav_tpu.algo import Buffer as JBuffer
+from marlnav_tpu.algo import make_mappo as j_make_mappo
+from marlnav_tpu.algo import mappo as jm
+from marlnav_tpu.config import EnvParams as JEnvParams
+from marlnav_tpu.config import MAPPOConfig as JMAPPOConfig
+from marlnav_tpu.config import NormalizerConfig as JNormalizerConfig
+from marlnav_tpu.config import ScalerConfig as JScalerConfig
+from marlnav_tpu.config import TriangleInitConfig as JTriangleInit
+from marlnav_tpu.env import make_env as j_make_env
+from marlnav_tpu.models import actor_init, critic_apply, critic_init
+from marlnav_tpu.ops.fused_update import (
+    _critic_chain,
+    _ppo_chain,
+    make_fused_actor_grad,
+    make_fused_critic_grad,
+    stage_actor_minibatch,
+    stage_critic_minibatch,
+)
+from marlnav_tpu.ops.fused_update_tiled import (
+    TiledRollout,
+    make_tiled_actor_trainer,
+    make_tiled_critic_trainer,
+)
+from marlnav_tpu.ops.step_math import BLOCK_ENVS, LANE, SUB
+from marlnav_tpu_torch.algo import mappo as tm
+from marlnav_tpu_torch.algo.mappo import Buffer, TrainState, make_mappo
+from marlnav_tpu_torch.config import (EnvParams, MAPPOConfig, NormalizerConfig,
+                                      ScalerConfig, TriangleInitConfig)
+from marlnav_tpu_torch.env import make_env
+from marlnav_tpu_torch.models import from_jax_params
+from marlnav_tpu_torch.ops import fused_collect as fc
+from marlnav_tpu_torch.ops import fused_update as fu
+from marlnav_tpu_torch.ops import update_math as um
+
+A, OBS, H = 3, 12, 16
+MODES = {"faithful": dict(), "fixed": dict(faithful=False),
+         "gae": dict(faithful=False, use_gae=True)}
+LOG_2PI = float(np.log(2.0 * np.pi))
+
+
+def cfgs(p, t, **kw):
+    base = dict(num_agents=A, num_parallel=p, obs_size=OBS, hidden_size=H,
+                num_total=t * p, buffer_len=t, num_epochs=2, batch_size=t)
+    base.update(kw)
+    return JMAPPOConfig(**base), MAPPOConfig(**base)
+
+
+def rand_buffer(seed, t, p, mode="faithful", done_frac=0.2):
+    """One numpy buffer handed to both packages; in GAE mode its returns
+    are GAE advantages + values, as collect stores them."""
+    rng = np.random.default_rng(seed)
+    b = dict(
+        obs=rng.normal(size=(t, p, A, OBS)).astype(np.float32),
+        actions=rng.uniform(-1, 1, size=(t, p, A, 2)).astype(np.float32),
+        log_probs=rng.normal(-1.0, 0.5, size=(t, p * A)).astype(np.float32),
+        values=rng.normal(size=(t, p, 1)).astype(np.float32),
+        returns=rng.normal(size=(t, p)).astype(np.float32),
+        done=rng.uniform(size=(t, p)) < done_frac)
+    if mode == "gae":
+        adv = tm.gae_advantages(
+            torch.tensor(b["returns"]), torch.tensor(b["done"]),
+            torch.tensor(b["values"][..., 0]), torch.zeros(p), 0.9, 0.95)
+        b["returns"] = adv.numpy() + b["values"][..., 0]
+    return (JBuffer(**{k: jnp.asarray(v) for k, v in b.items()}),
+            Buffer(**{k: torch.tensor(v) for k, v in b.items()}))
+
+
+def jax_flat(tree):
+    return {f"{name}.{leaf}": np.asarray(getattr(dense, leaf))
+            for name, dense in tree._asdict().items() for leaf in ("w", "b")}
+
+
+def as_jax_layout(grads):
+    """{"fc1.weight": (out, in), ...} -> {"fc1.w": (in, out), ...}."""
+    return {k.replace(".weight", ".w").replace(".bias", ".b"):
+            (g.numpy().T if k.endswith("weight") else g.numpy())
+            for k, g in grads.items()}
+
+
+def module_flat(module):
+    return as_jax_layout({k: p.detach() for k, p in
+                          module.named_parameters()})
+
+
+def assert_grads_close(got, want, rtol, atol, what=""):
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol,
+                                   err_msg=f"{what} {key}")
+
+
+# ----------------------------------------------------------------------
+# The elementwise chains at exact ties and clip edges
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("edge", ["lo", "hi"])
+def test_ppo_chain_matches_jax_at_ties_and_edges(edge):
+    """Rows with u = s = 0 (s exactly 0: softplus's where-branch) and fixed
+    actions have a log-prob of plain float32 arithmetic, lp0, computed
+    alike by both frameworks (asserted).  Behaviour log-probs lp0 and lp0 ±
+    2^-7 then give ratios exactly 1 (inside the band: o1 == o2 ties) and
+    exp(±2^-7), and epsilon is chosen so that one of those lies exactly on
+    the clip bound under test.  Advantages of both signs and exactly 0."""
+    # lp0 in both frameworks, op for op as in the chains.
+    act0 = np.array([0.5, -0.25], np.float32)
+    lp0 = []
+    for xp in (jnp, torch):
+        arr = jnp.asarray if xp is jnp else torch.tensor
+        s = arr(np.zeros(2, np.float32))
+        var = xp.maximum(s, arr(np.float32(0.0))) + xp.log1p(xp.exp(-xp.abs(s)))
+        diff = arr(act0) - xp.tanh(s)
+        zz = diff * diff * (1.0 / var)
+        log_var = xp.log(var)
+        lv_sum = log_var[0] + log_var[1]
+        lp0.append(np.float32(-0.5 * (2.0 * LOG_2PI + lv_sum + zz[0] + zz[1])))
+    assert lp0[0] == lp0[1] and 1.0 <= -lp0[0] < 2.0
+    lp0 = lp0[0]
+    step = np.float32(2.0 ** -7)
+    r_up = [np.float32(jnp.exp(jnp.float32(step))),
+            np.float32(torch.exp(torch.tensor(step)))]
+    r_dn = [np.float32(jnp.exp(-jnp.float32(step))),
+            np.float32(torch.exp(-torch.tensor(step)))]
+    assert r_up[0] == r_up[1] and r_dn[0] == r_dn[1]
+    eps = (float(r_up[0]) - 1.0) if edge == "hi" else (1.0 - float(r_dn[0]))
+    assert np.float32(1.0 + eps if edge == "hi" else 1.0 - eps) == (
+        r_up[0] if edge == "hi" else r_dn[0])
+
+    rng = np.random.default_rng(0)
+    n_rand = 64
+    u = rng.normal(size=(n_rand, 2)).astype(np.float32)
+    s = rng.normal(size=(n_rand, 2)).astype(np.float32)
+    act = rng.uniform(-1, 1, size=(n_rand, 2)).astype(np.float32)
+    lp_b = rng.normal(-1.0, 0.5, size=n_rand).astype(np.float32)
+    adv = rng.normal(size=n_rand).astype(np.float32)
+    # ratio 1 (x = 0), exp(+2^-7) (lp_b = lp0 - 2^-7), exp(-2^-7); all
+    # differences exact in float32.
+    special_lp = np.array([lp0, lp0 - step, lp0 + step], np.float32)
+    special_adv = np.array([1.3, -0.7, 0.0], np.float32)
+    sl, sa = np.meshgrid(special_lp, special_adv, indexing="ij")
+    n_sp = sl.size
+    u = np.concatenate([u, np.zeros((n_sp, 2), np.float32)])
+    s = np.concatenate([s, np.zeros((n_sp, 2), np.float32)])
+    act = np.concatenate([act, np.tile(act0, (n_sp, 1))])
+    lp_b = np.concatenate([lp_b, sl.ravel()])
+    adv = np.concatenate([adv, sa.ravel()])
+    ent_c = 0.001
+
+    n = u.shape[0]
+    j_loss, j_gu, j_gs = _ppo_chain(
+        jnp.asarray(u.T), jnp.asarray(s.T), jnp.asarray(act.T),
+        jnp.asarray(lp_b[None]), jnp.asarray(adv[None]),
+        jnp.ones((1, n), jnp.float32), 1, eps, ent_c)
+    t_loss, t_gu, t_gs = um.ppo_chain(
+        *(torch.tensor(x) for x in (u, s, act, lp_b, adv)), eps, ent_c)
+    np.testing.assert_allclose(float(t_loss.sum()), float(j_loss[0, 0]),
+                               rtol=1e-5)
+    for got, want in ((t_gu.numpy(), np.asarray(j_gu).T),
+                      (t_gs.numpy(), np.asarray(j_gs).T)):
+        np.testing.assert_allclose(got[:n_rand], want[:n_rand], rtol=2e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[n_rand:], want[n_rand:], rtol=1e-6,
+                                   atol=1e-7)
+    # The edge rows' gradients really carry the tie weights: with adv != 0
+    # the x = 0 row and the on-edge row are not zero.
+    assert np.abs(t_gs.numpy()[n_rand:]).min(axis=1)[[0, 1]].min() > 0
+
+
+def test_critic_chain_matches_jax_at_ties_and_edges():
+    """New values exactly on vold - eps and vold + eps (float32 arithmetic,
+    the same in both frameworks), exactly vold (inside the band: d1 == d2
+    ties), and random values in and out of the band."""
+    rng = np.random.default_rng(1)
+    eps = 0.01
+    vold = rng.normal(size=32).astype(np.float32)
+    ret = rng.normal(size=32).astype(np.float32)
+    e32 = np.float32(eps)
+    v = np.concatenate([vold - e32, vold + e32, vold,
+                        vold + rng.normal(scale=0.02, size=32).astype(
+                            np.float32)])
+    vold4, ret4 = np.tile(vold, 4), np.tile(ret, 4)
+    j_loss, j_gv = _critic_chain(jnp.asarray(v[None]), jnp.asarray(vold4[None]),
+                                 jnp.asarray(ret4[None]),
+                                 jnp.ones((1, v.size), jnp.float32), eps)
+    t_loss, t_gv = um.critic_chain(torch.tensor(v), torch.tensor(vold4),
+                                   torch.tensor(ret4), eps)
+    np.testing.assert_allclose(float(t_loss.sum()), float(j_loss[0, 0]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(t_gv.numpy(), np.asarray(j_gv)[0], rtol=1e-6,
+                               atol=1e-7)
+    # On an edge the clamp passes half the gradient: g_v differs from both
+    # the unclamped 2 e1 and the fully-clamped values.
+    assert not np.allclose(t_gv.numpy()[:64], 2.0 * (v - ret4)[:64])
+
+
+# ----------------------------------------------------------------------
+# Rows 4 and 5: the staged kernels, on every minibatch slice
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("p", [4, 128], ids=["one-block", "multi-block"])
+@pytest.mark.parametrize("faithful", [True, False])
+def test_grads_match_staged_kernels(p, faithful):
+    """actor_grad / critic_grad (plain route) against the JAX affine actor
+    kernel and the critic kernel in interpret mode on stage_*_minibatch,
+    slice by slice (the faithful tail slice drops the last step)."""
+    t = 12
+    jc, tc = cfgs(p, t, batch_size=6, faithful=faithful)
+    jb, tb = rand_buffer(0, t, p)
+    ja = actor_init(jax.random.PRNGKey(1), OBS, H, 2)
+    jcr = critic_init(jax.random.PRNGKey(3), OBS, A, H)
+    ta, tcr = from_jax_params(jax.tree.map(np.asarray, (ja, jcr)))
+    actor_k = jax.jit(make_fused_actor_grad(jc, interpret=True),
+                      static_argnums=2)
+    critic_k = jax.jit(make_fused_critic_grad(jc, interpret=True),
+                       static_argnums=2)
+    j_slices, t_slices = jm.minibatch_slices(jb, jc), tm.minibatch_slices(tb, tc)
+    assert [s.obs.shape[0] for s in t_slices] == (
+        [6, 5] if faithful else [6, 6])
+    for j_mb, t_mb in zip(j_slices, t_slices):
+        lj, gj = actor_k(ja, *stage_actor_minibatch(j_mb, jc))
+        lt, gt = fu.actor_grad(ta, t_mb, tm.minibatch_advantages(t_mb, tc), tc)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           "actor")
+        lj, gj = critic_k(jcr, *stage_critic_minibatch(j_mb, jc))
+        lt, gt = fu.critic_grad(tcr, t_mb, tc)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           "critic")
+
+
+def test_critic_grad_matches_kernel_inside_clip_band():
+    """Old values set to the critic's current outputs: every row's new
+    value sits inside the band, d1 == d2 everywhere, and each row's
+    gradient splits 1/2 : 1/2 (tests/test_fused_update.py:103)."""
+    t, p = 8, 8
+    jc, tc = cfgs(p, t)
+    jb, tb = rand_buffer(4, t, p)
+    jcr = critic_init(jax.random.PRNGKey(5), OBS, A, H)
+    _, tcr = from_jax_params(jax.tree.map(np.asarray, (
+        actor_init(jax.random.PRNGKey(6), OBS, H, 2), jcr)))
+    v_now = critic_apply(jcr, jb.obs.reshape(t * p, A, OBS)).reshape(t, p, 1)
+    jb = jb._replace(values=v_now)
+    tb = dataclasses.replace(tb, values=torch.tensor(np.asarray(v_now)))
+    j_mb, t_mb = jm.minibatch_slices(jb, jc)[0], tm.minibatch_slices(tb, tc)[0]
+    lj, gj = make_fused_critic_grad(jc, interpret=True)(
+        jcr, *stage_critic_minibatch(j_mb, jc))
+    lt, gt = fu.critic_grad(tcr, t_mb, tc)
+    np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+    assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5)
+
+
+# ----------------------------------------------------------------------
+# Rows 2 and 3: the tiled (full-batch) trainers
+# ----------------------------------------------------------------------
+
+def tile_env_axis(x):
+    """(T, rows, P) -> (T, rows, 8, NB*128), the kernel's env tiling
+    (inverse of fused_rollout.untile)."""
+    t, rows, p = x.shape
+    nb = p // BLOCK_ENVS
+    return (x.reshape(t, rows, nb, SUB, LANE).transpose(0, 1, 3, 2, 4)
+            .reshape(t, rows, SUB, nb * LANE))
+
+
+def tiled_from_buffer(buf):
+    """The JAX collect kernel's tile outputs for a Buffer
+    (tests/test_fused_update_tiled.py:43-50)."""
+    t, p = buf.obs.shape[0], buf.obs.shape[1]
+    obs = tile_env_axis(
+        buf.obs.transpose(0, 2, 3, 1).reshape(t, A * OBS, p))
+    actions = tile_env_axis(
+        buf.actions.transpose(0, 2, 3, 1).reshape(t, 2 * A, p))
+    log_probs = tile_env_axis(
+        buf.log_probs.reshape(t, p, A).transpose(0, 2, 1))
+    return TiledRollout(obs, actions, log_probs)
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("net", ["actor", "critic"])
+def test_fused_phase_matches_tiled_trainer(net, faithful):
+    """The port's fused train_actor / train_critic (3 epochs of Adam, full
+    batch, P=1024, T=8, hidden 50) against make_tiled_*_trainer in
+    interpret mode on the same weights and buffer."""
+    p, t = BLOCK_ENVS, 8
+    kw = dict(num_agents=A, num_parallel=p, obs_size=OBS, num_total=t * p,
+              buffer_len=t, batch_size=t, num_epochs=3, faithful=faithful,
+              fused_updates=True)
+    jc, tc = JMAPPOConfig(**kw), MAPPOConfig(**kw)
+    j_mappo = j_make_mappo(jc, j_make_env(JEnvParams(num_parallel=p),
+                                          JTriangleInit(num_parallel=p), None),
+                           JNormalizerConfig(), JScalerConfig())
+    j_ts0, _ = j_mappo.init(jax.random.PRNGKey(0))
+    jb, tb = rand_buffer(1 if net == "actor" else 2, t, p, done_frac=0.1)
+    make = (make_tiled_actor_trainer if net == "actor"
+            else make_tiled_critic_trainer)
+    j_ts, j_losses = jax.jit(make(jc, interpret=True))(
+        j_ts0, jb, tiled_from_buffer(jb))
+
+    ta, tcr = from_jax_params(jax.tree.map(np.asarray,
+                                           (j_ts0.actor, j_ts0.critic)))
+    t_ts = TrainState(ta, tcr, torch.optim.Adam(ta.parameters(), lr=tc.lr),
+                      torch.optim.Adam(tcr.parameters(), lr=tc.lr))
+    t_mappo = make_mappo(tc, make_env(EnvParams(num_parallel=p),
+                                      TriangleInitConfig(num_parallel=p),
+                                      "cpu"), NormalizerConfig(),
+                         ScalerConfig())
+    train = t_mappo.train_actor if net == "actor" else t_mappo.train_critic
+    t_ts, t_losses = train(t_ts, tb)
+
+    assert t_losses.shape == (3,)
+    np.testing.assert_allclose(t_losses.numpy(), np.asarray(j_losses),
+                               rtol=1e-4, atol=1e-5)
+    assert_grads_close(module_flat(getattr(t_ts, net)),
+                       jax_flat(getattr(j_ts, net)), 1e-4, 1e-5, net)
+
+
+# ----------------------------------------------------------------------
+# Against the port's own autograd
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_fused_grads_match_autograd(mode):
+    """On every slice of a 2-minibatch split, the fused loss and gradients
+    equal autograd's of actor_loss / critic_loss."""
+    t, p = 12, 4
+    _, tc = cfgs(p, t, batch_size=6, **MODES[mode])
+    _, tb = rand_buffer(5, t, p, mode)
+    g = torch.Generator().manual_seed(6)
+    from marlnav_tpu_torch.models import Actor, Critic
+
+    actor, critic = Actor(OBS, H, generator=g), Critic(OBS, A, H, generator=g)
+    for mb in tm.minibatch_slices(tb, tc):
+        for module, loss_fn, fused in (
+                (actor, tm.actor_loss, lambda: fu.actor_grad(
+                    actor, mb, tm.minibatch_advantages(mb, tc), tc)),
+                (critic, tm.critic_loss, lambda: fu.critic_grad(
+                    critic, mb, tc))):
+            module.zero_grad(set_to_none=True)
+            loss = loss_fn(module, mb, tc)
+            loss.backward()
+            lf, gf = fused()
+            np.testing.assert_allclose(float(lf), float(loss.detach()),
+                                       rtol=1e-5)
+            want = {k: p_.grad for k, p_ in module.named_parameters()}
+            assert_grads_close(as_jax_layout(gf), as_jax_layout(want), 1e-4,
+                               1e-6, loss_fn.__name__)
+
+
+# ----------------------------------------------------------------------
+# Routing, and the kernels on the card
+# ----------------------------------------------------------------------
+
+def _sum_inputs(n, f, h, device="cpu", seed=7):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    actor = (0.3 * r(4, f), r(4), r(n, f), r(n, 2).clamp(-1, 1),
+             -1.0 + 0.5 * r(n), r(n))
+    critic = (r(h, A * f) / 6.0, r(h), r(1, h) / 7.0, r(1), r(n, A * f),
+              r(n), r(n))
+    to = lambda xs: tuple(x.to(device) for x in xs)  # noqa: E731
+    return to(actor), to(critic)
+
+
+def test_cpu_routing_runs_plain_version_and_launches_nothing():
+    """CPU tensors run the plain versions (exactly) and leave the launch
+    counters alone; other non-CUDA devices raise."""
+    actor_in, critic_in = _sum_inputs(50, OBS, H)
+    before = (fu.actor_grad_sums.launches, fu.critic_grad_sums.launches)
+    for got, want in (
+            (fu.actor_grad_sums(*actor_in, 0.01, 0.001),
+             um.actor_grad_sums_reference(*actor_in, 0.01, 0.001)),
+            (fu.critic_grad_sums(*critic_in, 0.01),
+             um.critic_grad_sums_reference(*critic_in, 0.01))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (fu.actor_grad_sums.launches,
+            fu.critic_grad_sums.launches) == before == (0, 0)
+    meta_a = tuple(x.to("meta") for x in actor_in)
+    meta_c = tuple(x.to("meta") for x in critic_in)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.actor_grad_sums(*meta_a, 0.01, 0.001)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.critic_grad_sums(*meta_c, 0.01)
+    # The fused collect's operator feeds the actor kernel unchanged.
+    assert fc._affine_compose is fu._affine_compose
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """Both kernels against their plain versions, each against a float64
+    plain version (the check chip_smoke.py runs at full size): the kernel's
+    error stays within 1e-4 of each output's largest magnitude, and two
+    launches agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    actor_in, critic_in = _sum_inputs(100_003, OBS, 50, "cuda")
+    for kernel, plain, args in (
+            (fu.actor_grad_sums, um.actor_grad_sums_reference,
+             (*actor_in, 0.01, 0.001)),
+            (fu.critic_grad_sums, um.critic_grad_sums_reference,
+             (*critic_in, 0.01))):
+        got, again = kernel(*args), kernel(*args)
+        want = plain(*(x.double() if torch.is_tensor(x) else x for x in args))
+        torch.cuda.synchronize()
+        for k, k2, w in zip(got, again, want):
+            assert torch.equal(k, k2)
+            tol = 1e-4 * float(w.abs().max()) + 1e-6
+            assert float((k.double() - w).abs().max()) <= tol

@@ -60,10 +60,32 @@ def test_train_is_deterministic_per_seed(tmp_path):
     assert runs[0]["actor"] == runs[1]["actor"]
 
 
+@pytest.mark.parametrize("bs", [20, 5], ids=["full-batch", "sliced"])
+def test_cli_fused_updates(tmp_path, monkeypatch, bs):
+    """--fused-collect --fused-updates on the CPU runs the kernels' plain
+    versions (no launch), for the full batch and for -bs < -bl, and logs
+    one loss per epoch and minibatch."""
+    from marlnav_tpu_torch.ops import fused_update as fu
+
+    monkeypatch.chdir(tmp_path)
+    argv = TINY.copy()
+    argv[argv.index("-bs") + 1] = str(bs)
+    before = (fc.fused_collect_rows.launches, fu.actor_grad_sums.launches,
+              fu.critic_grad_sums.launches)
+    cli(argv + ["--fused-collect", "--fused-updates"])
+    assert (fc.fused_collect_rows.launches, fu.actor_grad_sums.launches,
+            fu.critic_grad_sums.launches) == before
+    (log,) = glob.glob(str(tmp_path / "logs" / "*_act_loss.csv"))
+    rows = open(log).read().strip().splitlines()[1:]
+    # 2 repeats x 2 epochs x (20 // bs) minibatches
+    assert len(rows) == 2 * 2 * (20 // bs)
+    assert np.isfinite([float(v) for r in rows for v in r.split(",")]).all()
+
+
 @pytest.mark.parametrize("flag", [
     ["--num-data", "2"], ["--num-model", "2"], ["--multihost"],
     ["--checkpoint-dir", "ck"], ["--resume"], ["--jit-repeats", "2"],
-    ["--pipeline-repeats"], ["--fused-updates"], ["--bf16-updates"],
+    ["--pipeline-repeats"], ["--bf16-updates"],
     ["--returns-f64"], ["-re"], ["-rc"], ["--allow-interpret"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
