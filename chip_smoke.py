@@ -9,9 +9,17 @@ against its plain PyTorch version, checks the collect kernel's random
 numbers, trains MAPPO through the port's entry point at the default
 configuration (1024 envs, buffer 1000, 50 + 50 epochs) for 2 repeats with
 ``--fused-collect --fused-updates`` (the main path: every kernel's launch
-count is read around it), times each phase of a repeat on the fused and on
-the autograd update route, runs one repeat with sliced minibatches, and
-times every kernel.  Every phase prints as it goes; any failure exits
+count is read around it), times each phase of a repeat on the fused
+update route (full batch; -bs 250 with the affine and with the
+un-collapsed actor) and on the autograd one, runs
+one repeat with sliced minibatches and one more with
+``MARLNAV_ACTOR_LAYOUT=packed`` (the un-collapsed actor gradient's path),
+holds the rollout kernel against its plain version (at every timed
+shape, the bench's included) and against the collect kernel, runs the
+bench (``python -m marlnav_tpu_torch.bench
+--plain`` at 16384 envs x 500 steps, the rollout kernel's path), and
+times every kernel.  Each path's launch counts are set to 0 just before
+it and read just after.  Every phase prints as it goes; any failure exits
 non-zero.  The last three lines are the kernels' JSON object, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  It exits
 non-zero, printing no result, where CUDA is unavailable.  The training
@@ -20,7 +28,9 @@ temporary directory, removed at exit).
 """
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -40,6 +50,14 @@ import torch
 # and log-prob) = 477; dynamics 3 x 48 = 144; rewards and done 332; reset
 # blend 83; step counter 2.  Philox's integer work is not counted.
 OPS_PER_ENV_STEP = 1830
+# The rollout kernel (ops/csrc/fused_rollout.cu) takes the collect's step
+# without the log-probs (3 agents x 9: two logs, two squares, four adds and
+# the scale) and without the done flag and counters (4): 1,799 sampled.
+# With the policy mean it also skips, per agent, the operator's two
+# variance rows (48), two softplus (12), Box-Muller (36) and the sample
+# (6): 1,493.  Indexed by deterministic_actions.
+ROLLOUT_OPS_PER_ENV_STEP = {False: OPS_PER_ENV_STEP - 3 * 9 - 4,
+                            True: OPS_PER_ENV_STEP - 3 * 9 - 4 - 3 * 102}
 # Float operations of one actor row of ops/csrc/fused_update.cu, counted
 # the same way: z = A x + c, 8F + 4; the PPO chain (ppo_row), 91; the sums
 # g_z x^T and g_z, 8F + 4; the loss sum, 1.  At F = 12: 292.
@@ -56,6 +74,13 @@ def critic_ops_per_row(n_in, h):
     return 4 * n_in * h + 10 * h + 30
 
 
+# One row of the un-collapsed actor kernel: h = W1 x + b1, H (2F + 1); the
+# heads, 4 (2H + 1); the PPO chain, 91; dWmu and dWvar, 8H; g_h, 7H; db1,
+# H; dW1, 2HF; the loss and head-bias sums, 5.  At F = 12, H = 50: 3,750.
+def uncollapsed_ops_per_row(f, h):
+    return 4 * f * h + 25 * h + 100
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 without tensor cores
 KERNELS = {
@@ -70,7 +95,20 @@ KERNELS = {
         source="marlnav_tpu_torch/ops/csrc/fused_update.cu",
         replaces="marlnav_tpu/ops/fused_update_tiled.py:347 and "
                  "marlnav_tpu/ops/fused_update.py:844"),
+    "fused_actor_grad_uncollapsed": dict(
+        source="marlnav_tpu_torch/ops/csrc/fused_update.cu",
+        replaces="marlnav_tpu/ops/fused_update.py:509 and "
+                 "marlnav_tpu/ops/fused_update.py:618"),
+    "fused_rollout": dict(
+        source="marlnav_tpu_torch/ops/csrc/fused_rollout.cu",
+        replaces="marlnav_tpu/ops/fused_rollout.py:312"),
 }
+# The shape each kernel's path runs it at, reported as its "ms": the
+# default full batch, P=1024 x T=1000, unless given here.  The
+# un-collapsed actor gradient's path is the -bs 250 repeat (P=1024 x 250
+# steps a slice), the rollout's the bench.
+MAIN_SHAPE = {"fused_actor_grad_uncollapsed": (1024, 250),
+              "fused_rollout": (16384, 500)}
 
 
 def phase(title):
@@ -150,6 +188,7 @@ def main(out_dir):
     if os.path.dirname(os.path.dirname(marlnav_tpu_torch.__file__)) != here:
         sys.exit(f"chip_smoke: marlnav_tpu_torch imported from "
                  f"{marlnav_tpu_torch.__file__}, not from this checkout")
+    from marlnav_tpu_torch import bench
     from marlnav_tpu_torch.__main__ import build_parser
     from marlnav_tpu_torch.algo import make_mappo
     from marlnav_tpu_torch.algo.mappo import (minibatch_advantages,
@@ -161,6 +200,7 @@ def main(out_dir):
     from marlnav_tpu_torch.env import make_env
     from marlnav_tpu_torch.models import Actor, Critic
     from marlnav_tpu_torch.ops import fused_collect as fc
+    from marlnav_tpu_torch.ops import fused_rollout as fr
     from marlnav_tpu_torch.ops import fused_update as fu
     from marlnav_tpu_torch.ops import update_math as um
     from marlnav_tpu_torch.ops._build import find_nvcc, load_libraries
@@ -171,6 +211,10 @@ def main(out_dir):
     dev = torch.device("cuda")
     norm, scal = NormalizerConfig(), ScalerConfig()
     record = {}
+    # The main path runs the default actor layout and routing; the
+    # un-collapsed path sets its layout itself.
+    for knob in ("MARLNAV_ACTOR_LAYOUT", "MARLNAV_TILED_UPDATES"):
+        os.environ.pop(knob, None)
 
     # ------------------------------------------------------------------
     phase("1. device and build")
@@ -181,9 +225,10 @@ def main(out_dir):
     print(subprocess.run([find_nvcc(), "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    builds = load_libraries(["fused_collect", "fused_update"])
+    builds = load_libraries(["fused_collect", "fused_rollout", "fused_update"])
     record["build_s"] = time.perf_counter() - t0
-    print(f"both libraries built in parallel: {record['build_s']:.1f} s")
+    print(f"all {len(builds)} libraries built in parallel: "
+          f"{record['build_s']:.1f} s")
     for name, (_, build) in builds.items():
         print(f"{name}: {build['seconds']:.1f} s -> {build['path']}")
         print("\n".join(ptxas_summary(build["log"])))
@@ -296,7 +341,15 @@ def main(out_dir):
 
     counters = {"fused_collect": fc.fused_collect_rows,
                 "fused_actor_grad": fu.actor_grad_sums,
-                "fused_critic_grad": fu.critic_grad_sums}
+                "fused_critic_grad": fu.critic_grad_sums,
+                "fused_actor_grad_uncollapsed": fu.actor_grad_uncollapsed_sums,
+                "fused_rollout": fr.fused_rollout_rows}
+    assert set(counters) == set(KERNELS)
+    path_launches = {}  # kernel -> launches on its path's run
+
+    def expect(**counts):
+        """Every kernel's count, 0 unless given."""
+        return {name: counts.get(name, 0) for name in counters}
 
     def reset_counts():
         for fn in counters.values():
@@ -318,8 +371,10 @@ def main(out_dir):
     print(f"train: {train_s:.2f} s for 2 repeats; kernel launches "
           f"{launches}; mean_rew {logs['mean_rews']}; actor losses "
           f"{len(logs['actor'])}, critic losses {len(logs['critic'])}")
-    assert launches == {"fused_collect": 2, "fused_actor_grad": 100,
-                        "fused_critic_grad": 100}, launches
+    assert launches == expect(fused_collect=2, fused_actor_grad=100,
+                              fused_critic_grad=100), launches
+    for name in ("fused_collect", "fused_actor_grad", "fused_critic_grad"):
+        path_launches[name] = launches[name]
     assert len(logs["mean_rews"]) == 2 and len(logs["actor"]) == 100 \
         and len(logs["critic"]) == 100
     for key in ("mean_rews", "actor", "critic"):
@@ -328,15 +383,23 @@ def main(out_dir):
                for x in rows_out.fields())
 
     # Per-phase times of one more repeat through the same functions, on the
-    # fused and on the autograd update route.
-    routes = {"fused": cfg.model,
-              "autograd": dataclasses.replace(cfg.model, fused_updates=False)}
+    # fused and on the autograd update route, and at -bs 250 (4 minibatch
+    # slices) with the affine and with the un-collapsed actor gradient:
+    # the route MARLNAV_ACTOR_LAYOUT=packed takes the un-collapsed kernel
+    # on, as the JAX package's staged route does.
+    cfg_s = run_config(["--fused-updates", "-bs", "250"], repeats=1)
+    routes = {"fused": (cfg.model, False),
+              "autograd": (dataclasses.replace(cfg.model,
+                                               fused_updates=False), False),
+              "fused -bs 250": (cfg_s.model, False),
+              "fused -bs 250, un-collapsed actor": (cfg_s.model, True)}
     env = make_env(cfg.env, cfg.init, dev)
     collect = fc.make_fused_collect(cfg.model, cfg.env, cfg.init,
                                     cfg.normalizer, cfg.scaler)
     record["phases_ms"] = {}
-    for route, model_cfg in routes.items():
-        mappo = make_mappo(model_cfg, env, cfg.normalizer, cfg.scaler)
+    for route, (model_cfg, uncollapsed) in routes.items():
+        mappo = make_mappo(model_cfg, env, cfg.normalizer, cfg.scaler,
+                           uncollapsed)
         ts, es = mappo.init(make_generator(0, dev))
         rows = fc.env_state_to_rows(es)
         out = {}
@@ -406,7 +469,6 @@ def main(out_dir):
 
     # One repeat with sliced minibatches (-bs 250: 4 slices, the last one
     # short by the faithful last-step drop).
-    cfg_s = run_config(["--fused-updates", "-bs", "250"], repeats=1)
     reset_counts()
     t0 = time.perf_counter()
     _, _, logger_s = train(cfg_s, device="cuda", fused_collect=True,
@@ -415,11 +477,35 @@ def main(out_dir):
     sliced = read_counts()
     print(f"-bs 250, 1 repeat: {time.perf_counter() - t0:.2f} s; kernel "
           f"launches {sliced}")
-    assert sliced == {"fused_collect": 1, "fused_actor_grad": 200,
-                      "fused_critic_grad": 200}, sliced
+    assert sliced == expect(fused_collect=1, fused_actor_grad=200,
+                            fused_critic_grad=200), sliced
     assert len(logger_s.logs["actor"]) == 200
     for key in ("mean_rews", "actor", "critic"):
         assert all(math.isfinite(v) for v in logger_s.logs[key]), key
+
+    # The un-collapsed actor gradient's path: the same -bs 250 repeat with
+    # MARLNAV_ACTOR_LAYOUT=packed, where the JAX package runs its staged
+    # "packed" actor kernel (TPU row 6; "undilated", row 7, routes alike).
+    os.environ["MARLNAV_ACTOR_LAYOUT"] = "packed"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, logger_u = train(cfg_s, device="cuda", fused_collect=True,
+                               output_root=out_dir, verbose=False)
+        torch.cuda.synchronize()
+        packed = read_counts()
+    finally:
+        del os.environ["MARLNAV_ACTOR_LAYOUT"]
+    print(f"-bs 250, MARLNAV_ACTOR_LAYOUT=packed, 1 repeat: "
+          f"{time.perf_counter() - t0:.2f} s; kernel launches {packed}; "
+          f"mean_rew {logger_u.logs['mean_rews']}")
+    assert packed == expect(fused_collect=1, fused_critic_grad=200,
+                            fused_actor_grad_uncollapsed=200), packed
+    path_launches["fused_actor_grad_uncollapsed"] = packed[
+        "fused_actor_grad_uncollapsed"]
+    assert len(logger_u.logs["actor"]) == 200
+    for key in ("mean_rews", "actor", "critic"):
+        assert all(math.isfinite(v) for v in logger_u.logs[key]), key
 
     # ------------------------------------------------------------------
     phase("5. collect kernel: times, and against its plain version at these "
@@ -481,7 +567,13 @@ def main(out_dir):
     fns = {"fused_actor_grad": (fu.actor_grad_sums,
                                 um.actor_grad_sums_reference),
            "fused_critic_grad": (fu.critic_grad_sums,
-                                 um.critic_grad_sums_reference)}
+                                 um.critic_grad_sums_reference),
+           "fused_actor_grad_uncollapsed": (
+               fu.actor_grad_uncollapsed_sums,
+               um.actor_grad_sums_uncollapsed_reference)}
+    # The argument whose first dimension is the row count.
+    rows_arg = {"fused_actor_grad": 4, "fused_critic_grad": 4,
+                "fused_actor_grad_uncollapsed": 6}
 
     def actor_inputs(actor, mb, mcfg):
         n = mb.log_probs.numel()
@@ -497,9 +589,20 @@ def main(out_dir):
                 mb.obs.reshape(n, -1), mb.values.reshape(n),
                 mb.returns.reshape(n), mcfg.epsilon)
 
+    def uncollapsed_inputs(actor, mb, mcfg):
+        n = mb.log_probs.numel()
+        # parameters(): fc1, fc_mu, fc_var, each weight then bias.
+        return (*(p_.detach() for p_ in actor.parameters()),
+                mb.obs.reshape(n, -1), mb.actions.reshape(n, -1),
+                mb.log_probs.reshape(n), minibatch_advantages(mb, mcfg),
+                mcfg.epsilon, mcfg.ent_const)
+
+    actor_fns = {"fused_actor_grad": actor_inputs,
+                 "fused_actor_grad_uncollapsed": uncollapsed_inputs}
+
     def check(name, label, args):
         kernel, plain = fns[name]
-        n = args[4].shape[0]  # log-probs (actor) or obs rows (critic)
+        n = args[rows_arg[name]].shape[0]
         k1, k2 = kernel(*args), kernel(*args)
         p32 = plain(*args)
         p64 = plain(*(x.double() if torch.is_tensor(x) else x for x in args))
@@ -519,6 +622,45 @@ def main(out_dir):
               f"bitwise equal")
         errors[name] = max(errors.get(name, 0.0), err_k)
 
+    def work(name, n, mcfg):
+        """The bytes and float operations of ``name`` on ``n`` rows."""
+        f, h = mcfg.obs_size, mcfg.hidden_size
+        n_in = mcfg.num_agents * f
+        n_par = h * n_in + 2 * h + 1
+        return {
+            "fused_actor_grad": (
+                n * (4 * f + 16) + 4 * (4 * f + 4) + 4 * (4 * f + 5),
+                n * actor_ops_per_row(f)),
+            "fused_critic_grad": (
+                n * (4 * n_in + 8) + 4 * (2 * n_par + 1),
+                n * critic_ops_per_row(n_in, h)),
+            # rows as the affine actor's; the weights in, the sums out.
+            "fused_actor_grad_uncollapsed": (
+                n * (4 * f + 16) + 4 * (2 * (h * f + 5 * h + 4) + 1),
+                n * uncollapsed_ops_per_row(f, h))}[name]
+
+    def time_kernels(key, label, inputs, mcfg):
+        """Each kernel and its plain version on ``inputs``, against the
+        bound, kept in ``times`` under ``key``."""
+        for name, args in inputs.items():
+            kernel, plain = fns[name]
+            n = args[rows_arg[name]].shape[0]
+            nbytes, ops = work(name, n, mcfg)
+            k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_OPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            times[name][key] = dict(
+                ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"{name} {label}: {n:,} rows, kernel {k_ms:.4f} ms "
+                  f"(median of 7), plain version {plain_ms:.3f} ms (median "
+                  f"of 3), bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f}"
+                  f" MB -> {bytes_ms * 1e3:.1f} us; {ops / 1e9:.2f} GFLOP "
+                  f"-> {ops_ms * 1e3:.1f} us), {bound_ms / k_ms:.1%} of the "
+                  f"bound")
+
     for name in fns:
         times[name] = {}
     for p, t in ((1024, 1000), (16384, 200)):
@@ -537,71 +679,164 @@ def main(out_dir):
         actor = Actor(mcfg.obs_size, mcfg.hidden_size, generator=g).to(dev)
         critic = Critic(mcfg.obs_size, mcfg.num_agents, mcfg.hidden_size,
                         generator=g).to(dev)
-        inputs = {"fused_actor_grad": actor_inputs(actor, mb, mcfg),
-                  "fused_critic_grad": critic_inputs(critic, mb, mcfg)}
+
+        def all_inputs(smb, scfg_):
+            out_ = {name: fn(actor, smb, scfg_)
+                    for name, fn in actor_fns.items()}
+            out_["fused_critic_grad"] = critic_inputs(critic, smb, scfg_)
+            return out_
+
+        inputs = all_inputs(mb, mcfg)
         for name, args in inputs.items():
             check(name, f"P={p} T={t} full batch", args)
+        slice_inputs = None
         if (p, t) == (1024, 1000):
             sliced_cfg = dataclasses.replace(mcfg, batch_size=250)
             for i, smb in enumerate(minibatch_slices(buf, sliced_cfg)):
                 if i in (0, sliced_cfg.num_minibatches - 1):
                     label = f"-bs 250 slice {i} ({smb.obs.shape[0]} steps)"
-                    check("fused_actor_grad", label,
-                          actor_inputs(actor, smb, sliced_cfg))
-                    check("fused_critic_grad", label,
-                          critic_inputs(critic, smb, sliced_cfg))
-            check("fused_actor_grad", "collecting actor (ratios ~1, tied)",
-                  actor_inputs(ts.actor, mb, mcfg))
+                    s_inputs = all_inputs(smb, sliced_cfg)
+                    for name, args in s_inputs.items():
+                        check(name, label, args)
+                    if i == 0:
+                        slice_inputs = s_inputs
+            for name, fn in actor_fns.items():
+                check(name, "collecting actor (ratios ~1, tied)",
+                      fn(ts.actor, mb, mcfg))
             check("fused_critic_grad", "collecting critic (all rows tied)",
                   critic_inputs(ts.critic, mb, mcfg))
 
-        f, h = mcfg.obs_size, mcfg.hidden_size
-        n_in = mcfg.num_agents * f
-        n_par = h * n_in + 2 * h + 1
-        work = {
-            "fused_actor_grad": (
-                inputs["fused_actor_grad"][4].shape[0],
-                lambda n: n * (4 * f + 16) + 4 * (4 * f + 4) + 4 * (4 * f + 5),
-                lambda n: n * actor_ops_per_row(f)),
-            "fused_critic_grad": (
-                inputs["fused_critic_grad"][4].shape[0],
-                lambda n: n * (4 * n_in + 8) + 4 * (2 * n_par + 1),
-                lambda n: n * critic_ops_per_row(n_in, h))}
-        for name, (n, nbytes, ops) in work.items():
-            kernel, plain = fns[name]
-            args = inputs[name]
-            k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
-            plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
-            bytes_ms = nbytes(n) / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops(n) / FP32_OPS_PER_S * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            times[name][(p, t)] = dict(
-                ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-            print(f"{name} P={p} T={t}: {n:,} rows, kernel {k_ms:.4f} ms "
-                  f"(median of 7), plain version {plain_ms:.3f} ms (median "
-                  f"of 3), bound {bound_ms * 1e3:.1f} us ({nbytes(n) / 1e6:.1f}"
-                  f" MB -> {bytes_ms * 1e3:.1f} us; {ops(n) / 1e9:.2f} GFLOP "
-                  f"-> {ops_ms * 1e3:.1f} us), {bound_ms / k_ms:.1%} of the "
-                  f"bound")
+        time_kernels((p, t), f"P={p} T={t}", inputs, mcfg)
+        if slice_inputs is not None:
+            # The -bs 250 slices' shape: the un-collapsed kernel's path.
+            time_kernels((p, 250), f"P={p} -bs 250 slice 0", slice_inputs,
+                         mcfg)
+
+    # ------------------------------------------------------------------
+    phase("7. rollout kernel against its plain version and the collect "
+          "kernel; its times")
+    # Both routes perform the same float32 operations in the same order,
+    # and the sampled rollout draws the collect's Philox slots: every
+    # comparison is expected bit for bit.  episode_len 50 with noisy_ags:
+    # every env resets at least 4 times, so the reset draws (slot 2A and
+    # up, in both modes) are read.
+    def same_rollout(a, b):
+        """Largest difference of the rewards and the final rows."""
+        return max((x - y).abs().max().item() for x, y in
+                   zip((a[1], *a[0].fields()), (b[1], *b[0].fields())))
+
+    t = 200
+    sm, rows, a_comp, c_comp = setup(2048, t, episode_len=50, noisy=True)
+    uniforms = torch.rand((t, sm.n_draws, 2048), device=dev,
+                          generator=make_generator(6, dev))
+    errors["fused_rollout"] = 0.0
+    for det in (False, True):
+        k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, t, det,
+                                  uniforms)
+        r = fr.rollout_rows_reference(sm, rows, a_comp, c_comp, uniforms, det)
+        torch.cuda.synchronize()
+        err = same_rollout(k, r)
+        resets = int((k[0].misc[0] == 0).sum())
+        print(f"rollout {'policy-mean' if det else 'sampled'}: kernel == "
+              f"plain: max abs err {err:.3e}; mean reward "
+              f"{k[1].mean().item():.2f}; envs just reset {resets}")
+        assert err == 0.0, f"rollout det={det}: kernel != plain ({err})"
+        assert math.isfinite(k[1].mean().item())
+        errors["fused_rollout"] = max(errors["fused_rollout"], err)
+    col = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 11, t)
+    k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, t, False)
+    torch.cuda.synchronize()
+    err = same_rollout(k, (col.rows, col.rewards))
+    print(f"sampled rollout == collect kernel, Philox seed 11: max abs err "
+          f"{err:.3e}; done frac {col.done.float().mean().item():.4f}")
+    assert err == 0.0, f"rollout != collect ({err})"
+    assert col.done.any()
+
+    # At each timed shape, (16384, 500) the bench's own among them, the
+    # sampled kernel is also held against the plain version's timed run on
+    # the same uniforms: the untamed initial actor, resets included, bit
+    # for bit.
+    times["fused_rollout"] = {}
+    for p, t in ((1024, 1000), (16384, 200), (16384, 500)):
+        sm, rows, a_comp, c_comp = setup(p, t)
+        k_ms = cuda_ms(lambda: fr.fused_rollout_rows(
+            sm, rows, a_comp, c_comp, 3, t, False), reps=7, warmup=2)
+        det_ms = cuda_ms(lambda: fr.fused_rollout_rows(
+            sm, rows, a_comp, c_comp, 3, t, True), reps=7, warmup=2)
+        uniforms = torch.rand((t, sm.n_draws, p), device=dev,
+                              generator=make_generator(4, dev))
+        plain = {}
+        plain_ms = cuda_ms(lambda: plain.update(r=fr.rollout_rows_reference(
+            sm, rows, a_comp, c_comp, uniforms, False)))
+        k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 3, t, False,
+                                  uniforms)
+        torch.cuda.synchronize()
+        err = same_rollout(k, plain["r"])
+        resets = int((k[0].misc[0] == 0).sum())
+        print(f"P={p} T={t} sampled, same uniforms: kernel == plain: max abs "
+              f"err {err:.3e}; mean reward {k[1].mean().item():.2f}; envs "
+              f"just reset {resets}")
+        assert err == 0.0, f"rollout P={p} T={t}: kernel != plain ({err})"
+        assert math.isfinite(k[1].mean().item())
+        n_rows = sum(x.shape[0] for x in rows.fields())
+        nbytes = t * p * 4 + 2 * n_rows * p * 4 + 4 * (4 * sm.obs_size + 4)
+        ops = ROLLOUT_OPS_PER_ENV_STEP[False] * t * p
+        bytes_ms, ops_ms = (nbytes / HBM_BYTES_PER_S * 1e3,
+                            ops / FP32_OPS_PER_S * 1e3)
+        bound_ms = max(bytes_ms, ops_ms)
+        times["fused_rollout"][(p, t)] = dict(
+            ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            policy_mean_ms=det_ms)
+        print(f"fused_rollout P={p} T={t}: kernel {k_ms:.3f} ms sampled, "
+              f"{det_ms:.3f} ms policy mean (medians of 7), plain version "
+              f"{plain_ms:.1f} ms (1 run), bound {bound_ms * 1e3:.1f} us "
+              f"({nbytes / 1e6:.1f} MB -> {bytes_ms * 1e3:.1f} us; "
+              f"{ops / 1e9:.2f} GFLOP -> {ops_ms * 1e3:.1f} us), "
+              f"{bound_ms / k_ms:.1%} of the bound; "
+              f"{p * t / k_ms * 1e3:,.0f} env-steps/s")
+
+    # ------------------------------------------------------------------
+    phase("8. the bench path: python -m marlnav_tpu_torch.bench --plain, "
+          f"{bench.HEADLINE[0]} envs x {bench.HEADLINE[1]} steps")
+    reset_counts()
+    bench_out = io.StringIO()
+    with contextlib.redirect_stdout(bench_out):
+        result = bench.main(["--plain"])
+    torch.cuda.synchronize()
+    bench_launches = read_counts()
+    line = json.loads(bench_out.getvalue().strip().splitlines()[-1])
+    rates = result["routes"]
+    print(f"bench line: {json.dumps(line)}")
+    print(f"bench: fused rollout {rates['fused']:,.0f} env-steps/s, plain "
+          f"loop {rates['plain']:,.0f} env-steps/s "
+          f"({rates['fused'] / rates['plain']:.1f}x); mean rewards "
+          f"{result['mean_rewards']}; kernel launches {bench_launches}")
+    assert bench_launches == expect(fused_rollout=1 + bench.TIMED_CALLS), \
+        bench_launches
+    path_launches["fused_rollout"] = bench_launches["fused_rollout"]
+    assert line["metric"] == "env_steps_per_s" and line["value"] > 0
+    assert all(math.isfinite(v) for v in result["mean_rewards"].values())
+    record["bench"] = result
 
     record["times"] = {name: {f"{p}x{t}": v for (p, t), v in by.items()}
                        for name, by in times.items()}
     record["max_abs_err"] = errors
-    record["launches"] = launches
+    record["launches"] = path_launches
     record["card"] = card
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
 
     def entry(name):
-        main_, big = times[name][(1024, 1000)], times[name][(16384, 200)]
+        main_ = times[name][MAIN_SHAPE.get(name, (1024, 1000))]
         return {"name": name, "route": "cuda", **KERNELS[name],
-                "launches": launches[name], "max_abs_err": errors[name],
+                "launches": path_launches[name], "max_abs_err": errors[name],
                 "ms": main_["ms"], "plain_ms": main_["plain_ms"],
                 "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
-                "library_ms": None, "ms_16384x200": big["ms"],
-                "plain_ms_16384x200": big["plain_ms"],
-                "bound_ms_16384x200": big["bound_ms"]}
+                "library_ms": None,
+                "by_shape": {f"{p}x{t}": {k: v[k] for k in
+                                          ("ms", "plain_ms", "bound_ms")}
+                             for (p, t), v in times[name].items()}}
 
     print(json.dumps({"kernels": [entry(name) for name in KERNELS]}))
     print(card)

@@ -26,7 +26,10 @@ Faithful-semantics notes (SURVEY.md §2.5), active when ``cfg.faithful``
 ``fused_updates=True`` computes each minibatch's loss and gradients with the
 hand-derived backwards of ``ops/fused_update.py`` (CUDA kernels on the card,
 their plain versions on the CPU) instead of autograd; the same Adam steps
-consume them (marlnav_tpu/algo/mappo.py:383-471).
+consume them (marlnav_tpu/algo/mappo.py:383-471).  The actor's gradient
+goes through its affine operator, or, with ``uncollapsed_actor``, through
+the network itself (the JAX package's "packed" and "undilated" kernels;
+``train.py`` decides when).
 
 Clip edges follow JAX's gradient rule: ``clip`` below is
 ``minimum(maximum(x, lo), hi)``, whose gradient at an exact bound is 1/2
@@ -232,9 +235,13 @@ def minibatch_slices(buffer: Buffer, cfg: MAPPOConfig):
 # ----------------------------------------------------------------------
 
 def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
-               scaler_cfg: ScalerConfig) -> MAPPO:
+               scaler_cfg: ScalerConfig, uncollapsed_actor: bool = False
+               ) -> MAPPO:
     """Build the MAPPO function bundle on ``env.device``.  The train
-    functions update the networks and optimizers of ``ts`` in place."""
+    functions update the networks and optimizers of ``ts`` in place.
+    With ``cfg.fused_updates``, the actor's gradient goes through its
+    affine operator, or through the network itself where
+    ``uncollapsed_actor``."""
     unported = [name for name in ("returns_f64", "bf16_updates")
                 if getattr(cfg, name)]
     if unported:
@@ -301,10 +308,12 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         return env_state, buffer, RolloutMetrics(mean_rew, env_state.stats)
 
     if cfg.fused_updates:
-        from marlnav_tpu_torch.ops.fused_update import actor_grad, critic_grad
+        from marlnav_tpu_torch.ops.fused_update import (
+            actor_grad, actor_grad_uncollapsed, critic_grad)
 
+        grad = actor_grad_uncollapsed if uncollapsed_actor else actor_grad
         # (module, minibatch, staged) -> (loss, grads by parameter name)
-        actor_step = lambda m, mb, adv: actor_grad(m, mb, adv, cfg)  # noqa: E731
+        actor_step = lambda m, mb, adv: grad(m, mb, adv, cfg)  # noqa: E731
         critic_step = lambda m, mb, _: critic_grad(m, mb, cfg)  # noqa: E731
     else:
         actor_step = critic_step = None

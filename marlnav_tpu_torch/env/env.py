@@ -27,6 +27,7 @@ from marlnav_tpu_torch.env.initializers import make_initializer
 from marlnav_tpu_torch.env.reward import rewards_and_terminations
 from marlnav_tpu_torch.env.types import (EnvState, EpisodeStats, Observations,
                                          StepOutput)
+from marlnav_tpu_torch.utils.seeding import resolve_device
 
 
 @dataclasses.dataclass
@@ -66,10 +67,12 @@ def compute_observations(states, obstacles, target, params: EnvParams,
     )
 
 
-def make_env(params: EnvParams, init_cfg, device="cpu") -> Env:
+def make_env(params: EnvParams, init_cfg, device="cuda") -> Env:
     """Build the environment function bundle on ``device``; ``init_cfg``
-    selects the reset distribution (triangle or mock)."""
-    device = torch.device(device)
+    selects the reset distribution (triangle or mock).  ``device``
+    defaults to CUDA and raises when CUDA is absent; pass ``"cpu"`` to run
+    on the CPU."""
+    device = resolve_device(device)
     init_fn = make_initializer(init_cfg, device)
     others_idx = geometry.others_indices(params.num_agents, device)
     p = params.num_parallel

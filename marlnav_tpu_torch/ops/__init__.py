@@ -1,6 +1,6 @@
 """Kernels (CUDA C++ under csrc/) and their plain PyTorch versions: the
-fused collect, and the actor- and critic-gradient kernels of the fused
-updates.
+fused collect, the fused bench rollout, and the actor- and critic-gradient
+kernels of the fused updates.
 
 Importing this package builds nothing; a kernel is compiled with ``nvcc``
 at its first launch (ops/_build.py).
@@ -15,14 +15,22 @@ from marlnav_tpu_torch.ops.fused_collect import (
     rows_to_env_arrays,
     rows_to_env_state,
 )
+from marlnav_tpu_torch.ops.fused_rollout import (
+    fused_rollout_rows,
+    make_fused_rollout,
+    rollout_rows_reference,
+)
 from marlnav_tpu_torch.ops.fused_update import (
     actor_grad,
     actor_grad_sums,
+    actor_grad_uncollapsed,
+    actor_grad_uncollapsed_sums,
     critic_grad,
     critic_grad_sums,
 )
 from marlnav_tpu_torch.ops.update_math import (
     actor_grad_sums_reference,
+    actor_grad_sums_uncollapsed_reference,
     critic_grad_sums_reference,
 )
 
@@ -31,13 +39,19 @@ __all__ = [
     "actor_grad",
     "actor_grad_sums",
     "actor_grad_sums_reference",
+    "actor_grad_sums_uncollapsed_reference",
+    "actor_grad_uncollapsed",
+    "actor_grad_uncollapsed_sums",
     "collect_rows_reference",
     "critic_grad",
     "critic_grad_sums",
     "critic_grad_sums_reference",
     "env_state_to_rows",
     "fused_collect_rows",
+    "fused_rollout_rows",
     "make_fused_collect",
+    "make_fused_rollout",
+    "rollout_rows_reference",
     "rows_to_env_arrays",
     "rows_to_env_state",
 ]

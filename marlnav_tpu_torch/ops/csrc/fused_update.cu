@@ -1,7 +1,7 @@
 // PPO update gradients for Hopper: the actor's and the critic's loss and
 // parameter-gradient sums over a set of rows, in one streaming pass each.
 //
-// Replaces four Pallas TPU kernels of marlnav_tpu/ops/, which compute two
+// Replaces six Pallas TPU kernels of marlnav_tpu/ops/, which compute three
 // functions in two VMEM layouts each:
 //   actor_grad_kernel   <- fused_update_tiled.py:157 make_tiled_actor_grad
 //                          (pallas_call :226, the full-batch route) and
@@ -9,14 +9,21 @@
 //                          (pallas_call :758, staged, sliced minibatches);
 //   critic_grad_kernel  <- fused_update_tiled.py:265 make_tiled_critic_grad
 //                          (pallas_call :347) and fused_update.py:787
-//                          make_fused_critic_grad (pallas_call :844).
-// The layouts were the TPU's concern; both kernels read a time slice of the
+//                          make_fused_critic_grad (pallas_call :844);
+//   actor_grad_uncollapsed_kernel
+//                       <- fused_update.py:436 make_fused_actor_grad, the
+//                          "packed" layout (pallas_call :509), and :553
+//                          _make_actor_grad_undilated (pallas_call :618):
+//                          the actor through the 12 -> 50 -> 2+2 network
+//                          itself (MARLNAV_ACTOR_LAYOUT=packed|undilated).
+// The layouts were the TPU's concern; the kernels read a time slice of the
 // canonical Buffer as flat rows (actor (t, p, a) rows of obs (N, F); critic
 // (t, p) rows of obs (N, A*F)), so one kernel serves the full batch and any
 // minibatch slice.  The plain PyTorch versions are ops/update_math.py
-// actor_grad_sums_reference / critic_grad_sums_reference; the per-row
-// arithmetic here follows ops/update_math.py ppo_chain / critic_chain op for
-// op (JAX's balanced min/max ties, the half-weight clip edges, relu'(0) = 0).
+// actor_grad_sums_reference, actor_grad_sums_uncollapsed_reference and
+// critic_grad_sums_reference; the per-row arithmetic here follows
+// ops/update_math.py ppo_chain / critic_chain op for op (JAX's balanced
+// min/max ties, the half-weight clip edges, relu'(0) = 0).
 //
 // No sequential grid: a TPU kernel carries its sums across grid steps in
 // VMEM.  Here each block writes one partial per output into `partials`
@@ -43,6 +50,12 @@
 //           every tile the block visits.  The products run from shared
 //           memory in float32 on the CUDA cores; tensor cores, TMA and a
 //           register-tiled product are later work.
+//   un-collapsed actor: 64 B a row, as the actor = 196 MB -> 58.6 us;
+//           4*F*H + 25*H + 100 float operations a row (3,750: W1 x, the two
+//           heads, the PPO chain, g_h, the four sums) = 11.5 GFLOP -> 172 us.
+//           Float operations bound it.  Design: the critic kernel's, with
+//           the actor's chain; the H*F + 5H + 5 sums split over the block
+//           (H*F entries over all threads, 5 a hidden unit, 5 a tile row).
 // Built with -fmad=false like the collect kernel (one flag set for the
 // port's libraries): every multiply and add rounds separately, as PyTorch's
 // elementwise operations do, at the price of the fused multiply-adds the
@@ -58,10 +71,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;  // the wrapper sizes the grid with it
 constexpr int kMaxObs = 24;      // actor widths instantiated: even 2 .. 24
-constexpr int kTileRows = 64;    // critic rows staged a tile
+constexpr int kTileRows = 64;    // rows staged a tile (critic, un-collapsed)
 constexpr int kMaxHidden = 64;
 constexpr int kMaxIn = 96;
 constexpr int kMaxEntries = (kMaxHidden * kMaxIn + kThreads - 1) / kThreads;
+// dW1 entries a thread of the un-collapsed actor kernel (H <= kMaxHidden,
+// F <= kMaxObs).
+constexpr int kMaxUncollapsedEntries =
+    (kMaxHidden * kMaxObs + kThreads - 1) / kThreads;
 constexpr float kLog2Pi2 = static_cast<float>(2.0 * 1.8378770664093453);
 constexpr float kEnt0 = static_cast<float>(1.0 + 1.8378770664093453);
 
@@ -81,6 +98,12 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   return inside + 0.5f * on_edge;
 }
 
+// The PPO constants of the actor objective.
+struct PpoConsts {
+  float lo, hi;           // 1 - eps, 1 + eps
+  float ent_c, ent_half;  // ent_const, ent_const * 0.5
+};
+
 struct ActorArgs {
   const float* obs;  // (N, F)
   const float* act;  // (N, 2)
@@ -88,8 +111,7 @@ struct ActorArgs {
   const float* adv;  // (N,)
   const float* op;   // (4F + 4): a_comp row-major, then c_comp
   long long n_rows;
-  float lo, hi;      // 1 - eps, 1 + eps
-  float ent_c, ent_half;  // ent_const, ent_const * 0.5
+  PpoConsts k;
   float* partials;   // (gridDim.x, 1 + 4F + 4)
 };
 
@@ -97,7 +119,7 @@ struct ActorArgs {
 // [g_u0, g_u1, g_s0, g_s1] from z = [u0, u1, s0, s1].
 __device__ __forceinline__ float ppo_row(const float z[4], float2 a,
                                          float lp_b, float adv,
-                                         const ActorArgs& k, float g_z[4]) {
+                                         const PpoConsts& k, float g_z[4]) {
   const float act[2] = {a.x, a.y};
   float mu[2], e_s[2], var[2], diff[2], inv_var[2], log_var[2], zz[2];
 #pragma unroll
@@ -179,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     float g_z[4];
     loss += ppo_row(z, reinterpret_cast<const float2*>(args.act)[row],
-                    args.lp[row], args.adv[row], args, g_z);
+                    args.lp[row], args.adv[row], args.k, g_z);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       dzs[c] += g_z[c];
@@ -373,6 +395,190 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+struct UncollapsedArgs {
+  const float* obs;   // (N, F)
+  const float* act;   // (N, 2)
+  const float* lp;    // (N,) behaviour log-probs
+  const float* adv;   // (N,)
+  const float* w1;    // (H, F)
+  const float* b1;    // (H,)
+  const float* wmu;   // (2, H)
+  const float* bmu;   // (2,)
+  const float* wvar;  // (2, H)
+  const float* bvar;  // (2,)
+  long long n_rows;
+  int obs_size, hidden;
+  PpoConsts k;
+  float* partials;  // (gridDim.x, 1 + H*F + H + 2*(2H + 2))
+};
+
+// Dynamic shared memory of actor_grad_uncollapsed_kernel, in floats.  Odd
+// row strides for W1 and the activations keep the column-wise reads free
+// of bank conflicts.
+constexpr int uncollapsed_smem_floats(int obs_size, int hidden) {
+  return hidden * (obs_size | 1) + hidden + 4 * hidden + 4 +
+         kTileRows * obs_size + kTileRows * (hidden | 1) + 4 * kTileRows +
+         5 * kTileRows;
+}
+static_assert(sizeof(float) * uncollapsed_smem_floats(kMaxObs, kMaxHidden) <=
+                  48 * 1024,
+              "the widest instance fits the default 48 KiB of dynamic "
+              "shared memory");
+
+// The actor's loss and its five gradient sums through the network itself
+// (update_math.actor_grad_sums_uncollapsed_reference): the critic kernel's
+// design with the actor's PPO chain.  A block stages a 64-row tile of obs
+// and of h = W1 x + b1 (then g_h) in shared memory; the H*F entries of
+// dW1 are split over the block's threads, the 4H of dWmu and dWvar and
+// the H of db1 go to one thread a unit, the loss and the head biases' 4
+// sums to one thread a tile row.
+__global__ void __launch_bounds__(kThreads)
+    actor_grad_uncollapsed_kernel(const UncollapsedArgs args) {
+  extern __shared__ float smem[];
+  const int in = args.obs_size, hid = args.hidden;
+  const int ldw = in | 1, ldh = hid | 1, tid = threadIdx.x;
+  float* s_w1 = smem;                  // (H, ldw)
+  float* s_b1 = s_w1 + hid * ldw;      // (H,)
+  float* s_wh = s_b1 + hid;            // (4, H): Wmu rows, then Wvar rows
+  float* s_bh = s_wh + 4 * hid;        // (4,): bmu, then bvar
+  float* s_x = s_bh + 4;               // (kTileRows, F)
+  float* s_h = s_x + kTileRows * in;   // (kTileRows, ldh): h, then g_h
+  float* s_g = s_h + kTileRows * ldh;  // (kTileRows, 4): g_u, then g_s
+  float* s_red = s_g + 4 * kTileRows;  // (5, kTileRows)
+  for (int i = tid; i < hid * in; i += kThreads)
+    s_w1[(i / in) * ldw + i % in] = args.w1[i];
+  for (int j = tid; j < hid; j += kThreads) s_b1[j] = args.b1[j];
+  for (int i = tid; i < 2 * hid; i += kThreads) {
+    s_wh[i] = args.wmu[i];
+    s_wh[2 * hid + i] = args.wvar[i];
+  }
+  if (tid < 2) {
+    s_bh[tid] = args.bmu[tid];
+    s_bh[2 + tid] = args.bvar[tid];
+  }
+  __syncthreads();
+
+  const int n_w1 = hid * in;
+  float acc[kMaxUncollapsedEntries];  // dW1 entries tid + m * kThreads
+#pragma unroll
+  for (int m = 0; m < kMaxUncollapsedEntries; ++m) acc[m] = 0.f;
+  float acc_b1 = 0.f, acc_wh[4] = {0.f, 0.f, 0.f, 0.f};  // unit tid < H
+  float acc_loss = 0.f, acc_bh[4] = {0.f, 0.f, 0.f, 0.f};  // row tid < 64
+
+  const long long n_tiles = (args.n_rows + kTileRows - 1) / kTileRows;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * kTileRows;
+    const int rows = static_cast<int>(
+        args.n_rows - r0 < kTileRows ? args.n_rows - r0 : kTileRows);
+    const float* src = args.obs + r0 * in;
+    for (int i = tid; i < kTileRows * in; i += kThreads)
+      s_x[i] = i < rows * in ? src[i] : 0.f;
+    __syncthreads();
+
+    // Forward: h = W1 x + b1 (no activation), one (row, unit) pair a thread.
+    for (int p = tid; p < kTileRows * hid; p += kThreads) {
+      const int r = p / hid, j = p - r * hid;
+      const float* w = s_w1 + j * ldw;
+      const float* x = s_x + r * in;
+      float a = 0.f;
+      for (int k = 0; k < in; ++k) a = a + w[k] * x[k];
+      s_h[r * ldh + j] = a + s_b1[j];
+    }
+    __syncthreads();
+
+    // The heads z = [Wmu; Wvar] h + [bmu; bvar] and the PPO chain, one row
+    // a thread; padding rows get g = 0.
+    if (tid < kTileRows) {
+      float g[4] = {0.f, 0.f, 0.f, 0.f};
+      if (tid < rows) {
+        const float* h = s_h + tid * ldh;
+        float z[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float* w = s_wh + c * hid;
+          float a = 0.f;
+          for (int j = 0; j < hid; ++j) a = a + w[j] * h[j];
+          z[c] = a + s_bh[c];
+        }
+        const long long row = r0 + tid;
+        acc_loss += ppo_row(z, reinterpret_cast<const float2*>(args.act)[row],
+                            args.lp[row], args.adv[row], args.k, g);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc_bh[c] += g[c];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s_g[tid * 4 + c] = g[c];
+    }
+    __syncthreads();
+
+    // dWmu, dWvar = sum g h^T; then g_h = Wmu^T g_u + Wvar^T g_s in place
+    // of h, and db1 = sum g_h: one hidden unit a thread.
+    if (tid < hid) {
+      float w[4], sw[4] = {0.f, 0.f, 0.f, 0.f}, sb = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = s_wh[c * hid + tid];
+      for (int r = 0; r < kTileRows; ++r) {
+        const float h = s_h[r * ldh + tid];
+        const float* g = s_g + 4 * r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sw[c] = sw[c] + g[c] * h;
+        const float gh =
+            ((w[0] * g[0] + w[1] * g[1]) + w[2] * g[2]) + w[3] * g[3];
+        s_h[r * ldh + tid] = gh;
+        sb = sb + gh;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc_wh[c] += sw[c];
+      acc_b1 += sb;
+    }
+    __syncthreads();
+
+    // dW1 = sum g_h x^T over the tile, each thread its own entries.
+#pragma unroll
+    for (int m = 0; m < kMaxUncollapsedEntries; ++m) {
+      const int e = tid + m * kThreads;
+      if (e < n_w1) {
+        const int j = e / in, k = e - j * in;
+        float s = 0.f;
+        for (int r = 0; r < kTileRows; ++r)
+          s = s + s_h[r * ldh + j] * s_x[r * in + k];
+        acc[m] += s;
+      }
+    }
+    __syncthreads();
+  }
+
+  // This block's partials: loss, dW1 (H, F), db1 (H), dWmu (2, H), dbmu
+  // (2), dWvar (2, H), dbvar (2).
+  const int o_b1 = 1 + n_w1, o_wmu = o_b1 + hid, o_bmu = o_wmu + 2 * hid;
+  const int o_wvar = o_bmu + 2, o_bvar = o_wvar + 2 * hid, n_out = o_bvar + 2;
+  float* out = args.partials + static_cast<long long>(blockIdx.x) * n_out;
+#pragma unroll
+  for (int m = 0; m < kMaxUncollapsedEntries; ++m) {
+    const int e = tid + m * kThreads;
+    if (e < n_w1) out[1 + e] = acc[m];
+  }
+  if (tid < hid) {
+    out[o_b1 + tid] = acc_b1;
+    out[o_wmu + tid] = acc_wh[0];
+    out[o_wmu + hid + tid] = acc_wh[1];
+    out[o_wvar + tid] = acc_wh[2];
+    out[o_wvar + hid + tid] = acc_wh[3];
+  }
+  if (tid < kTileRows) {
+    s_red[tid] = acc_loss;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s_red[(1 + c) * kTileRows + tid] = acc_bh[c];
+  }
+  __syncthreads();
+  if (tid < 5) {
+    float v = 0.f;
+    for (int r = 0; r < kTileRows; ++r) v += s_red[tid * kTileRows + r];
+    // tid 0: the loss; 1, 2: dbmu; 3, 4: dbvar.
+    out[tid == 0 ? 0 : (tid < 3 ? o_bmu + tid - 1 : o_bvar + tid - 3)] = v;
+  }
+}
+
 // out[c] = sum over blocks b, in order, of partials[b, c] (in double).
 __global__ void reduce_partials_kernel(const float* partials, int blocks,
                                        int n_out, float* out) {
@@ -420,8 +626,8 @@ int marlnav_actor_grad_sums(const float* obs, const float* act,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ActorArgs args{obs, act, lp, adv, op, n_rows, lo, hi, ent_c,
-                       ent_half, partials};
+  const ActorArgs args{obs, act, lp, adv, op, n_rows,
+                       {lo, hi, ent_c, ent_half}, partials};
 #define MARLNAV_LAUNCH(F)                                         \
   case F:                                                        \
     actor_grad_kernel<F><<<blocks, kThreads, 0, s>>>(args);       \
@@ -473,6 +679,32 @@ int marlnav_critic_grad_sums(const float* obs, const float* vold,
   critic_grad_kernel<<<blocks, kThreads, smem, s>>>(args);
   return static_cast<int>(reduce(partials, blocks,
                                  1 + hidden * in_size + 2 * hidden + 1, out,
+                                 s));
+}
+
+// out: loss_sum, dW1 (H, F), db1 (H), dWmu (2, H), dbmu (2), dWvar (2, H),
+// dbvar (2).
+int marlnav_actor_grad_uncollapsed_sums(
+    const float* obs, const float* act, const float* lp, const float* adv,
+    const float* w1, const float* b1, const float* wmu, const float* bmu,
+    const float* wvar, const float* bvar, long long n_rows, int obs_size,
+    int hidden, float lo, float hi, float ent_c, float ent_half, int blocks,
+    float* partials, float* out, int device, void* stream) {
+  using namespace marlnav::update;
+  if (obs_size < 1 || obs_size > kMaxObs || hidden < 1 ||
+      hidden > kMaxHidden)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * uncollapsed_smem_floats(obs_size,
+                                                              hidden);
+  const UncollapsedArgs args{obs, act, lp, adv, w1, b1, wmu, bmu, wvar, bvar,
+                             n_rows, obs_size, hidden,
+                             {lo, hi, ent_c, ent_half}, partials};
+  actor_grad_uncollapsed_kernel<<<blocks, kThreads, smem, s>>>(args);
+  return static_cast<int>(reduce(partials, blocks,
+                                 1 + hidden * obs_size + 5 * hidden + 4, out,
                                  s));
 }
 

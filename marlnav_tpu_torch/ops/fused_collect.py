@@ -144,14 +144,34 @@ class CollectOutput:
     stats: torch.Tensor  # (3,) int32 [truncations, collisions, all-in-target]
 
 
+@dataclasses.dataclass
+class StepRecord:
+    """One step of ``roll_rows``, as (P,) rows."""
+
+    feats: list  # [agent][feature] normalized pre-step observations
+    ang_raw: list  # [agent] raw actions
+    acc_raw: list
+    log_probs: Optional[list]  # [agent]; None for policy-mean actions
+    reward: torch.Tensor
+    finished: torch.Tensor  # 1.0 where the env truncated or terminated
+    trunc: torch.Tensor
+    any_coll: torch.Tensor
+    all_in_target: torch.Tensor
+
+
 @torch.no_grad()
-def collect_rows_reference(sm: StepMath, rows: RowState,
-                           a_comp: torch.Tensor, c_comp: torch.Tensor,
-                           uniforms: torch.Tensor) -> CollectOutput:
-    """The kernel's function in plain PyTorch, step by step on the row
-    layout, consuming ``uniforms`` (T, n_draws, P) in [0, 1) in the
-    kernel's draw order: [0, 2A) actions, then obstacle x, obstacle y, then
-    3 per agent for noisy resets."""
+def roll_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
+              c_comp: torch.Tensor, uniforms: torch.Tensor,
+              deterministic: bool, on_step) -> RowState:
+    """The step loop of the collect and rollout kernels in plain PyTorch
+    (ops/csrc/env_step.cuh), on the row layout; returns the final state.
+
+    ``uniforms`` (T, n_draws, P) in [0, 1), in the kernels' draw order:
+    [0, 2A) actions, then obstacle x, obstacle y, then 3 per agent for
+    noisy resets.  ``deterministic`` takes the policy mean as the action
+    and skips the action draws; the reset draws stay at slot 2A either way
+    (marlnav_tpu/ops/fused_rollout.py:228-257).  ``on_step`` receives each
+    step's ``StepRecord``."""
     a = sm.a
     wa, ca = a_comp.tolist(), c_comp.tolist()
     px, py, hx, hy, sp = (list(r.unbind(0)) for r in
@@ -159,22 +179,21 @@ def collect_rows_reference(sm: StepMath, rows: RowState,
     obx, oby = list(rows.obx.unbind(0)), list(rows.oby.unbind(0))
     tx, ty = rows.tg[0], rows.tg[1]
     step_num, latch = rows.misc[0], rows.misc[1]
-    stats = torch.zeros(3, dtype=torch.int32, device=tx.device)
-    obs_t, act_t, lp_t, rew_t, done_t = [], [], [], [], []
     for u in uniforms:  # (n_draws, P) per step
         feats_all = sm.obs_feats(px, py, hx, hy, obx, oby, tx, ty)
-        obs_t.append(torch.stack([torch.stack(f, -1) for f in feats_all], 1))
         ang_raw, acc_raw, lp = [], [], []
         for i in range(a):
-            mu, var = sm.actor_affine(feats_all[i], wa, ca)
+            mu, var = sm.actor_affine(feats_all[i], wa, ca,
+                                      want_var=not deterministic)
+            if deterministic:
+                ang_raw.append(mu[0])
+                acc_raw.append(mu[1])
+                continue
             z0, z1 = box_muller(u[2 * i], u[2 * i + 1])
             ang_raw.append(mu[0] + torch.sqrt(var[0]) * z0)
             acc_raw.append(mu[1] + torch.sqrt(var[1]) * z1)
             lp.append(-0.5 * (2.0 * _LOG_2PI + torch.log(var[0])
                               + torch.log(var[1]) + z0 * z0 + z1 * z1))
-        act_t.append(torch.stack(
-            [torch.stack([ang_raw[i], acc_raw[i]], -1) for i in range(a)], 1))
-        lp_t.append(torch.stack(lp, 1).reshape(-1))
 
         npx, npy, nhx, nhy, nsp = sm.dynamics(px, py, hx, hy, sp, ang_raw,
                                               acc_raw)
@@ -185,19 +204,41 @@ def collect_rows_reference(sm: StepMath, rows: RowState,
         terminated = torch.maximum(any_coll, latch)
         finished = torch.maximum(terminated, trunc)
         new_latch = torch.where(latch > 0.5, 0.0, all_in_target)
-        rew_t.append(reward)
-        done_t.append(finished > 0.5)
-        stats += torch.stack([trunc.sum(), any_coll.sum(),
-                              all_in_target.sum()]).to(torch.int32)
+        on_step(StepRecord(feats_all, ang_raw, acc_raw,
+                           None if deterministic else lp, reward, finished,
+                           trunc, any_coll, all_in_target))
 
         (px, py, hx, hy, sp, obx, oby, step_num, latch) = sm.reset_blend(
             finished, 1.0 - finished, npx, npy, nhx, nhy, nsp, obx, oby,
             step_num, new_latch, u[2 * a:])
 
-    final = RowState(torch.stack(px), torch.stack(py), torch.stack(hx),
-                     torch.stack(hy), torch.stack(sp), torch.stack(obx),
-                     torch.stack(oby), rows.tg.clone(),
-                     torch.stack([step_num, latch]))
+    return RowState(torch.stack(px), torch.stack(py), torch.stack(hx),
+                    torch.stack(hy), torch.stack(sp), torch.stack(obx),
+                    torch.stack(oby), rows.tg.clone(),
+                    torch.stack([step_num, latch]))
+
+
+@torch.no_grad()
+def collect_rows_reference(sm: StepMath, rows: RowState,
+                           a_comp: torch.Tensor, c_comp: torch.Tensor,
+                           uniforms: torch.Tensor) -> CollectOutput:
+    """The collect kernel's function in plain PyTorch: ``roll_rows`` with
+    sampled actions, recording the training buffer and the counters."""
+    stats = torch.zeros(3, dtype=torch.int32, device=rows.px.device)
+    obs_t, act_t, lp_t, rew_t, done_t = [], [], [], [], []
+
+    def record(s: StepRecord):
+        nonlocal stats
+        obs_t.append(torch.stack([torch.stack(f, -1) for f in s.feats], 1))
+        act_t.append(torch.stack([torch.stack([ang, acc], -1) for ang, acc
+                                  in zip(s.ang_raw, s.acc_raw)], 1))
+        lp_t.append(torch.stack(s.log_probs, 1).reshape(-1))
+        rew_t.append(s.reward)
+        done_t.append(s.finished > 0.5)
+        stats = stats + torch.stack([s.trunc.sum(), s.any_coll.sum(),
+                                     s.all_in_target.sum()]).to(torch.int32)
+
+    final = roll_rows(sm, rows, a_comp, c_comp, uniforms, False, record)
     return CollectOutput(final, torch.stack(obs_t), torch.stack(act_t),
                          torch.stack(lp_t), torch.stack(rew_t),
                          torch.stack(done_t), stats)
@@ -229,7 +270,7 @@ _FLOAT_TAIL = ("pos_std", "angle_range", "init_speed", "ox_range", "oy_range",
 
 
 class _KernelParams(ctypes.Structure):
-    """Mirror of ``CollectParams`` in ops/csrc/fused_collect.cu."""
+    """Mirror of ``StepParams`` in ops/csrc/env_step.cuh."""
 
     _fields_ = ([(n, ctypes.c_int32) for n in _INT_FIELDS]
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
@@ -275,8 +316,8 @@ def _library():
                    lib.marlnav_collect_max_obstacles):
         getter.argtypes, getter.restype = [], ctypes.c_int
     if lib.marlnav_collect_params_size() != ctypes.sizeof(_KernelParams):
-        raise RuntimeError("CollectParams layout differs between "
-                           "fused_collect.cu and _KernelParams")
+        raise RuntimeError("StepParams layout differs between "
+                           "env_step.cuh and _KernelParams")
     return lib, record
 
 
@@ -287,6 +328,31 @@ def _check(name, x: torch.Tensor, shape, dtype, device):
             f"{name}: expected contiguous {dtype} {shape} on {device}, got "
             f"{x.dtype} {tuple(x.shape)} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
+
+
+def _check_launch(what: str, sm: StepMath, rows: RowState,
+                  a_comp: torch.Tensor, c_comp: torch.Tensor, num_steps: int,
+                  noise: Optional[torch.Tensor], max_obstacles: int):
+    """Raise unless a rollout kernel (collect or bench) can take these
+    inputs: rows (r, P), the actor operator and the optional uniforms,
+    float32, contiguous, on the rows' device."""
+    device = rows.px.device
+    a, o, num_envs = sm.a, sm.o, rows.px.shape[-1]
+    if not 1 <= o <= max_obstacles:
+        raise ValueError(f"{what} kernel takes 1..{max_obstacles} obstacles, "
+                         f"got {o}")
+    if num_envs < 1 or num_steps < 1:
+        raise ValueError(f"need num_envs, num_steps >= 1: {num_envs}, "
+                         f"{num_steps}")
+    f32 = torch.float32
+    for name, x, r in zip(("px", "py", "dx", "dy", "sp", "obx", "oby", "tg",
+                           "misc"), rows.fields(),
+                          (a, a, a, a, a, o, o, 2, 2)):
+        _check(name, x, (r, num_envs), f32, device)
+    _check("a_comp", a_comp, (4, sm.obs_size), f32, device)
+    _check("c_comp", c_comp, (4,), f32, device)
+    if noise is not None:
+        _check("noise", noise, (num_steps, sm.n_draws, num_envs), f32, device)
 
 
 def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
@@ -302,7 +368,7 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     seeded with ``seed``.  ``fused_collect_rows.launches`` counts kernel
     launches."""
     device = rows.px.device
-    a, o, num_envs = sm.a, sm.o, rows.px.shape[-1]
+    a, num_envs = sm.a, rows.px.shape[-1]
     if device.type == "cpu":
         if noise is None:
             noise = torch.rand((num_steps, sm.n_draws, num_envs),
@@ -312,23 +378,9 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
         raise ValueError(f"fused collect: unsupported device {device}")
 
     lib, _ = _library()
-    max_o = lib.marlnav_collect_max_obstacles()
-    if not 1 <= o <= max_o:
-        raise ValueError(f"fused collect kernel takes 1..{max_o} obstacles, "
-                         f"got {o}")
-    if num_envs < 1 or num_steps < 1:
-        raise ValueError(f"need num_envs, num_steps >= 1: {num_envs}, "
-                         f"{num_steps}")
+    _check_launch("fused collect", sm, rows, a_comp, c_comp, num_steps, noise,
+                  lib.marlnav_collect_max_obstacles())
     f32 = torch.float32
-    for name, x, r in zip(("px", "py", "dx", "dy", "sp", "obx", "oby", "tg",
-                           "misc"), rows.fields(),
-                          (a, a, a, a, a, o, o, 2, 2)):
-        _check(name, x, (r, num_envs), f32, device)
-    _check("a_comp", a_comp, (4, sm.obs_size), f32, device)
-    _check("c_comp", c_comp, (4,), f32, device)
-    if noise is not None:
-        _check("noise", noise, (num_steps, sm.n_draws, num_envs), f32, device)
-
     weights = torch.cat([a_comp.reshape(-1), c_comp])
     out_rows = RowState(*(torch.empty_like(x) for x in rows.fields()))
     t, p, f = num_steps, num_envs, sm.obs_size

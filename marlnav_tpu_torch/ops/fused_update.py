@@ -16,6 +16,11 @@ gradients to the same ``torch.optim.Adam`` the autograd route uses.
 * ``critic_grad_sums`` replaces ``make_tiled_critic_grad`` and the staged
   ``make_fused_critic_grad``: the clipped-value loss through ``In -> H ReLU
   -> 1`` and ``dW1, db1, dW2, db2``.
+* ``actor_grad_uncollapsed_sums`` replaces the staged actor kernels of the
+  "packed" (``make_fused_actor_grad``) and "undilated"
+  (``_make_actor_grad_undilated``) layouts: the actor loss through the
+  network itself, ``F -> H -> 2 + 2``, and its five gradients directly, no
+  recomposition.  ``train.uncollapsed_actor`` says when it runs.
 
 The TPU needed two layouts of each (tiled and staged); here the Buffer's
 time slice is already a contiguous block of rows, so one kernel serves the
@@ -38,6 +43,7 @@ import torch
 from marlnav_tpu_torch.ops.fused_collect import _affine_compose, _check
 from marlnav_tpu_torch.ops.update_math import (
     actor_grad_sums_reference,
+    actor_grad_sums_uncollapsed_reference,
     affine_recompose,
     critic_grad_sums_reference,
 )
@@ -57,7 +63,11 @@ def _library():
     lib.marlnav_critic_grad_sums.argtypes = (
         [ptr] * 7 + [ctypes.c_longlong, i32, i32, f32, i32, ptr, ptr, i32,
                      ptr])
-    for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums):
+    lib.marlnav_actor_grad_uncollapsed_sums.argtypes = (
+        [ptr] * 10 + [ctypes.c_longlong, i32, i32] + [f32] * 4
+        + [i32, ptr, ptr, i32, ptr])
+    for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums,
+               lib.marlnav_actor_grad_uncollapsed_sums):
         fn.restype = i32
     for getter in (lib.marlnav_update_blocks_per_sm,
                    lib.marlnav_actor_max_obs, lib.marlnav_critic_max_hidden,
@@ -175,6 +185,54 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
 critic_grad_sums.launches = 0
 
 
+def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
+                                log_probs, adv, eps: float, ent_c: float):
+    """``(loss_sum, dW1 (H, F), db1 (H,), dWmu (2, H), dbmu (2,), dWvar
+    (2, H), dbvar (2,))`` of the PPO actor objective through the network
+    itself over all rows
+    (``update_math.actor_grad_sums_uncollapsed_reference``).  obs (N, F),
+    actions (N, 2), log_probs and adv (N,); weights in ``nn.Linear``
+    layout."""
+    if obs.device.type == "cpu":
+        return actor_grad_sums_uncollapsed_reference(
+            w1, b1, wmu, bmu, wvar, bvar, obs, actions, log_probs, adv, eps,
+            ent_c)
+    n, f = obs.shape
+    h = w1.shape[0]
+    _check_rows(obs.device, n, (
+        ("w1", w1, (h, f)), ("b1", b1, (h,)), ("wmu", wmu, (2, h)),
+        ("bmu", bmu, (2,)), ("wvar", wvar, (2, h)), ("bvar", bvar, (2,)),
+        ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
+        ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
+    lib, blocks, index, stream = _launch_setup(
+        obs.device, n, _library().marlnav_critic_tile_rows())
+    max_h, max_f = lib.marlnav_critic_max_hidden(), lib.marlnav_actor_max_obs()
+    if not (1 <= h <= max_h and 1 <= f <= max_f):
+        raise ValueError(f"un-collapsed actor grad kernel takes hidden "
+                         f"1..{max_h} and obs 1..{max_f}, got {h} and {f}")
+    if actions.data_ptr() % 8:
+        raise ValueError("un-collapsed actor grad kernel: actions must be "
+                         "8-byte aligned (float2 loads)")
+    n_out = 1 + h * f + 5 * h + 4
+    partials = torch.empty((blocks, n_out), dtype=torch.float32,
+                           device=obs.device)
+    out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
+    err = lib.marlnav_actor_grad_uncollapsed_sums(
+        obs.data_ptr(), actions.data_ptr(), log_probs.data_ptr(),
+        adv.data_ptr(), w1.data_ptr(), b1.data_ptr(), wmu.data_ptr(),
+        bmu.data_ptr(), wvar.data_ptr(), bvar.data_ptr(), n, f, h, 1.0 - eps,
+        1.0 + eps, ent_c, ent_c * 0.5, blocks, partials.data_ptr(),
+        out.data_ptr(), index, stream)
+    if err != 0:
+        raise RuntimeError(f"un-collapsed actor grad kernel launch failed: "
+                           f"CUDA error {err}")
+    actor_grad_uncollapsed_sums.launches += 1
+    return _split(out, ((), (h, f), (h,), (2, h), (2,), (2, h), (2,)))
+
+
+actor_grad_uncollapsed_sums.launches = 0
+
+
 # ----------------------------------------------------------------------
 # Loss and gradients of a minibatch (the JAX package's grad(params, ...))
 # ----------------------------------------------------------------------
@@ -194,6 +252,24 @@ def actor_grad(actor, mb, adv: torch.Tensor,
     grads = affine_recompose(actor, dz, dzs)
     inv_n = 1.0 / n
     return loss * inv_n, {k: g * inv_n for k, g in grads.items()}
+
+
+@torch.no_grad()
+def actor_grad_uncollapsed(actor, mb, adv: torch.Tensor,
+                           cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``actor_grad`` through the network itself instead of its affine
+    operator: the counterpart of the JAX package's "packed" and
+    "undilated" actor layouts (``MARLNAV_ACTOR_LAYOUT``)."""
+    n = adv.shape[0]
+    # parameters(): fc1, fc_mu, fc_var, each weight then bias, the order
+    # the kernel takes them and returns their gradients in.
+    loss, *grads = actor_grad_uncollapsed_sums(
+        *(p.detach() for p in actor.parameters()), mb.obs.reshape(n, -1),
+        mb.actions.reshape(n, -1), mb.log_probs.reshape(n), adv, cfg.epsilon,
+        cfg.ent_const)
+    inv_n = 1.0 / n
+    return loss * inv_n, {name: g * inv_n for (name, _), g in
+                          zip(actor.named_parameters(), grads)}
 
 
 @torch.no_grad()

@@ -178,20 +178,20 @@ class StepMath:
             feats_all.append(feats + o_ang + o_dist + n_ang + n_dist)
         return feats_all
 
-    def actor_affine(self, feats, wa, ca):
+    def actor_affine(self, feats, wa, ca, want_var=True):
         """One agent's actor heads through the precomposed affine operator
         z = wa x + ca (``wa`` (4, obs) and ``ca`` (4,) as nested Python
         floats; ops.fused_collect._affine_compose): the reference actor has
         no hidden activation, so obs -> head pre-activations is affine.
-        Returns (mu[2], var[2])."""
+        Returns (mu[2], var[2]); var is None unless ``want_var``."""
         z = []
-        for k in range(4):
+        for k in range(4 if want_var else 2):
             acc = wa[k][0] * feats[0]
             for f in range(1, self.obs_size):
                 acc = acc + wa[k][f] * feats[f]
             z.append(acc + ca[k])
-        return ([torch.tanh(z[0]), torch.tanh(z[1])],
-                [softplus(z[2]), softplus(z[3])])
+        mu = [torch.tanh(z[0]), torch.tanh(z[1])]
+        return mu, ([softplus(z[2]), softplus(z[3])] if want_var else None)
 
     def dynamics(self, px, py, hx, hy, sp, ang_raw, acc_raw):
         """Action scaling + clamped integrator (env/dynamics.py)."""

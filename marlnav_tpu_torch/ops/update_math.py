@@ -10,9 +10,10 @@ and sigmoid sharing one ``exp(-|s|)``, and ``relu'(0) = 0``.
 
 These are hand-derived backwards, not autograd: they are what the CUDA
 kernels of ``ops/csrc/fused_update.cu`` compute, and the plain versions
-those kernels are held against.  ``actor_grad_sums_reference`` and
-``critic_grad_sums_reference`` return sums over all rows; the caller
-divides by the row count.  They run in the dtype of their inputs, so a
+those kernels are held against.  ``actor_grad_sums_reference`` (through
+the affine operator), ``actor_grad_sums_uncollapsed_reference`` (through
+the 12 -> 50 -> 2+2 network itself) and ``critic_grad_sums_reference``
+return sums over all rows; the caller divides by the row count.  They run in the dtype of their inputs, so a
 float64 call gives the reference that sum-order noise is measured against.
 
 Rows: an actor row is one (step, env, agent), in the ``Buffer``'s flat
@@ -116,6 +117,26 @@ def actor_grad_sums_reference(a_comp, c_comp, obs, actions, log_probs, adv,
                                     adv, eps, ent_c)
     g_z = torch.cat([g_u, g_s], dim=1)  # (N, 4)
     return loss_rows.sum(), g_z.T @ obs, g_z.sum(0)
+
+
+def actor_grad_sums_uncollapsed_reference(w1, b1, wmu, bmu, wvar, bvar, obs,
+                                          actions, log_probs, adv,
+                                          eps: float, ent_c: float):
+    """The un-collapsed actor kernel's function: over all rows, the PPO
+    actor objective through the network itself, ``h = W1 x + b1`` (no
+    hidden activation), ``u = Wmu h + bmu``, ``s = Wvar h + bvar``
+    (marlnav_tpu/ops/fused_update.py:471-490, 573-600), and its backward
+    ``g_h = Wmuᵀ g_u + Wvarᵀ g_s``.  Weights in ``nn.Linear`` layout (w1
+    (H, F), wmu and wvar (2, H)).  Returns ``(loss_sum, Σ g_h xᵀ (H, F),
+    Σ g_h (H,), Σ g_u hᵀ (2, H), Σ g_u (2,), Σ g_s hᵀ (2, H), Σ g_s (2,))``:
+    the five parameters' gradient sums, shaped as the parameters."""
+    h = obs @ w1.T + b1
+    u = h @ wmu.T + bmu
+    s = h @ wvar.T + bvar
+    loss_rows, g_u, g_s = ppo_chain(u, s, actions, log_probs, adv, eps, ent_c)
+    g_h = g_u @ wmu + g_s @ wvar
+    return (loss_rows.sum(), g_h.T @ obs, g_h.sum(0), g_u.T @ h, g_u.sum(0),
+            g_s.T @ h, g_s.sum(0))
 
 
 def critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps: float):

@@ -7,7 +7,8 @@ The rollout runs either as the plain T-step loop over ``env.step``
 (``MAPPO.collect``) or, with ``fused_collect``, through the fused collect
 kernel (``ops.fused_collect``).  ``cfg.model.fused_updates`` takes the PPO
 gradients from the fused update kernels (``ops.fused_update``), for the full
-batch and for sliced minibatches alike.
+batch and for sliced minibatches alike; ``MARLNAV_ACTOR_LAYOUT`` picks the
+actor's kernel off the JAX package's tiled route (``uncollapsed_actor``).
 
 The reference's save-every-rollout weights quirk (its best-reward gate
 never updates, reference models.py:93, 127-129) is kept: weights are
@@ -16,14 +17,31 @@ never updates, reference models.py:93, 127-129) is kept: weights are
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
 from marlnav_tpu_torch.algo import make_mappo
-from marlnav_tpu_torch.config import RunConfig, config_to_json
+from marlnav_tpu_torch.config import MAPPOConfig, RunConfig, config_to_json
 from marlnav_tpu_torch.env import make_env
 from marlnav_tpu_torch.utils.seeding import make_generator, resolve_device
 from marlnav_tpu_torch.utils.stats import StatsLogger
+
+
+def uncollapsed_actor(cfg: MAPPOConfig, fused_collect: bool) -> bool:
+    """Whether a ``--fused-updates`` run takes the actor's gradient through
+    the network itself, as the JAX package decides it.  Its tiled route
+    (``--fused-collect``, full batch, ``MARLNAV_TILED_UPDATES`` not
+    0/false/off/empty; marlnav_tpu/train.py:118-124) is always affine;
+    elsewhere it runs the staged kernel of ``MARLNAV_ACTOR_LAYOUT``
+    (default "affine"; marlnav_tpu/ops/fused_update.py:141, 454-461), and
+    any other value there is its "packed" or "undilated" kernel, both
+    un-collapsed."""
+    tiled = (fused_collect and cfg.batch_size == cfg.buffer_len
+             and os.environ.get("MARLNAV_TILED_UPDATES", "1").lower()
+             not in ("0", "false", "off", ""))
+    return (cfg.fused_updates and not tiled
+            and os.environ.get("MARLNAV_ACTOR_LAYOUT", "affine") != "affine")
 
 
 def train(
@@ -46,7 +64,8 @@ def train(
     t_start = time.perf_counter()
     dev = resolve_device(device)
     env = make_env(cfg.env, cfg.init, dev)
-    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler)
+    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler,
+                       uncollapsed_actor(cfg.model, fused_collect))
     generator = make_generator(cfg.seed, dev)
     ts, state = mappo.init(generator)
 

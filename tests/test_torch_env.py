@@ -249,3 +249,14 @@ def test_noisy_and_staggered_init():
                                atol=1e-6)
     sn = s.step_num.numpy()
     assert sn.min() >= 0 and sn.max() < 200 and len(np.unique(sn)) > 150
+
+
+def test_make_env_defaults_to_cuda(monkeypatch):
+    """``make_env``'s device defaults to CUDA, as every entry point's does:
+    without a card and without a device it raises instead of running on
+    the CPU; ``device="cpu"`` still builds a CPU env."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ep, ic = EnvParams(num_parallel=2), TriangleInitConfig(num_parallel=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_env(ep, ic)
+    assert make_env(ep, ic, "cpu").device == torch.device("cpu")

@@ -19,6 +19,12 @@ wrappers run them.  Held here against:
   rtol 1e-4 / atol 1e-5, the tolerance of tests/test_fused_update_tiled.py;
 * the port's autograd losses in the faithful, fixed and GAE modes:
   rtol 1e-4 / atol 1e-6 (sums over rows in another order).
+
+The un-collapsed actor gradient (``actor_grad_uncollapsed``, through the
+network itself) is held against the "packed" and "undilated" staged
+kernels (rows 6 and 7) on every slice at rtol/atol 2e-5 and against
+autograd at rtol 1e-4 / atol 1e-6; never against the affine kernel, whose
+composed operator rounds differently from two chained products.
 """
 
 import dataclasses
@@ -58,7 +64,7 @@ from marlnav_tpu_torch.algo.mappo import Buffer, TrainState, make_mappo
 from marlnav_tpu_torch.config import (EnvParams, MAPPOConfig, NormalizerConfig,
                                       ScalerConfig, TriangleInitConfig)
 from marlnav_tpu_torch.env import make_env
-from marlnav_tpu_torch.models import from_jax_params
+from marlnav_tpu_torch.models import Actor, from_jax_params
 from marlnav_tpu_torch.ops import fused_collect as fc
 from marlnav_tpu_torch.ops import fused_update as fu
 from marlnav_tpu_torch.ops import update_math as um
@@ -436,3 +442,98 @@ def test_kernels_match_plain_on_card():
             assert torch.equal(k, k2)
             tol = 1e-4 * float(w.abs().max()) + 1e-6
             assert float((k.double() - w).abs().max()) <= tol
+
+
+# ----------------------------------------------------------------------
+# Rows 6 and 7: the un-collapsed actor gradient
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("p", [4, 128], ids=["one-block", "multi-block"])
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("layout", ["packed", "undilated"])
+def test_uncollapsed_grads_match_staged_kernels(layout, faithful, p):
+    """actor_grad_uncollapsed (plain route) against the JAX actor kernel of
+    the "packed" (row 6) or "undilated" (row 7) layout in interpret mode on
+    stage_actor_minibatch of that layout, slice by slice: rtol/atol 2e-5,
+    as the affine case above."""
+    t = 12
+    jc, tc = cfgs(p, t, batch_size=6, faithful=faithful)
+    jb, tb = rand_buffer(0, t, p)
+    ja = actor_init(jax.random.PRNGKey(1), OBS, H, 2)
+    ta, _ = from_jax_params(jax.tree.map(np.asarray, (
+        ja, critic_init(jax.random.PRNGKey(3), OBS, A, H))))
+    actor_k = jax.jit(make_fused_actor_grad(jc, interpret=True, layout=layout),
+                      static_argnums=2)
+    for j_mb, t_mb in zip(jm.minibatch_slices(jb, jc),
+                          tm.minibatch_slices(tb, tc)):
+        lj, gj = actor_k(ja, *stage_actor_minibatch(j_mb, jc, layout=layout))
+        lt, gt = fu.actor_grad_uncollapsed(
+            ta, t_mb, tm.minibatch_advantages(t_mb, tc), tc)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           f"{layout} actor")
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_uncollapsed_grads_match_autograd(mode):
+    """On every slice of a 2-minibatch split, the un-collapsed loss and
+    gradients equal autograd's of actor_loss: loss rtol 1e-5, gradients
+    rtol 1e-4 / atol 1e-6."""
+    t, p = 12, 4
+    _, tc = cfgs(p, t, batch_size=6, **MODES[mode])
+    _, tb = rand_buffer(5, t, p, mode)
+    actor = Actor(OBS, H, generator=torch.Generator().manual_seed(6))
+    for mb in tm.minibatch_slices(tb, tc):
+        actor.zero_grad(set_to_none=True)
+        loss = tm.actor_loss(actor, mb, tc)
+        loss.backward()
+        lf, gf = fu.actor_grad_uncollapsed(
+            actor, mb, tm.minibatch_advantages(mb, tc), tc)
+        np.testing.assert_allclose(float(lf), float(loss.detach()), rtol=1e-5)
+        want = {k: p_.grad for k, p_ in actor.named_parameters()}
+        assert_grads_close(as_jax_layout(gf), as_jax_layout(want), 1e-4, 1e-6,
+                           "actor")
+
+
+def _uncollapsed_inputs(n, f, h, device="cpu", seed=8):
+    """Weights in nn.Linear layout (w1, b1, wmu, bmu, wvar, bvar), then
+    obs, actions, log-probs and advantages of n rows."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    xs = (0.3 * r(h, f), 0.1 * r(h), 0.3 * r(2, h), 0.1 * r(2), 0.3 * r(2, h),
+          0.1 * r(2), r(n, f), r(n, 2).clamp(-1, 1), -1.0 + 0.5 * r(n), r(n))
+    return tuple(x.to(device) for x in xs)
+
+
+def test_uncollapsed_cpu_routing_runs_plain_version_and_launches_nothing():
+    """CPU tensors run the plain version (exactly) and leave the launch
+    counter alone; other non-CUDA devices raise."""
+    args = _uncollapsed_inputs(50, OBS, H)
+    got = fu.actor_grad_uncollapsed_sums(*args, 0.01, 0.001)
+    want = um.actor_grad_sums_uncollapsed_reference(*args, 0.01, 0.001)
+    assert [tuple(x.shape) for x in got] == [
+        (), (H, OBS), (H,), (2, H), (2,), (2, H), (2,)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fu.actor_grad_uncollapsed_sums.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.actor_grad_uncollapsed_sums(*(x.to("meta") for x in args), 0.01,
+                                       0.001)
+
+
+@pytest.mark.cuda
+def test_uncollapsed_kernel_matches_plain_on_card():
+    """The un-collapsed kernel at hidden 50 against a float64 plain version
+    (the check chip_smoke.py runs at full size): within 1e-4 of each
+    output's largest magnitude, and two launches agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = (*_uncollapsed_inputs(100_003, OBS, 50, "cuda"), 0.01, 0.001)
+    got = fu.actor_grad_uncollapsed_sums(*args)
+    again = fu.actor_grad_uncollapsed_sums(*args)
+    want = um.actor_grad_sums_uncollapsed_reference(
+        *(x.double() if torch.is_tensor(x) else x for x in args))
+    torch.cuda.synchronize()
+    for k, k2, w in zip(got, again, want):
+        assert torch.equal(k, k2)
+        tol = 1e-4 * float(w.abs().max()) + 1e-6
+        assert float((k.double() - w).abs().max()) <= tol

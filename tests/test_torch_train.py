@@ -148,3 +148,38 @@ def test_artifacts_without_matplotlib(tmp_path, monkeypatch, capsys):
     assert not os.listdir(tmp_path / "plots")
     assert len(os.listdir(tmp_path / "logs")) == 5
     assert len(os.listdir(tmp_path / "weights")) == 2
+
+
+@pytest.mark.parametrize("case", [
+    ("sliced", 5, ["--fused-collect"], {}, "uncollapsed"),
+    ("staged-full-batch", 20, [], {}, "uncollapsed"),
+    ("tiled", 20, ["--fused-collect"], {}, "affine"),
+    ("tiled-off", 20, ["--fused-collect"], {"MARLNAV_TILED_UPDATES": "off"},
+     "uncollapsed")], ids=lambda c: c[0])
+def test_actor_layout_routing(tmp_path, monkeypatch, case):
+    """MARLNAV_ACTOR_LAYOUT=packed takes the actor gradient through the
+    un-collapsed wrapper wherever the JAX package runs its staged actor
+    kernel (-bs < -bl, or no --fused-collect, or MARLNAV_TILED_UPDATES
+    off), and through the affine one on the tiled route (--fused-collect,
+    full batch), where the JAX actor is always affine."""
+    from marlnav_tpu_torch.ops import fused_update as fu
+
+    _, bs, flags, env, want = case
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MARLNAV_ACTOR_LAYOUT", "packed")
+    monkeypatch.delenv("MARLNAV_TILED_UPDATES", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls = {"affine": 0, "uncollapsed": 0}
+    for key, name in (("affine", "actor_grad_sums"),
+                      ("uncollapsed", "actor_grad_uncollapsed_sums")):
+        def spy(*args, _key=key, _fn=getattr(fu, name)):
+            calls[_key] += 1
+            return _fn(*args)
+        monkeypatch.setattr(fu, name, spy)
+    argv = TINY.copy()
+    argv[argv.index("-bs") + 1] = str(bs)
+    cli(argv + flags + ["--fused-updates"])
+    # 2 repeats x 2 epochs x (20 // bs) minibatches
+    assert calls == {want: 2 * 2 * (20 // bs),
+                     ({"affine", "uncollapsed"} - {want}).pop(): 0}
