@@ -14,8 +14,11 @@ update route (full batch; -bs 250 with the affine and with the
 un-collapsed actor) and on the autograd one, runs
 one repeat with sliced minibatches and one more with
 ``MARLNAV_ACTOR_LAYOUT=packed`` (the un-collapsed actor gradient's path),
-holds the rollout kernel against its plain version (at every timed
-shape, the bench's included) and against the collect kernel, runs the
+holds the critic-gradient kernel against float64 also at a ragged row
+count and at a narrow and the widest width it takes, counts the
+tensor-core (HMMA) instructions in its SASS, holds the rollout kernel
+against its plain version (at every timed shape, the bench's included)
+and against the collect kernel, runs the
 bench (``python -m marlnav_tpu_torch.bench
 --plain`` at 16384 envs x 500 steps, the rollout kernel's path), and
 times every kernel.  Each path's launch counts are set to 0 just before
@@ -34,6 +37,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -83,6 +88,10 @@ def uncollapsed_ops_per_row(f, h):
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 without tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+# Kernels whose products fit the tensor cores (TPU rows 3, 4, 6 and 7):
+# their bound takes the TF32 rate, with the 67 TFLOP/s share beside it.
+TENSOR_CORE_WORK = {"fused_critic_grad", "fused_actor_grad_uncollapsed"}
 KERNELS = {
     "fused_collect": dict(
         source="marlnav_tpu_torch/ops/csrc/fused_collect.cu",
@@ -166,6 +175,22 @@ def timed(fn, reps=3):
             "wall": statistics.median(wall_ms)}
 
 
+def hmma_counts(sass):
+    """{(KS, NT): HMMA instructions} of each critic_grad_kernel instance
+    in ``cuobjdump -sass`` output."""
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"critic_grad_kernelILi(\d+)ELi(\d+)E",
+                          line)
+            key = tuple(int(x) for x in m.groups()) if m else None
+            if key:
+                counts[key] = 0
+        elif key and "HMMA" in line:
+            counts[key] += 1
+    return counts
+
+
 def ptxas_summary(log):
     """One line per kernel of a build log: its name and ptxas -v's
     register, stack and spill figures."""
@@ -232,6 +257,22 @@ def main(out_dir):
     for name, (_, build) in builds.items():
         print(f"{name}: {build['seconds']:.1f} s -> {build['path']}")
         print("\n".join(ptxas_summary(build["log"])))
+    # The critic kernel's products on the tensor cores: HMMA instructions in
+    # each instance's SASS; its loop body holds 3 (KS NT + 2 MT NT).
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(os.path.realpath(find_nvcc())), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        hmma = hmma_counts(subprocess.run(
+            [cuobjdump, "-sass", builds["fused_update"][1]["path"]],
+            capture_output=True, text=True, check=True).stdout)
+        for (ks, nt), count in sorted(hmma.items()):
+            print(f"critic_grad_kernel<KS={ks}, NT={nt}>: {count} "
+                  f"HMMA in its SASS (loop body: "
+                  f"{3 * (ks * nt + 2 * ((ks + 1) // 2) * nt)})")
+        assert hmma and all(c > 0 for c in hmma.values()), hmma
+        record["critic_hmma"] = {f"{k}": c for k, c in hmma.items()}
+    else:
+        print("cuobjdump not found: HMMA count not measured")
 
     def setup(p, t, episode_len=200, noisy=False, tame=False, seed=0):
         """Step math, start rows and the actor operator for one case."""
@@ -649,17 +690,25 @@ def main(out_dir):
             k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / FP32_OPS_PER_S * 1e3
+            fp32_ms = ops / FP32_OPS_PER_S * 1e3
+            ops_ms = (ops / TF32_OPS_PER_S * 1e3 if name in TENSOR_CORE_WORK
+                      else fp32_ms)
             bound_ms = max(bytes_ms, ops_ms)
             times[name][key] = dict(
                 ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            rate = "TF32" if name in TENSOR_CORE_WORK else "float32"
             print(f"{name} {label}: {n:,} rows, kernel {k_ms:.4f} ms "
                   f"(median of 7), plain version {plain_ms:.3f} ms (median "
                   f"of 3), bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f}"
                   f" MB -> {bytes_ms * 1e3:.1f} us; {ops / 1e9:.2f} GFLOP "
-                  f"-> {ops_ms * 1e3:.1f} us), {bound_ms / k_ms:.1%} of the "
-                  f"bound")
+                  f"-> {ops_ms * 1e3:.1f} us in {rate}), {bound_ms / k_ms:.1%}"
+                  f" of the bound")
+            if name in TENSOR_CORE_WORK:
+                times[name][key]["fp32_bound_ms"] = max(bytes_ms, fp32_ms)
+                print(f"  beside it, the float32 CUDA-core bound "
+                      f"{max(bytes_ms, fp32_ms) * 1e3:.1f} us (67 TFLOP/s): "
+                      f"{max(bytes_ms, fp32_ms) / k_ms:.1%} of it")
 
     for name in fns:
         times[name] = {}
@@ -705,12 +754,36 @@ def main(out_dir):
                       fn(ts.actor, mb, mcfg))
             check("fused_critic_grad", "collecting critic (all rows tied)",
                   critic_inputs(ts.critic, mb, mcfg))
+            # A row count that leaves the last 16-row chunk ragged.
+            check("fused_critic_grad", "ragged 100,003 rows", tuple(
+                x[:100_003] if i in (4, 5, 6) else x
+                for i, x in enumerate(inputs["fused_critic_grad"])))
 
         time_kernels((p, t), f"P={p} T={t}", inputs, mcfg)
         if slice_inputs is not None:
             # The -bs 250 slices' shape: the un-collapsed kernel's path.
             time_kernels((p, 250), f"P={p} -bs 250 slice 0", slice_inputs,
                          mcfg)
+
+    # The critic kernel at a narrow width (2 agents, hidden 32: In 20) and
+    # at the widest it takes (In 63 = 3 x 21, whose rows load 4 bytes a
+    # copy, and hidden 64), on random rows: old values spread around the
+    # new ones, returns apart from both.
+    lib = fu._library()
+    widest = (lib.marlnav_critic_max_in(), lib.marlnav_critic_max_hidden())
+    for agents, f, h in ((2, EnvParams(num_agents=2).obs_size, 32),
+                         (3, widest[0] // 3, widest[1])):
+        gen = make_generator(20 + agents, dev)
+        critic = Critic(f, agents, h,
+                        generator=torch.Generator().manual_seed(h)).to(dev)
+        n = 200_003
+        obs = torch.randn((n, agents * f), device=dev, generator=gen)
+        vold = 0.1 * torch.randn(n, device=dev, generator=gen)
+        ret = torch.randn(n, device=dev, generator=gen)
+        check("fused_critic_grad", f"In {agents * f}, H {h}",
+              (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
+               critic.fc2.weight.detach(), critic.fc2.bias.detach(), obs,
+               vold, ret, 0.2))
 
     # ------------------------------------------------------------------
     phase("7. rollout kernel against its plain version and the collect "
@@ -835,7 +908,8 @@ def main(out_dir):
                 "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
                 "library_ms": None,
                 "by_shape": {f"{p}x{t}": {k: v[k] for k in
-                                          ("ms", "plain_ms", "bound_ms")}
+                                          ("ms", "plain_ms", "bound_ms",
+                                           "fp32_bound_ms") if k in v}
                              for (p, t), v in times[name].items()}}
 
     print(json.dumps({"kernels": [entry(name) for name in KERNELS]}))

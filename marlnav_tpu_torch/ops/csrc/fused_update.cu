@@ -41,28 +41,58 @@
 //           grid-stride loop over 4 blocks an SM, the 4 x F + 4 operator in
 //           shared memory, the 4F + 5 sums in registers, coalesced float2
 //           loads; one warp-shuffle + shared-memory reduction a block.
-//   critic: 152 B a row = 155 MB -> 46 us; ~4*In*H + 10*H operations a row
-//           (7,700: two 36 x 50 products forward and backward) = 7.9 GFLOP
-//           -> 118 us.  Float operations bound it.  Design: a block stages
-//           a 64-row tile of obs and of the hidden activations (then g_pre)
-//           in shared memory; the H*In + 2H + 2 accumulators are split over
-//           the block's 256 threads, which keep them in registers across
-//           every tile the block visits.  The products run from shared
-//           memory in float32 on the CUDA cores; tensor cores, TMA and a
-//           register-tiled product are later work.
+//   critic: 152 B a row (obs 144, old value, return) = 155.5 MB -> 46.4 us;
+//           4*In*H + 10*H + 30 operations a row (7,730: two 36 x 50
+//           products, W1 x forward and g_pre x^T backward, and the chain)
+//           = 7.9 GFLOP: 16.0 us on the tensor cores in TF32 (495 TFLOP/s
+//           dense), 118 us on the CUDA cores (67 TFLOP/s).  With the
+//           products on the tensor cores the bytes bound it.  The three
+//           TF32 passes and the padding (In + 1 = 37 -> 40 and 48, H = 50
+//           -> 56) make 30 GFLOP of tensor-core work, 61 us at that peak,
+//           and the per-row chain stays on the CUDA cores: what the design
+//           keeps busy is the tensor cores, not the memory.
+//           Design (critic_grad_kernel): each warp takes 16 rows at a time,
+//           on its own, with no block barrier in its loop.
+//           - Loads: the rows' obs (contiguous, 16-byte cp.async a thread),
+//             old values and returns go into the warp's double buffer in
+//             shared memory while the rows before them are computed.
+//           - Forward: pre = [x | 1] [W1^T ; b1] (the bias as a ones
+//             column, K padded to 8 KS) by mma.sync m16n8k8 in 3xTF32
+//             (mma_tf32.cuh), with W1 and b1 split into their TF32 halves
+//             once a block, in fragment order in shared memory.
+//           - Per row, in the accumulator fragments (a row's columns sit on
+//             one quad of 4 lanes): ReLU, v = w2 . h + b2 by fixed-order
+//             partial sums and two shuffles, critic_row, then g_pre =
+//             (w2 g_v) (h > 0) and the dW2 sums; padding rows get g_v = 0.
+//           - Backward: [x | 1]^T g_pre gives dW1^T and db1 in one product
+//             (M = In + 1 padded to 16 MT, N = H padded to 8 NT, K = the
+//             rows), its accumulators in registers across every row the
+//             warp visits; g_pre reaches the B layout through a 16-row
+//             tile in shared memory, x^T is read from the row buffer.
+//           - A persistent grid of one block an SM; the block's warps sum
+//             their accumulators in a fixed order into one partial.
+//           Widths are template instances on the padded sizes (In <= 63,
+//           H <= 64; critic_instance).  mma.sync, not wgmma: see
+//           mma_tf32.cuh.
 //   un-collapsed actor: 64 B a row, as the actor = 196 MB -> 58.6 us;
 //           4*F*H + 25*H + 100 float operations a row (3,750: W1 x, the two
-//           heads, the PPO chain, g_h, the four sums) = 11.5 GFLOP -> 172 us.
-//           Float operations bound it.  Design: the critic kernel's, with
-//           the actor's chain; the H*F + 5H + 5 sums split over the block
-//           (H*F entries over all threads, 5 a hidden unit, 5 a tile row).
+//           heads, the PPO chain, g_h, the four sums) = 11.5 GFLOP: 23 us
+//           in TF32 on the tensor cores, 172 us on the CUDA cores.  Design:
+//           the shared-memory tiles of the critic kernel before it moved to
+//           the tensor cores, with the actor's chain; the H*F + 5H + 5 sums
+//           split over the block (H*F entries over all threads, 5 a hidden
+//           unit, 5 a tile row).  Its products run on the CUDA cores; the
+//           helpers of mma_tf32.cuh serve its redesign.
 // Built with -fmad=false like the collect kernel (one flag set for the
 // port's libraries): every multiply and add rounds separately, as PyTorch's
 // elementwise operations do, at the price of the fused multiply-adds the
-// products would otherwise use (about half the critic's issue rate).
+// CUDA-core products would otherwise use.  The flag does not touch the
+// tensor cores' mma instructions.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_tf32.cuh"
 
 namespace marlnav {
 namespace update {
@@ -71,10 +101,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;  // the wrapper sizes the grid with it
 constexpr int kMaxObs = 24;      // actor widths instantiated: even 2 .. 24
-constexpr int kTileRows = 64;    // rows staged a tile (critic, un-collapsed)
-constexpr int kMaxHidden = 64;
-constexpr int kMaxIn = 96;
-constexpr int kMaxEntries = (kMaxHidden * kMaxIn + kThreads - 1) / kThreads;
+constexpr int kTileRows = 64;    // rows staged a tile (un-collapsed actor)
+constexpr int kMaxHidden = 64;   // un-collapsed actor
+constexpr int kCriticMaxIn = 63;
+constexpr int kCriticMaxHidden = 64;
 // dW1 entries a thread of the un-collapsed actor kernel (H <= kMaxHidden,
 // F <= kMaxObs).
 constexpr int kMaxUncollapsedEntries =
@@ -243,15 +273,73 @@ struct CriticArgs {
   long long n_rows;
   int in_size, hidden;
   float eps;
+  bool vec4;        // obs rows load in 16-byte copies (In % 4 == 0, aligned)
   float* partials;  // (gridDim.x, 1 + H*In + 2H + 1)
 };
 
-// Dynamic shared memory of critic_grad_kernel, in floats.  Odd row strides
-// for W1 and the activations keep the column-wise reads free of bank
-// conflicts.
-__host__ __device__ inline int critic_smem_floats(int in_size, int hidden) {
-  return hidden * (in_size | 1) + 2 * hidden + kTileRows * in_size +
-         kTileRows * (hidden | 1) + 3 * kTileRows;
+// The instances of critic_grad_kernel: KS k-steps of 8 over [x | 1] (In + 1
+// <= 8 KS), NT n-tiles of 8 over the hidden units (H <= 8 NT).  False
+// outside the range the instances cover.
+inline bool critic_instance(int in, int hid, int* ks, int* nt) {
+  if (in < 1 || in > kCriticMaxIn || hid < 1 || hid > kCriticMaxHidden)
+    return false;
+  const int k = (in + 8) / 8, n = (hid + 7) / 8;
+  *ks = k <= 3 ? 3 : k <= 5 ? 5 : k <= 6 ? 6 : 8;
+  *nt = n <= 4 ? 4 : n <= 7 ? 7 : 8;
+  return true;
+}
+
+// Warps a block, one block an SM.  With 8 a thread may hold 255 registers:
+// the default instance takes 211 without spilling.  12 warps cap it at 168,
+// where it spilled and ran 9% slower on an H100 (0.239 against 0.218 ms at
+// 1,022,976 rows).
+constexpr int kCriticWarps = 8;
+
+// Shared memory of one instance, in floats.  The row buffer's stride LDX
+// (= 4 mod 8) keeps the forward A loads free of bank conflicts (the
+// transposed backward loads have 2-way ones); g_pre's LDG (= 8 or 24 mod
+// 32) keeps the backward B loads free of them.
+template <int KS, int NT>
+struct CriticShape {
+  static constexpr int kMt = (KS + 1) / 2;  // backward m-tiles over [x | 1]
+  static constexpr int kLdx = kMt * 16 + 4;
+  static constexpr int kLdg = NT * 8 % 16 == 0 ? NT * 8 + 8 : NT * 8;
+  // a warp: rows (2, 16, LDX), g_pre (16, LDG), old values and returns (2,
+  // 32)
+  static constexpr int kWarpFloats = 2 * 16 * kLdx + 16 * kLdg + 2 * 32;
+  static constexpr int kFragFloats = KS * NT * 32 * 4;  // W1 | b1, split
+  static constexpr int kMainFloats =
+      kFragFloats + NT * 8 + kCriticWarps * kWarpFloats;
+};
+
+// Start the copies of rows 16 chunk .. 16 chunk + 15 (those below n_rows)
+// into one buffer of a warp: obs into sx (16, LDX), old values and returns
+// into svr (32,).
+template <int LDX>
+__device__ __forceinline__ void critic_prefetch(const CriticArgs& a,
+                                                long long chunk, float* sx,
+                                                float* svr, int lane) {
+  const long long r0 = chunk * 16;
+  const int rows = static_cast<int>(a.n_rows - r0 < 16 ? a.n_rows - r0 : 16);
+  const int in = a.in_size;
+  const float* src = a.obs + r0 * in;
+  if (a.vec4) {
+    const int per_row = in / 4, units = rows * per_row;
+    for (int u = lane; u < units; u += 32) {
+      const int r = u / per_row;
+      mma::cp_async16(sx + r * LDX + 4 * (u - r * per_row), src + 4 * u);
+    }
+  } else {
+    const int units = rows * in;
+    for (int u = lane; u < units; u += 32) {
+      const int r = u / in;
+      mma::cp_async4(sx + r * LDX + (u - r * in), src + u);
+    }
+  }
+  if (lane < rows)
+    mma::cp_async4(svr + lane, a.vold + r0 + lane);
+  else if (lane >= 16 && lane - 16 < rows)
+    mma::cp_async4(svr + lane, a.ret + r0 + lane - 16);
 }
 
 // One row of update_math.critic_chain; returns g_v, the loss term in *loss.
@@ -269,129 +357,218 @@ __device__ __forceinline__ float critic_row(float v, float vold, float ret,
   return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int KS, int NT>
+__global__ void __launch_bounds__(kCriticWarps * 32, 1)
     critic_grad_kernel(const CriticArgs args) {
-  extern __shared__ float smem[];
+  constexpr int W = kCriticWarps;
+  using Shape = CriticShape<KS, NT>;
+  constexpr int MT = Shape::kMt, LDX = Shape::kLdx, LDG = Shape::kLdg;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int in = args.in_size, hid = args.hidden;
-  const int ldw = in | 1, ldh = hid | 1, tid = threadIdx.x;
-  float* s_w1 = smem;                       // (H, ldw)
-  float* s_b1 = s_w1 + hid * ldw;           // (H,)
-  float* s_w2 = s_b1 + hid;                 // (H,)
-  float* s_x = s_w2 + hid;                  // (kTileRows, In)
-  float* s_h = s_x + kTileRows * in;        // (kTileRows, ldh): h, then g_pre
-  float* s_gv = s_h + kTileRows * ldh;      // (kTileRows,)
-  float* s_red = s_gv + kTileRows;          // (2, kTileRows)
-  for (int i = tid; i < hid * in; i += kThreads)
-    s_w1[(i / in) * ldw + i % in] = args.w1[i];
-  for (int j = tid; j < hid; j += kThreads) {
-    s_b1[j] = args.b1[j];
-    s_w2[j] = args.w2[j];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // (KS, NT, 32) B fragments of [W1^T ; b1]: big b0, big b1, small b0,
+  // small b1 a lane.
+  const float4* s_wf = smem4;
+  float* s_w2 = smem + Shape::kFragFloats;  // (8 NT,), zero-padded
+  float* s_x = s_w2 + NT * 8 + warp * Shape::kWarpFloats;  // (2, 16, LDX)
+  float* s_g = s_x + 2 * 16 * LDX;                         // (16, LDG)
+  float* s_vr = s_g + 16 * LDG;  // (2, 32): 16 old values, 16 returns
+
+  for (int i = tid; i < KS * NT * 32; i += W * 32) {
+    const int l = i & 31, nt = (i >> 5) % NT, ks = (i >> 5) / NT;
+    const int n = nt * 8 + (l >> 2), k = ks * 8 + (l & 3);
+    float b[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = k + 4 * h;
+      b[h] = n >= hid ? 0.f
+             : kk < in ? args.w1[n * in + kk]
+             : kk == in ? args.b1[n]
+                        : 0.f;
+    }
+    uint32_t big[2], small[2];
+    mma::split(b, big, small);
+    smem4[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                           __uint_as_float(small[0]),
+                           __uint_as_float(small[1]));
   }
+  for (int j = tid; j < NT * 8; j += W * 32)
+    s_w2[j] = j < hid ? args.w2[j] : 0.f;
+  // Zero the warp's buffers (rows past n_rows stay finite), then the ones
+  // column of [x | 1] in both row buffers.
+  for (int i = lane; i < Shape::kWarpFloats; i += 32) s_x[i] = 0.f;
+  __syncwarp();
+  s_x[lane * LDX + in] = 1.f;
   const float b2 = args.b2[0];
   __syncthreads();
 
-  const int n_w1 = hid * in;
-  float acc[kMaxEntries];  // dW1 entries tid + m * kThreads, row-major (j, k)
+  float bacc[MT][NT][4];  // [x | 1]^T g_pre: dW1^T, then db1 in row In
+  float acc_w2[NT][2];    // dW2, columns 8 nt + 2t, + 1, over this lane's rows
 #pragma unroll
-  for (int m = 0; m < kMaxEntries; ++m) acc[m] = 0.f;
-  float acc_b1 = 0.f, acc_w2 = 0.f;    // unit tid < H
-  float acc_loss = 0.f, acc_b2 = 0.f;  // tile row tid < kTileRows
+  for (int nt = 0; nt < NT; ++nt) {
+    acc_w2[nt][0] = acc_w2[nt][1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bacc[mt][nt][i] = 0.f;
+  }
+  float acc_loss = 0.f, acc_b2 = 0.f;  // lanes t == 0: rows g and g + 8
 
-  const long long n_tiles = (args.n_rows + kTileRows - 1) / kTileRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile * kTileRows;
-    const int rows = static_cast<int>(
-        args.n_rows - r0 < kTileRows ? args.n_rows - r0 : kTileRows);
-    const float* src = args.obs + r0 * in;
-    for (int i = tid; i < kTileRows * in; i += kThreads)
-      s_x[i] = i < rows * in ? src[i] : 0.f;
-    __syncthreads();
+  const long long n = args.n_rows, n_chunks = (n + 15) / 16;
+  const long long stride = static_cast<long long>(gridDim.x) * W;
+  long long chunk = static_cast<long long>(blockIdx.x) * W + warp;
+  if (chunk < n_chunks) critic_prefetch<LDX>(args, chunk, s_x, s_vr, lane);
+  mma::cp_async_commit();
+  for (int buf = 0; chunk < n_chunks; chunk += stride, buf ^= 1) {
+    const long long next = chunk + stride;
+    if (next < n_chunks)
+      critic_prefetch<LDX>(args, next, s_x + (buf ^ 1) * 16 * LDX,
+                           s_vr + (buf ^ 1) * 32, lane);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncwarp();
+    const float* x = s_x + buf * 16 * LDX;
+    const float* vr = s_vr + buf * 32;
 
-    // Forward: h = relu(W1 x + b1), one (row, unit) pair a thread.
-    for (int p = tid; p < kTileRows * hid; p += kThreads) {
-      const int r = p / hid, j = p - r * hid;
-      const float* w = s_w1 + j * ldw;
-      const float* x = s_x + r * in;
-      float a = 0.f;
-      for (int k = 0; k < in; ++k) a = a + w[k] * x[k];
-      s_h[r * ldh + j] = fmaxf(a + s_b1[j], 0.f);
+    // Forward: pre = [x | 1] [W1^T ; b1] over the 16 rows.
+    float c[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float a[4];
+      uint32_t a_big[4], a_small[4];
+      mma::load_a_rows(x + ks * 8, LDX, lane, a);
+      mma::split(a, a_big, a_small);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float4 w = s_wf[(ks * NT + nt) * 32 + lane];
+        const uint32_t b_big[2] = {__float_as_uint(w.x), __float_as_uint(w.y)};
+        const uint32_t b_small[2] = {__float_as_uint(w.z),
+                                     __float_as_uint(w.w)};
+        mma::mma_3xtf32(c[nt], a_big, a_small, b_big, b_small);
+      }
     }
-    __syncthreads();
 
-    // v = w2 . h + b2 and the loss chain, one row a thread; padding rows
-    // get g_v = 0.
-    if (tid < kTileRows) {
-      float gv = 0.f;
-      if (tid < rows) {
-        const float* h = s_h + tid * ldh;
-        float a = 0.f;
-        for (int j = 0; j < hid; ++j) a = a + s_w2[j] * h[j];
-        float loss;
-        gv = critic_row(a + b2, args.vold[r0 + tid], args.ret[r0 + tid],
-                        args.eps, &loss);
+    // h = relu(pre) in place; v of rows g and g + 8 from the quad's
+    // fixed-order partial sums.
+    float p[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 w = *reinterpret_cast<const float2*>(s_w2 + nt * 8 + 2 * t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nt][i] = fmaxf(c[nt][i], 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[h] = p[h] + w.x * c[nt][2 * h];
+        p[h] = p[h] + w.y * c[nt][2 * h + 1];
+      }
+    }
+    float gv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 1);
+      p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 2);
+      const int row = g + 8 * h;
+      float loss;
+      const float gvr = critic_row(p[h] + b2, vr[row], vr[16 + row],
+                                   args.eps, &loss);
+      const bool valid = chunk * 16 + row < n;
+      gv[h] = valid ? gvr : 0.f;
+      if (valid && t == 0) {
         acc_loss += loss;
-        acc_b2 += gv;
+        acc_b2 += gvr;
       }
-      s_gv[tid] = gv;
     }
-    __syncthreads();
 
-    // dW2 = sum g_v h; g_pre = (w2 g_v) * (h > 0), in place of h; db1.
-    if (tid < hid) {
-      const float w2j = s_w2[tid];
-      float sw2 = 0.f, sb1 = 0.f;
-      for (int r = 0; r < kTileRows; ++r) {
-        const float h = s_h[r * ldh + tid], gv = s_gv[r];
-        sw2 = sw2 + gv * h;
-        const float gp = (w2j * gv) * flag(h > 0.f);
-        s_h[r * ldh + tid] = gp;
-        sb1 = sb1 + gp;
-      }
-      acc_w2 += sw2;
-      acc_b1 += sb1;
-    }
-    __syncthreads();
-
-    // dW1 = sum g_pre x^T over the tile, each thread its own entries.
+    // g_pre = (w2 g_v) (h > 0) into the warp's tile; dW2 += g_v h.
 #pragma unroll
-    for (int m = 0; m < kMaxEntries; ++m) {
-      const int e = tid + m * kThreads;
-      if (e < n_w1) {
-        const int j = e / in, k = e - j * in;
-        float s = 0.f;
-        for (int r = 0; r < kTileRows; ++r)
-          s = s + s_h[r * ldh + j] * s_x[r * in + k];
-        acc[m] += s;
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 w = *reinterpret_cast<const float2*>(s_w2 + nt * 8 + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float h0 = c[nt][2 * h], h1 = c[nt][2 * h + 1];
+        *reinterpret_cast<float2*>(s_g + (g + 8 * h) * LDG + nt * 8 + 2 * t) =
+            make_float2((w.x * gv[h]) * flag(h0 > 0.f),
+                        (w.y * gv[h]) * flag(h1 > 0.f));
+        acc_w2[nt][0] += gv[h] * h0;
+        acc_w2[nt][1] += gv[h] * h1;
       }
     }
-    __syncthreads();
-  }
+    __syncwarp();
 
-  // This block's partials: loss, dW1 (H, In), db1 (H), dW2 (H), db2.
-  const int n_out = 1 + n_w1 + 2 * hid + 1;
-  float* out = args.partials + static_cast<long long>(blockIdx.x) * n_out;
+    // Backward: [x | 1]^T g_pre, K = the 16 rows in two steps of 8.
 #pragma unroll
-  for (int m = 0; m < kMaxEntries; ++m) {
-    const int e = tid + m * kThreads;
-    if (e < n_w1) out[1 + e] = acc[m];
+    for (int kr = 0; kr < 2; ++kr) {
+      uint32_t a_big[MT][4], a_small[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float a[4];
+        mma::load_a_cols(x + kr * 8 * LDX + mt * 16, LDX, lane, a);
+        mma::split(a, a_big[mt], a_small[mt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float b[2];
+        uint32_t b_big[2], b_small[2];
+        mma::load_b_rows(s_g + kr * 8 * LDG + nt * 8, LDG, lane, b);
+        mma::split(b, b_big, b_small);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma::mma_3xtf32(bacc[mt][nt], a_big[mt], a_small[mt], b_big,
+                          b_small);
+      }
+    }
+    __syncwarp();  // the buffers are refilled next
   }
-  if (tid < hid) {
-    out[1 + n_w1 + tid] = acc_b1;
-    out[1 + n_w1 + hid + tid] = acc_w2;
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // The block's partial: each warp's sums into its row of red (W, n_out),
+  // then the warps summed in order.  red reuses all of shared memory.
+  const int n_w1 = hid * in, n_out = 1 + n_w1 + 2 * hid + 1;
+  float* red = smem;
+  float* mine = red + warp * n_out;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = mt * 16 + g + 8 * (i >> 1);
+        const int j = nt * 8 + 2 * t + (i & 1);
+        if (j < hid && m <= in)
+          mine[m < in ? 1 + j * in + m : 1 + n_w1 + j] = bacc[mt][nt][i];
+      }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = acc_w2[nt][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      const int j = nt * 8 + 2 * t + e;
+      if (g == 0 && j < hid) mine[1 + n_w1 + hid + j] = s;
+    }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    acc_loss += __shfl_xor_sync(0xffffffffu, acc_loss, off);
+    acc_b2 += __shfl_xor_sync(0xffffffffu, acc_b2, off);
   }
-  if (tid < kTileRows) {
-    s_red[tid] = acc_loss;
-    s_red[kTileRows + tid] = acc_b2;
+  if (lane == 0) {
+    mine[0] = acc_loss;
+    mine[n_out - 1] = acc_b2;
   }
   __syncthreads();
-  if (tid == 0) {
-    float l = 0.f, b = 0.f;
-    for (int r = 0; r < kTileRows; ++r) {
-      l += s_red[r];
-      b += s_red[kTileRows + r];
-    }
-    out[0] = l;
-    out[n_out - 1] = b;
+  for (int k = tid; k < n_out; k += W * 32) {
+    float s = 0.f;
+    for (int w = 0; w < W; ++w) s += red[w * n_out + k];
+    args.partials[static_cast<long long>(blockIdx.x) * n_out + k] = s;
   }
 }
 
@@ -599,6 +776,21 @@ inline cudaError_t reduce(const float* partials, int blocks, int n_out,
   return cudaGetLastError();
 }
 
+template <int KS, int NT>
+cudaError_t launch_critic(const CriticArgs& args, int blocks,
+                          cudaStream_t s) {
+  constexpr int W = kCriticWarps, kMain = CriticShape<KS, NT>::kMainFloats;
+  const int n_out = 1 + args.hidden * args.in_size + 2 * args.hidden + 1;
+  const int floats = kMain > W * n_out ? kMain : W * n_out;
+  const int smem = static_cast<int>(sizeof(float)) * floats;
+  cudaError_t err = cudaFuncSetAttribute(
+      critic_grad_kernel<KS, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  critic_grad_kernel<KS, NT><<<blocks, W * 32, smem, s>>>(args);
+  return cudaGetLastError();
+}
+
 }  // namespace update
 }  // namespace marlnav
 
@@ -606,9 +798,19 @@ extern "C" {
 
 int marlnav_update_blocks_per_sm() { return marlnav::update::kBlocksPerSm; }
 int marlnav_actor_max_obs() { return marlnav::update::kMaxObs; }
-int marlnav_critic_max_hidden() { return marlnav::update::kMaxHidden; }
-int marlnav_critic_max_in() { return marlnav::update::kMaxIn; }
-int marlnav_critic_tile_rows() { return marlnav::update::kTileRows; }
+int marlnav_critic_max_hidden() { return marlnav::update::kCriticMaxHidden; }
+int marlnav_critic_max_in() { return marlnav::update::kCriticMaxIn; }
+int marlnav_uncollapsed_max_hidden() { return marlnav::update::kMaxHidden; }
+int marlnav_uncollapsed_tile_rows() { return marlnav::update::kTileRows; }
+
+// Warps a block of the critic kernel's instance for (In, H), 16 rows a warp
+// at a time; 0 outside the widths it takes.
+int marlnav_critic_warps(int in_size, int hidden) {
+  int ks, nt;
+  return marlnav::update::critic_instance(in_size, hidden, &ks, &nt)
+             ? marlnav::update::kCriticWarps
+             : 0;
+}
 
 // Both launch on `stream` (a cudaStream_t from torch.cuda.current_stream()):
 // the grad kernel on `blocks` blocks, then the fixed-order reduction of its
@@ -662,21 +864,25 @@ int marlnav_critic_grad_sums(const float* obs, const float* vold,
                              float* partials, float* out, int device,
                              void* stream) {
   using namespace marlnav::update;
-  if (in_size < 1 || in_size > kMaxIn || hidden < 1 || hidden > kMaxHidden)
+  int ks, nt;
+  if (!critic_instance(in_size, hidden, &ks, &nt))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * critic_smem_floats(in_size, hidden);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(critic_grad_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const bool vec4 =
+      in_size % 4 == 0 && reinterpret_cast<std::uintptr_t>(obs) % 16 == 0;
   const CriticArgs args{obs, vold, ret, w1, b1, w2, b2, n_rows,
-                        in_size, hidden, eps, partials};
-  critic_grad_kernel<<<blocks, kThreads, smem, s>>>(args);
+                        in_size, hidden, eps, vec4, partials};
+#define MARLNAV_CRITIC(KS, NT) \
+  if (ks == KS && nt == NT) err = launch_critic<KS, NT>(args, blocks, s); else
+  MARLNAV_CRITIC(3, 4) MARLNAV_CRITIC(3, 7) MARLNAV_CRITIC(3, 8)
+  MARLNAV_CRITIC(5, 4) MARLNAV_CRITIC(5, 7) MARLNAV_CRITIC(5, 8)
+  MARLNAV_CRITIC(6, 4) MARLNAV_CRITIC(6, 7) MARLNAV_CRITIC(6, 8)
+  MARLNAV_CRITIC(8, 4) MARLNAV_CRITIC(8, 7) MARLNAV_CRITIC(8, 8)
+  err = cudaErrorInvalidValue;
+#undef MARLNAV_CRITIC
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(partials, blocks,
                                  1 + hidden * in_size + 2 * hidden + 1, out,
                                  s));

@@ -1,0 +1,127 @@
+// Float32 products on Hopper's tensor cores in 3xTF32, for the port's
+// hand-written kernels: warp-level mma.sync.m16n8k8 with TF32 operands and
+// float32 accumulators, each float32 operand x split into two TF32 halves
+//   big = cvt.rna.tf32(x),  small = cvt.rna.tf32(x - big),
+// and each product taken as small*big + big*small + big*big.  The one
+// dropped term, small*small, is below float32's last bit, so the three
+// passes keep float32's accuracy where one TF32 pass keeps about three
+// decimal digits.  The tensor core ignores -fmad=false: these products
+// round as the tensor core does, every other operation as written.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), with g = lane / 4 (the
+// group) and t = lane % 4 (the thread in the group):
+//   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+//                    a3 (g + 8, t + 4);
+//   B (8 x 8, col):  b0 (t, g), b1 (t + 4, g);
+//   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+//                    c3 (g + 8, 2t + 1).
+// The loaders below read a fragment from shared memory in either storage
+// order of its matrix, so a product and its transpose need no copy.
+//
+// mma.sync rather than wgmma: wgmma takes TF32 operands only K-major from
+// shared memory, so a backward product (a sum over rows) would need
+// transposed copies of its operands; mma.sync fragments load from any
+// layout.  wgmma, TMA and warp specialisation are later work.
+#pragma once
+
+#include <cstdint>
+
+namespace marlnav {
+namespace mma {
+
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, each a TF32 value.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_round(x);
+  small = tf32_round(x - __uint_as_float(big));
+}
+
+template <int K>
+__device__ __forceinline__ void split(const float (&x)[K], uint32_t (&big)[K],
+                                      uint32_t (&small)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) split(x[i], big[i], small[i]);
+}
+
+// c += a b, one m16n8k8 TF32 product.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t b0,
+                                         const uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the two cross terms first, then big * big.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big[0], b_big[1]);
+  mma_tf32(c, a_big, b_small[0], b_small[1]);
+  mma_tf32(c, a_big, b_big[0], b_big[1]);
+}
+
+// A fragment of a 16 x 8 tile whose element (m, k) is s[m * ld + k].
+__device__ __forceinline__ void load_a_rows(const float* s, int ld, int lane,
+                                            float (&a)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  a[0] = s[g * ld + t];
+  a[1] = s[(g + 8) * ld + t];
+  a[2] = s[g * ld + t + 4];
+  a[3] = s[(g + 8) * ld + t + 4];
+}
+
+// A fragment of a 16 x 8 tile whose element (m, k) is s[k * ld + m].
+__device__ __forceinline__ void load_a_cols(const float* s, int ld, int lane,
+                                            float (&a)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  a[0] = s[t * ld + g];
+  a[1] = s[t * ld + g + 8];
+  a[2] = s[(t + 4) * ld + g];
+  a[3] = s[(t + 4) * ld + g + 8];
+}
+
+// B fragment of an 8 x 8 tile whose element (k, n) is s[k * ld + n].
+__device__ __forceinline__ void load_b_rows(const float* s, int ld, int lane,
+                                            float (&b)[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  b[0] = s[t * ld + g];
+  b[1] = s[(t + 4) * ld + g];
+}
+
+// Asynchronous copies from device to shared memory (cp.async): 4 or 16
+// bytes a thread, completed in groups.  After wait_group, a __syncwarp or
+// __syncthreads makes one thread's copies visible to the others.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+}  // namespace mma
+}  // namespace marlnav

@@ -15,7 +15,8 @@ gradients to the same ``torch.optim.Adam`` the autograd route uses.
   gradients outside.
 * ``critic_grad_sums`` replaces ``make_tiled_critic_grad`` and the staged
   ``make_fused_critic_grad``: the clipped-value loss through ``In -> H ReLU
-  -> 1`` and ``dW1, db1, dW2, db2``.
+  -> 1`` and ``dW1, db1, dW2, db2``.  Its two products run on the tensor
+  cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``), for In <= 63 and H <= 64.
 * ``actor_grad_uncollapsed_sums`` replaces the staged actor kernels of the
   "packed" (``make_fused_actor_grad``) and "undilated"
   (``_make_actor_grad_undilated``) layouts: the actor loss through the
@@ -71,8 +72,12 @@ def _library():
         fn.restype = i32
     for getter in (lib.marlnav_update_blocks_per_sm,
                    lib.marlnav_actor_max_obs, lib.marlnav_critic_max_hidden,
-                   lib.marlnav_critic_max_in, lib.marlnav_critic_tile_rows):
+                   lib.marlnav_critic_max_in,
+                   lib.marlnav_uncollapsed_max_hidden,
+                   lib.marlnav_uncollapsed_tile_rows):
         getter.argtypes, getter.restype = [], i32
+    lib.marlnav_critic_warps.argtypes = [i32, i32]
+    lib.marlnav_critic_warps.restype = i32
     return lib
 
 
@@ -86,16 +91,19 @@ def _split(sums: torch.Tensor, shapes) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int):
+def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
+                  blocks_per_sm: int = 0):
     """(library, grid blocks, device index, stream) for a launch over
-    ``n_rows`` rows: at most a few persistent blocks an SM, so the grid,
-    and with it every sum's order, depends only on the rows and the card."""
+    ``n_rows`` rows: at most a few persistent blocks an SM (the library's
+    ``marlnav_update_blocks_per_sm`` unless ``blocks_per_sm`` is given), so
+    the grid, and with it every sum's order, depends only on the rows and
+    the card."""
     lib = _library()
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     blocks = min(math.ceil(n_rows / rows_per_block),
-                 sms * lib.marlnav_update_blocks_per_sm())
+                 sms * (blocks_per_sm or lib.marlnav_update_blocks_per_sm()))
     return lib, blocks, index, torch.cuda.current_stream(device).cuda_stream
 
 
@@ -161,12 +169,14 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
         ("w1", w1, (h, n_in)), ("b1", b1, (h,)), ("w2", w2, (1, h)),
         ("b2", b2, (1,)), ("obs", obs, (n, n_in)), ("vold", vold, (n,)),
         ("ret", ret, (n,))))
-    lib, blocks, index, stream = _launch_setup(
-        obs.device, n, _library().marlnav_critic_tile_rows())
-    max_h, max_in = lib.marlnav_critic_max_hidden(), lib.marlnav_critic_max_in()
-    if not (1 <= h <= max_h and 1 <= n_in <= max_in):
+    lib = _library()
+    warps = lib.marlnav_critic_warps(n_in, h)  # 16 rows a warp at a time
+    if not warps:
+        max_h, max_in = (lib.marlnav_critic_max_hidden(),
+                         lib.marlnav_critic_max_in())
         raise ValueError(f"critic grad kernel takes hidden 1..{max_h} and "
                          f"input 1..{max_in}, got {h} and {n_in}")
+    _, blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
     n_out = 1 + h * n_in + 2 * h + 1
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
@@ -205,8 +215,9 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
     lib, blocks, index, stream = _launch_setup(
-        obs.device, n, _library().marlnav_critic_tile_rows())
-    max_h, max_f = lib.marlnav_critic_max_hidden(), lib.marlnav_actor_max_obs()
+        obs.device, n, _library().marlnav_uncollapsed_tile_rows())
+    max_h = lib.marlnav_uncollapsed_max_hidden()
+    max_f = lib.marlnav_actor_max_obs()
     if not (1 <= h <= max_h and 1 <= f <= max_f):
         raise ValueError(f"un-collapsed actor grad kernel takes hidden "
                          f"1..{max_h} and obs 1..{max_f}, got {h} and {f}")

@@ -537,3 +537,91 @@ def test_uncollapsed_kernel_matches_plain_on_card():
         assert torch.equal(k, k2)
         tol = 1e-4 * float(w.abs().max()) + 1e-6
         assert float((k.double() - w).abs().max()) <= tol
+
+
+# ----------------------------------------------------------------------
+# The critic kernel's precision: its two products in 3xTF32
+# ----------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to TF32's 10 mantissa bits,
+    to nearest with ties away from zero (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a, b, passes):
+    """``a @ b`` as the critic kernel's tensor cores take it: float32
+    operands split into TF32 halves, float32 accumulation; 3 passes
+    (small·big + big·small + big·big, ops/csrc/mma_tf32.cuh) or 1."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def critic_sums_tf32(w1, b1, w2, b2, obs, vold, ret, eps, passes):
+    """critic_grad_sums_reference with the kernel's two products: pre =
+    [x | 1] [W1ᵀ ; b1] and [x | 1]ᵀ g_pre (dW1ᵀ, with db1 as its last
+    row), each through ``tf32_product``."""
+    x1 = torch.cat([obs, torch.ones(obs.shape[0], 1)], dim=1)
+    h = torch.relu(tf32_product(x1, torch.cat([w1.T, b1[None]]), passes))
+    v = h @ w2[0] + b2[0]
+    loss_rows, g_v = um.critic_chain(v, vold, ret, eps)
+    g_pre = g_v[:, None] * w2 * (h > 0.0).to(h.dtype)
+    d = tf32_product(x1.T.contiguous(), g_pre, passes)
+    return (loss_rows.sum(), d[:-1].T, d[-1], (g_v @ h)[None],
+            g_v.sum()[None])
+
+
+def test_tf32_split_reproduces_float32():
+    """big = tf32(x), small = tf32(x - big): both TF32 values (low 13 bits
+    clear), ties rounded away from zero, and big + small within one
+    float32 ulp of x (relative 2^-23), where big alone keeps 11 bits."""
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.normal(size=100_000) * 10.0 ** rng.uniform(
+        -6, 6, size=100_000), dtype=torch.float32)
+    big = tf32_round(x)
+    small = tf32_round(x - big)
+    for half in (big, small):
+        assert not (half.view(torch.int32) & 0x1FFF).any()
+    rel = lambda y: ((y.double() - x.double()).abs()  # noqa: E731
+                     / x.double().abs()).max().item()
+    assert rel(big + small) <= 2.0 ** -23
+    assert 2.0 ** -13 < rel(big) <= 2.0 ** -11
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert tf32_round(tie).tolist() == [1.0 + 2.0 ** -10,
+                                        -(1.0 + 2.0 ** -10)]
+
+
+def test_critic_sums_need_three_tf32_passes():
+    """On 8,192 rand_buffer rows (In 36, H 50) through a freshly
+    initialised critic, the critic's sums with 3-pass TF32 products stay
+    within 2x of the float32 plain version's error against float64, output
+    by output (each sum divided by the row count, as Adam sees it); with
+    one pass the error on dW1 is more than twice the plain version's."""
+    t, p = 64, 128
+    _, tb = rand_buffer(9, t, p)
+    n = t * p
+    from marlnav_tpu_torch.models import Critic
+
+    critic = Critic(OBS, A, 50, generator=torch.Generator().manual_seed(10))
+    args = (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
+            critic.fc2.weight.detach(), critic.fc2.bias.detach(),
+            tb.obs.reshape(n, -1), tb.values.reshape(n),
+            tb.returns.reshape(n))
+    eps = 0.2
+    want = um.critic_grad_sums_reference(*(x.double() for x in args), eps)
+    names = ("loss", "dW1", "db1", "dW2", "db2")
+
+    def errors(got):
+        return {k: ((g.double() - w) / n).abs().max().item()
+                for k, g, w in zip(names, got, want)}
+
+    plain = errors(um.critic_grad_sums_reference(*args, eps))
+    three = errors(critic_sums_tf32(*args, eps, passes=3))
+    one = errors(critic_sums_tf32(*args, eps, passes=1))
+    for k in names:
+        assert three[k] <= 2.0 * plain[k], (k, three[k], plain[k])
+    assert one["dW1"] > 2.0 * plain["dW1"], (one["dW1"], plain["dW1"])
