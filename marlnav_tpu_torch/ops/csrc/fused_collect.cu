@@ -1,4 +1,5 @@
-// Fused MAPPO training rollout (collect) for Hopper: one thread per env.
+// Fused MAPPO training rollout (collect) for Hopper: a group of lanes per
+// env.
 //
 // Replaces marlnav_tpu/ops/fused_collect.py:make_fused_collect (the Pallas
 // TPU kernel at fused_collect.py:167, pallas_call at :327).  For every env
@@ -12,8 +13,8 @@
 //   episode counters as int32 (3,) (one block reduction + atomicAdd).
 // The plain PyTorch version is ops/fused_collect.py collect_rows_reference;
 // both perform the same float32 operations in the same order (the library
-// is built with -fmad=false).  The step after the actions (dynamics,
-// rewards, reset) is env_step.cuh's, shared with fused_rollout.cu.
+// is built with -fmad=false), so they agree bit for bit.  The step is
+// env_step.cuh's, shared with fused_rollout.cu.
 //
 // Random numbers: Philox4x32-10 keyed on (seed, env index) with counter
 // (step, draw group, 0, 0); each draw group gives 4 uniforms.  Per step
@@ -26,18 +27,29 @@
 //   bytes:  (36 + 6 + 3 + 1) float32 + 1 byte of output = 185 B;
 //           P=1024, T=1000: 189 MB -> 57 us.
 //   operations: ~1,830 float operations (chip_smoke.py OPS_PER_ENV_STEP
-//           gives the count by part): 18 geom calls (sqrt, divide, the
-//           8-term acos polynomial); 3 x (48 FMA of the actor operator +
-//           tanh x2, softplus x2, log x2, sqrt x2); 3 Box-Muller pairs;
-//           9 + 9 pair distances in the rewards; the reset blend.  Philox's
-//           integer rounds are not counted.
-//           1,024,000 env-steps -> ~1.87 GFLOP -> 28 us.
+//           gives the count by part); Philox's integer rounds are not
+//           counted.  1,024,000 env-steps -> ~1.87 GFLOP -> 28 us.
 //   The larger, the bytes, bounds it: ~57 us at (1024, 1000).
-// Design: simple and right first.  Known weaknesses, measured in PERF.md
-// and left to a later redesign: at P=1024 one thread per env fills only 8
-// blocks of 128 threads on a 132-SM card, so the 1000-step sequential loop
-// is latency-bound; each thread stores its 36 obs floats contiguously, so
-// a warp's stores are strided, not coalesced.
+// Design: lane groups (env_step.cuh).  The T steps of one env are a
+// dependent chain of ~3,000 instructions a step, so one thread per env (the
+// first design) left 4 warps an SM at any P and took 6.55 us a step at
+// (1024, 1000): latency-bound.  Here each env takes kLanes = 8 lanes of
+// one warp.  Agent i's two lanes split its 6 geom calls and its 4 actor
+// rows (one action component each) and share the rest of its step; the
+// Philox groups spread over the group; shuffles carry positions, the two
+// lanes' halves and the reward terms.  Agent i's obs row goes out as three
+// float4 stores (float2 where F % 4 != 0) taken in turn by its two lanes,
+// so a warp's store covers whole rows; its first lane writes the action
+// pair and log-prob, the group's first lane the reward, done and counters.
+// G kept: 8 (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md):
+// 1.70 ms at (1024, 1000), its path, against 2.35 ms with G = 4, one lane
+// an agent.  G = 4 is faster at P = 16384 (0.79 against 1.12 ms at T =
+// 200), where its fewer warp-instructions count more than latency.
+// Blocks of 128 threads (32 gave the same time at P = 1024).
+// What limits it now, not profiled per instruction: at P = 1024 the grid
+// is 256 warps, about 2 an SM, so the step's chain (~1.7 us) is most
+// likely still latency-bound, at 3% of the bytes bound; more envs a
+// launch or fewer instructions on the chain would move it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,10 +58,10 @@
 
 namespace marlnav {
 
-constexpr int kThreads = 128;
+constexpr int kLanes = 8;  // lanes an env
 
 template <int O>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxBlockThreads)
 fused_collect_kernel(Rows in, Rows out, const float* __restrict__ w,
                      const float* __restrict__ noise, uint32_t seed,
                      StepParams c, float* __restrict__ obs_out,
@@ -57,76 +69,76 @@ fused_collect_kernel(Rows in, Rows out, const float* __restrict__ w,
                      float* __restrict__ rew_out, uint8_t* __restrict__ done_out,
                      int32_t* __restrict__ stats_out) {
   constexpr int F = Dims<O>::F;
+  constexpr int G = kLanes;
   const int P = c.num_envs;
   const int n_draws = step_draws(O, c.noisy);
 
   // The actor operator: wa (4, F) row-major, then ca (4,).
   __shared__ float s_w[4 * F + 4];
+  // Each group's uniforms for the current step.
+  __shared__ float s_u[kMaxBlockThreads / G][Dims<O>::kDraws];
   for (int i = threadIdx.x; i < 4 * F + 4; i += blockDim.x) s_w[i] = w[i];
   __syncthreads();
   const float* wa = s_w;
   const float* ca = s_w + 4 * F;
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const Group<G> g(threadIdx.x);
+  // A group past P steps env P - 1 again, so that it takes part in every
+  // shuffle of its warp, and stores nothing.
+  const int env = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const bool valid = env < P;
+  const int p = valid ? env : P - 1;
+  float* u = s_u[threadIdx.x / G];
   int n_trunc = 0, n_col = 0, n_tar = 0;
 
-  if (p < P) {
-    EnvRegs<O> e;
-    e.load(in, P, p);
-    const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
+  LaneState<O> e;
+  e.load(in, P, p, g.agent, c);
+  const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
 
-    for (int t = 0; t < c.num_steps; ++t) {
-      float u[Dims<O>::kDraws];
-      step_uniforms<O>(noise, n_draws, P, p, t, key, u);
+  for (int t = 0; t < c.num_steps; ++t) {
+    group_uniforms<O, G>(noise, n_draws, P, p, t, key, g, u);
 
-      // ---- observations (pre-step) and actions, one agent at a time ----
-      const size_t tp = static_cast<size_t>(t) * P + p;
-      float ang_raw[kAgents], acc_raw[kAgents];
+    // ---- observations (pre-step) and the action of the lane's agent ----
+    float apx[kAgents], apy[kAgents];
 #pragma unroll
-      for (int i = 0; i < kAgents; ++i) {
-        float x[F];
-        agent_obs(e, i, c, x);
-        // obs row (t, p, i, :) in the Observations concat order.
-        float* o_row = obs_out + (tp * kAgents + i) * F;
-#pragma unroll
-        for (int f = 0; f < F; ++f) o_row[f] = x[f];
+    for (int j = 0; j < kAgents; ++j) {
+      apx[j] = Group<G>::from_agent(e.px, j);
+      apy[j] = Group<G>::from_agent(e.py, j);
+    }
+    float x[F];
+    group_obs(e, g, apx, apy, c, x);
+    const size_t tp = static_cast<size_t>(t) * P + p;
+    const size_t row = tp * kAgents + g.agent;  // (t, p, agent)
+    if (valid && g.agent_lane()) store_obs_row(g, obs_out + row * F, x);
+    const Action a =
+        group_action<F, G, false, true>(g, wa, ca, x, u + 2 * g.agent, c);
+    if (valid && g.owner()) {
+      reinterpret_cast<float2*>(act_out)[row] =
+          make_float2(a.ang_raw, a.acc_raw);
+      lp_out[row] = a.log_prob;
+    }
 
-        float z[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) z[k] = affine_row(wa + k * F, ca[k], x);
-        const float mu0 = tanhf(z[0]), mu1 = tanhf(z[1]);
-        const float v0 = softplus(z[2]), v1 = softplus(z[3]);
-        float z0, z1;
-        box_muller(u[2 * i], u[2 * i + 1], z0, z1);
-        ang_raw[i] = mu0 + sqrtf(v0) * z0;
-        acc_raw[i] = mu1 + sqrtf(v1) * z1;
-        // log p(a) with (a - mu)^2 / var == z^2 (DiagGaussian.log_prob).
-        const float lp =
-            -0.5f * ((((c.log2pi2 + logf(v0)) + logf(v1)) + z0 * z0) + z1 * z1);
-        act_out[(tp * kAgents + i) * 2] = ang_raw[i];
-        act_out[(tp * kAgents + i) * 2 + 1] = acc_raw[i];
-        lp_out[tp * kAgents + i] = lp;
-      }
-
-      // ---- dynamics, rewards, done and the auto-reset (env_step.cuh) ----
-      const StepOutcome s = advance(e, ang_raw, acc_raw, u + 2 * kAgents, c);
+    // ---- dynamics, rewards, done and the auto-reset (env_step.cuh) ----
+    const StepOutcome s =
+        group_advance(e, g, a.ang_raw, a.acc_raw, u + 2 * kAgents, c);
+    if (valid && g.leader()) {
       rew_out[tp] = s.reward;
       done_out[tp] = s.finished > 0.5f ? 1 : 0;
       n_trunc += s.trunc > 0.5f;
       n_col += s.any_coll > 0.5f;
       n_tar += s.all_in_target > 0.5f;
     }
-    e.store(out, P, p);
   }
+  if (valid) e.store(out, P, p, g);
 
   // ---- episode counters: one block reduction, then one atomicAdd each ----
-  __shared__ int s_cnt[3][kThreads / 32];
-  const unsigned full = 0xffffffffu;
+  // Only each group's first lane counts, once per env.
+  __shared__ int s_cnt[3][kMaxBlockThreads / 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    n_trunc += __shfl_down_sync(full, n_trunc, off);
-    n_col += __shfl_down_sync(full, n_col, off);
-    n_tar += __shfl_down_sync(full, n_tar, off);
+    n_trunc += __shfl_down_sync(kFullMask, n_trunc, off);
+    n_col += __shfl_down_sync(kFullMask, n_col, off);
+    n_tar += __shfl_down_sync(kFullMask, n_tar, off);
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (lane == 0) {
@@ -137,7 +149,8 @@ fused_collect_kernel(Rows in, Rows out, const float* __restrict__ w,
   __syncthreads();
   if (threadIdx.x < 3) {
     int sum = 0;
-    for (int k = 0; k < kThreads / 32; ++k) sum += s_cnt[threadIdx.x][k];
+    for (int k = 0; k < static_cast<int>(blockDim.x / 32); ++k)
+      sum += s_cnt[threadIdx.x][k];
     if (sum) atomicAdd(stats_out + threadIdx.x, sum);
   }
 }
@@ -152,22 +165,30 @@ int marlnav_collect_params_size() {
   return static_cast<int>(sizeof(marlnav::StepParams));
 }
 int marlnav_collect_max_obstacles() { return marlnav::kMaxObs; }
+int marlnav_collect_lanes() { return marlnav::kLanes; }
 
-// Launch on `stream` (a cudaStream_t from torch.cuda.current_stream()).
-// Returns cudaGetLastError() after the launch: 0 when it was accepted.
+// Launch `blocks` blocks of `threads` threads (a multiple of 32, at most
+// kMaxBlockThreads, blocks x threads >= kLanes x num_envs; see
+// ops/fused_collect.py launch_geometry) on `stream` (a cudaStream_t from
+// torch.cuda.current_stream()).  Returns cudaGetLastError() after the
+// launch: 0 when it was accepted.
 int marlnav_fused_collect(const marlnav::Rows* in, const marlnav::Rows* out,
                           const float* w, const float* noise, uint32_t seed,
                           const marlnav::StepParams* params, float* obs,
                           float* act, float* lp, float* rew, uint8_t* done,
-                          int32_t* stats, int device, void* stream) {
+                          int32_t* stats, int blocks, int threads, int device,
+                          void* stream) {
+  if (threads % 32 != 0 || threads < 32 ||
+      threads > marlnav::kMaxBlockThreads || blocks < 1 ||
+      static_cast<long long>(blocks) * threads <
+          static_cast<long long>(marlnav::kLanes) * params->num_envs)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks =
-      (params->num_envs + marlnav::kThreads - 1) / marlnav::kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MARLNAV_LAUNCH(O)                                               \
-  case O:                                                              \
-    marlnav::fused_collect_kernel<O><<<blocks, marlnav::kThreads, 0, s>>>( \
+#define MARLNAV_LAUNCH(O)                                                  \
+  case O:                                                                 \
+    marlnav::fused_collect_kernel<O><<<blocks, threads, 0, s>>>(           \
         *in, *out, w, noise, seed, *params, obs, act, lp, rew, done, stats); \
     break;
   switch (params->num_obstacles) {

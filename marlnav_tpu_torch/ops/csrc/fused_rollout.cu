@@ -1,18 +1,20 @@
-// The whole random- or policy-mean rollout for Hopper: one thread per env.
+// The whole random- or policy-mean rollout for Hopper: a group of lanes per
+// env.
 //
 // Replaces marlnav_tpu/ops/fused_rollout.py:make_fused_rollout (the Pallas
 // TPU kernel at fused_rollout.py:178, pallas_call at :312), the bench
 // kernel.  For every env and each of T steps it computes, in registers:
 //   obs features -> affine actor -> the action (Box-Muller sample, or the
-//   policy mean with kDeterministic) -> dynamics -> rewards and done ->
+//   policy mean with kMean) -> dynamics -> rewards and done ->
 //   triangle reset draw and mask blend,
-// and writes only the rewards (T, P), one coalesced row a step, and the
-// final row state.  No episode counters (fused_rollout.py:39-40).  The
-// plain PyTorch version is ops/fused_rollout.py rollout_rows_reference;
-// both perform the same float32 operations in the same order (-fmad=false).
+// and writes only the rewards (T, P) and the final row state.  No episode
+// counters (fused_rollout.py:39-40).  The plain PyTorch version is
+// ops/fused_rollout.py rollout_rows_reference; both perform the same
+// float32 operations in the same order (-fmad=false), so they agree bit
+// for bit.
 //
 // Random numbers: the collect kernel's Philox slots (env_step.cuh
-// step_uniforms): key (seed, env), counter (step, draw group).  A
+// group_uniforms): key (seed, env), counter (step, draw group).  A
 // stochastic rollout and a collect from the same seed, state and actor
 // therefore give the same rewards and final state bit for bit.  The reset
 // draws stay at slot 2A in the policy-mean mode too (fused_rollout.py:257).
@@ -27,9 +29,23 @@
 //           sampled, ~1,493 with the policy mean (chip_smoke.py
 //           ROLLOUT_OPS_PER_ENV_STEP) -> 14.7 GFLOP -> 0.22 ms sampled.
 //   Operations bound it.
-// Design: simple and right first, as the collect kernel: one thread per env
-// keeps the whole trajectory in registers, so the loop is latency-bound
-// where P is small (P=1024 fills 8 blocks on 132 SMs).
+// Design: the collect kernel's lane groups (env_step.cuh) with kLanes = 4
+// lanes an env: lane i steps agent i (its 6 geom calls, 4 actor rows,
+// Box-Muller, dynamics, reward term and reset) and the fourth lane draws
+// Philox groups with the others and repeats agent 2's step otherwise; the
+// group's first lane writes the reward.  One thread per env (the first
+// design) took 5.8 us a step at the bench's (16384, 500), latency-bound
+// on one warp a scheduler.
+// G kept: 4 (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md):
+// 1.757 ms at (16384, 500), its path, against 2.547 ms with G = 8, which
+// doubles the warps and has both lanes of an agent repeat the work they
+// share.  G = 8 is faster at P = 1024 (1.56 against 2.11 ms at T = 1000),
+// where latency rules.  Blocks of 128 threads (32 gave the same time).
+// What limits it now, not profiled per instruction: with 2,048 warps, 16
+// an SM, most likely the SMs' issue rate, spent in part on the spare lane,
+// on the obstacle blend every lane repeats, and on the IEEE divides and
+// square roots (-fmad=false, no fast-math).  12.5% of its operations
+// bound.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -38,58 +54,56 @@
 
 namespace marlnav {
 
-constexpr int kThreads = 128;
+constexpr int kLanes = 4;  // lanes an env
 
-template <int O, bool kDeterministic>
-__global__ void __launch_bounds__(kThreads)
+template <int O, bool kMean>
+__global__ void __launch_bounds__(kMaxBlockThreads)
 fused_rollout_kernel(Rows in, Rows out, const float* __restrict__ w,
                      const float* __restrict__ noise, uint32_t seed,
                      StepParams c, float* __restrict__ rew_out) {
   constexpr int F = Dims<O>::F;
+  constexpr int G = kLanes;
   const int P = c.num_envs;
   const int n_draws = step_draws(O, c.noisy);
 
   // The actor operator: wa (4, F) row-major, then ca (4,).
   __shared__ float s_w[4 * F + 4];
+  // Each group's uniforms for the current step.
+  __shared__ float s_u[kMaxBlockThreads / G][Dims<O>::kDraws];
   for (int i = threadIdx.x; i < 4 * F + 4; i += blockDim.x) s_w[i] = w[i];
   __syncthreads();
   const float* wa = s_w;
   const float* ca = s_w + 4 * F;
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  EnvRegs<O> e;
-  e.load(in, P, p);
+  const Group<G> g(threadIdx.x);
+  // A group past P steps env P - 1 again, so that it takes part in every
+  // shuffle of its warp, and stores nothing.
+  const int env = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const bool valid = env < P;
+  const int p = valid ? env : P - 1;
+  float* u = s_u[threadIdx.x / G];
+
+  LaneState<O> e;
+  e.load(in, P, p, g.agent, c);
   const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
 
   for (int t = 0; t < c.num_steps; ++t) {
-    float u[Dims<O>::kDraws];
-    step_uniforms<O>(noise, n_draws, P, p, t, key, u);
-
-    float ang_raw[kAgents], acc_raw[kAgents];
+    group_uniforms<O, G>(noise, n_draws, P, p, t, key, g, u);
+    float apx[kAgents], apy[kAgents];
 #pragma unroll
-    for (int i = 0; i < kAgents; ++i) {
-      float x[F];
-      agent_obs(e, i, c, x);
-      if (kDeterministic) {
-        ang_raw[i] = tanhf(affine_row(wa, ca[0], x));
-        acc_raw[i] = tanhf(affine_row(wa + F, ca[1], x));
-      } else {
-        float z[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) z[k] = affine_row(wa + k * F, ca[k], x);
-        const float mu0 = tanhf(z[0]), mu1 = tanhf(z[1]);
-        const float v0 = softplus(z[2]), v1 = softplus(z[3]);
-        float z0, z1;
-        box_muller(u[2 * i], u[2 * i + 1], z0, z1);
-        ang_raw[i] = mu0 + sqrtf(v0) * z0;
-        acc_raw[i] = mu1 + sqrtf(v1) * z1;
-      }
+    for (int j = 0; j < kAgents; ++j) {
+      apx[j] = Group<G>::from_agent(e.px, j);
+      apy[j] = Group<G>::from_agent(e.py, j);
     }
-    const StepOutcome s = advance(e, ang_raw, acc_raw, u + 2 * kAgents, c);
-    rew_out[static_cast<size_t>(t) * P + p] = s.reward;
+    float x[F];
+    group_obs(e, g, apx, apy, c, x);
+    const Action a =
+        group_action<F, G, kMean, false>(g, wa, ca, x, u + 2 * g.agent, c);
+    const StepOutcome s =
+        group_advance(e, g, a.ang_raw, a.acc_raw, u + 2 * kAgents, c);
+    if (valid && g.leader()) rew_out[static_cast<size_t>(t) * P + p] = s.reward;
   }
-  e.store(out, P, p);
+  if (valid) e.store(out, P, p, g);
 }
 
 }  // namespace marlnav
@@ -101,28 +115,34 @@ int marlnav_rollout_params_size() {
   return static_cast<int>(sizeof(marlnav::StepParams));
 }
 int marlnav_rollout_max_obstacles() { return marlnav::kMaxObs; }
+int marlnav_rollout_lanes() { return marlnav::kLanes; }
 
-// Launch on `stream` (a cudaStream_t from torch.cuda.current_stream()).
-// Returns cudaGetLastError() after the launch: 0 when it was accepted.
+// Launch `blocks` blocks of `threads` threads (a multiple of 32, at most
+// kMaxBlockThreads, blocks x threads >= kLanes x num_envs; see
+// ops/fused_collect.py launch_geometry) on `stream` (a cudaStream_t from
+// torch.cuda.current_stream()).  Returns cudaGetLastError() after the
+// launch: 0 when it was accepted.
 int marlnav_fused_rollout(const marlnav::Rows* in, const marlnav::Rows* out,
                           const float* w, const float* noise, uint32_t seed,
                           const marlnav::StepParams* params, int deterministic,
-                          float* rew, int device, void* stream) {
+                          float* rew, int blocks, int threads, int device,
+                          void* stream) {
+  if (threads % 32 != 0 || threads < 32 ||
+      threads > marlnav::kMaxBlockThreads || blocks < 1 ||
+      static_cast<long long>(blocks) * threads <
+          static_cast<long long>(marlnav::kLanes) * params->num_envs)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks =
-      (params->num_envs + marlnav::kThreads - 1) / marlnav::kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MARLNAV_LAUNCH(O)                                                    \
   case O:                                                                   \
     if (deterministic)                                                      \
-      marlnav::fused_rollout_kernel<O, true>                                \
-          <<<blocks, marlnav::kThreads, 0, s>>>(*in, *out, w, noise, seed,  \
-                                                *params, rew);              \
+      marlnav::fused_rollout_kernel<O, true><<<blocks, threads, 0, s>>>(    \
+          *in, *out, w, noise, seed, *params, rew);                         \
     else                                                                    \
-      marlnav::fused_rollout_kernel<O, false>                               \
-          <<<blocks, marlnav::kThreads, 0, s>>>(*in, *out, w, noise, seed,  \
-                                                *params, rew);              \
+      marlnav::fused_rollout_kernel<O, false><<<blocks, threads, 0, s>>>(   \
+          *in, *out, w, noise, seed, *params, rew);                         \
     break;
   switch (params->num_obstacles) {
     MARLNAV_LAUNCH(1)

@@ -2,10 +2,11 @@
 
 Port of ``marlnav_tpu/ops/fused_collect.py`` (plus the ``RowState`` layout
 of ``ops/fused_rollout.py``).  The kernel (``ops/csrc/fused_collect.cu``)
-runs one thread per env through all T steps with the env state in
-registers and writes the training buffer — normalized observations, raw
-sampled actions, per-agent log-probs, rewards, done flags and the episode
-counters — in the canonical ``Buffer`` layout.  The actor runs in-kernel
+steps each env through all T steps on a group of ``COLLECT_LANES`` lanes
+of one warp (two an agent), with the env state in registers, and writes
+the training buffer — normalized observations, raw sampled actions,
+per-agent log-probs, rewards, done flags and the episode counters — in
+the canonical ``Buffer`` layout.  The actor runs in-kernel
 as its precomposed (4, obs) affine operator (``_affine_compose``: the
 reference actor has no hidden activation).
 
@@ -302,6 +303,22 @@ def _kernel_params(sm: StepMath, num_envs: int,
     return kp
 
 
+# Lanes of one warp that step one env together (kLanes in
+# ops/csrc/fused_collect.cu; the wrapper checks the library's), and the
+# threads of a block of either rollout kernel.
+COLLECT_LANES = 8
+BLOCK_THREADS = 128
+
+
+def launch_geometry(num_envs: int, lanes: int):
+    """``(blocks, threads)`` of a rollout kernel's launch over ``num_envs``
+    envs, ``lanes`` consecutive threads an env: env p is stepped by threads
+    ``lanes * p .. lanes * p + lanes - 1`` of the grid.  ``lanes`` divides
+    32 and a block is whole warps, so no env's group crosses a warp; the
+    last block's groups past ``num_envs`` run along and store nothing."""
+    return -(-lanes * num_envs // BLOCK_THREADS), BLOCK_THREADS
+
+
 def _library():
     from marlnav_tpu_torch.ops._build import load_library
 
@@ -310,14 +327,19 @@ def _library():
     # passed as a 32-bit int and cuts the pointer.
     fn = lib.marlnav_fused_collect
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_uint32]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     for getter in (lib.marlnav_collect_params_size,
-                   lib.marlnav_collect_max_obstacles):
+                   lib.marlnav_collect_max_obstacles,
+                   lib.marlnav_collect_lanes):
         getter.argtypes, getter.restype = [], ctypes.c_int
     if lib.marlnav_collect_params_size() != ctypes.sizeof(_KernelParams):
         raise RuntimeError("StepParams layout differs between "
                            "env_step.cuh and _KernelParams")
+    if lib.marlnav_collect_lanes() != COLLECT_LANES:
+        raise RuntimeError("kLanes of fused_collect.cu differs from "
+                           "COLLECT_LANES")
     return lib, record
 
 
@@ -396,13 +418,14 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     ptrs_out = _Rows(*(x.data_ptr() for x in out_rows.fields()))
     params = _kernel_params(sm, num_envs, num_steps)
     stream = torch.cuda.current_stream(device).cuda_stream
+    blocks, threads = launch_geometry(num_envs, COLLECT_LANES)
     err = lib.marlnav_fused_collect(
         ctypes.byref(ptrs_in), ctypes.byref(ptrs_out), weights.data_ptr(),
         None if noise is None else noise.data_ptr(),
         ctypes.c_uint32(seed & 0xFFFFFFFF), ctypes.byref(params),
         out.obs.data_ptr(), out.actions.data_ptr(), out.log_probs.data_ptr(),
         out.rewards.data_ptr(), out.done.data_ptr(), out.stats.data_ptr(),
-        device.index if device.index is not None
+        blocks, threads, device.index if device.index is not None
         else torch.cuda.current_device(), stream)
     if err != 0:
         raise RuntimeError(f"fused collect kernel launch failed: CUDA error "

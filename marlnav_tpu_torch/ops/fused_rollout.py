@@ -1,9 +1,10 @@
 """The whole random- or policy-mean rollout fused into one CUDA kernel.
 
 Port of ``marlnav_tpu/ops/fused_rollout.py``, the bench kernel.  The kernel
-(``ops/csrc/fused_rollout.cu``) runs one thread per env through all T steps
-with the env state in registers — observations, the actor as its (4, obs)
-affine operator, the action (a Gaussian sample, or the policy mean with
+(``ops/csrc/fused_rollout.cu``) steps each env through all T steps on a
+group of ``ROLLOUT_LANES`` lanes of one warp (one an agent), with the env
+state in registers — observations, the actor as its (4, obs) affine
+operator, the action (a Gaussian sample, or the policy mean with
 ``deterministic_actions``), dynamics, rewards and the auto-reset — and
 writes only the (T, P) rewards and the final state: no training buffer and
 no episode counters.  Its step is the collect kernel's
@@ -39,6 +40,7 @@ from marlnav_tpu_torch.ops.fused_collect import (  # noqa: F401
     _KernelParams,
     _Rows,
     env_state_to_rows,
+    launch_geometry,
     roll_rows,
     rows_to_env_arrays,
     rows_to_env_state,
@@ -61,6 +63,11 @@ def rollout_rows_reference(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     return final, torch.stack(rewards)
 
 
+# Lanes of one warp that step one env together (kLanes in
+# ops/csrc/fused_rollout.cu; the wrapper checks the library's).
+ROLLOUT_LANES = 4
+
+
 def _library():
     from marlnav_tpu_torch.ops._build import load_library
 
@@ -69,15 +76,19 @@ def _library():
     # passed as a 32-bit int and cuts the pointer.
     ptr = ctypes.c_void_p
     fn = lib.marlnav_fused_rollout
-    fn.argtypes = [ptr] * 4 + [ctypes.c_uint32, ptr, ctypes.c_int, ptr,
-                               ctypes.c_int, ptr]
+    fn.argtypes = [ptr] * 4 + [ctypes.c_uint32, ptr, ctypes.c_int, ptr] \
+        + [ctypes.c_int] * 3 + [ptr]
     fn.restype = ctypes.c_int
     for getter in (lib.marlnav_rollout_params_size,
-                   lib.marlnav_rollout_max_obstacles):
+                   lib.marlnav_rollout_max_obstacles,
+                   lib.marlnav_rollout_lanes):
         getter.argtypes, getter.restype = [], ctypes.c_int
     if lib.marlnav_rollout_params_size() != ctypes.sizeof(_KernelParams):
         raise RuntimeError("StepParams layout differs between env_step.cuh "
                            "and _KernelParams")
+    if lib.marlnav_rollout_lanes() != ROLLOUT_LANES:
+        raise RuntimeError("kLanes of fused_rollout.cu differs from "
+                           "ROLLOUT_LANES")
     return lib
 
 
@@ -113,13 +124,14 @@ def fused_rollout_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     out_rows = RowState(*(torch.empty_like(x) for x in rows.fields()))
     rewards = torch.empty((num_steps, num_envs), dtype=torch.float32,
                           device=device)
+    blocks, threads = launch_geometry(num_envs, ROLLOUT_LANES)
     err = lib.marlnav_fused_rollout(
         ctypes.byref(_Rows(*(x.data_ptr() for x in rows.fields()))),
         ctypes.byref(_Rows(*(x.data_ptr() for x in out_rows.fields()))),
         weights.data_ptr(), None if noise is None else noise.data_ptr(),
         ctypes.c_uint32(seed & 0xFFFFFFFF),
         ctypes.byref(_kernel_params(sm, num_envs, num_steps)),
-        int(deterministic), rewards.data_ptr(),
+        int(deterministic), rewards.data_ptr(), blocks, threads,
         device.index if device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(device).cuda_stream)

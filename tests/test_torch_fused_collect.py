@@ -23,6 +23,9 @@ this plain version on the card (``test_kernel_matches_plain_on_card``
 does the same under pytest where a card is present).
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -258,15 +261,69 @@ def test_cpu_routing_runs_plain_version_and_launches_nothing():
                               a_comp, c_comp, 9, t)
 
 
+# Intrinsics that compute something other than the IEEE float32 operation
+# the plain version performs (approximate or fused), and the flag that
+# turns them on everywhere.
+_FAST_MATH = re.compile(
+    r"\b(__fdividef|__expf|__exp10f|__logf|__log2f|__log10f|__sinf|__cosf"
+    r"|__sincosf|__tanf|__powf|__fmaf_\w+|fmaf)\s*\(")
+_STEP_SOURCES = ("step_math.cuh", "env_step.cuh", "fused_collect.cu",
+                 "fused_rollout.cu")
+
+
+def test_step_sources_keep_plain_arithmetic():
+    """The env-step kernels equal their plain versions bit for bit only if
+    every float operation rounds as PyTorch's does: the build keeps
+    -fmad=false and no --use_fast_math, and the step sources call no
+    fast-math intrinsic and no explicit fused multiply-add."""
+    from marlnav_tpu_torch.ops import _build
+
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "-fmad=false" in _build.NVCC_FLAGS, flags
+    assert "fast_math" not in flags and "fast-math" not in flags, flags
+    for name in _STEP_SOURCES:
+        with open(os.path.join(_build.CSRC, name)) as fh:
+            code = re.sub(r"//[^\n]*", "", fh.read())
+        assert not _FAST_MATH.findall(code), (name, _FAST_MATH.findall(code))
+    # the pattern does catch what it must
+    assert _FAST_MATH.findall("y = __expf(x) + __fmaf_rn(a, b, c);")
+
+
+@pytest.mark.parametrize("kernel", ["collect", "rollout"])
+@pytest.mark.parametrize("num_envs", [1, 7, 1000, 1024, 16384])
+def test_launch_geometry_gives_each_env_one_group_in_one_warp(kernel,
+                                                              num_envs):
+    """The rollout kernels' grid (fc.launch_geometry) steps env p on threads
+    G p .. G p + G - 1 (env = thread // G, G the kernel's lanes an env):
+    every env gets exactly one group of G lanes, the groups past P are
+    fewer than a block's, and no group crosses a warp or a block."""
+    from marlnav_tpu_torch.ops import fused_rollout as fr
+
+    lanes = {"collect": fc.COLLECT_LANES, "rollout": fr.ROLLOUT_LANES}[kernel]
+    blocks, threads = fc.launch_geometry(num_envs, lanes)
+    assert 32 % lanes == 0 and threads % 32 == 0
+    assert threads <= 256  # kMaxBlockThreads in ops/csrc/env_step.cuh
+    tid = np.arange(blocks * threads)
+    env = tid // lanes
+    counts = np.bincount(env[env < num_envs], minlength=num_envs)
+    assert counts.shape == (num_envs,) and (counts == lanes).all()
+    assert (env >= num_envs).sum() < threads
+    # each group's lanes share one warp
+    for group_first in range(0, blocks * threads, lanes):
+        assert group_first // 32 == (group_first + lanes - 1) // 32
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("num_envs", [2048, 1000])
+def test_kernel_matches_plain_on_card(num_envs):
     """The CUDA kernel against its plain version on the same uniforms (the
-    check chip_smoke.py runs): both perform the same float32 operations in
-    the same order, so every output matches exactly."""
+    check chip_smoke.py runs), at a ragged env count too: both perform the
+    same float32 operations in the same order, so every output matches
+    exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dev = torch.device("cuda")
-    t, p = 32, 2048
+    t, p = 32, num_envs
     ep = EnvParams(num_parallel=p, episode_len=10)
     ic = TriangleInitConfig(num_parallel=p, noisy_ags=True)
     sm = t_step_math.StepMath(ep, ic, NormalizerConfig(), ScalerConfig())
@@ -281,6 +338,7 @@ def test_kernel_matches_plain_on_card():
     out = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, t, noise)
     ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
     torch.cuda.synchronize()
+    assert out.done.any()  # premise: resets fired
     for name in ("obs", "actions", "log_probs", "rewards", "done", "stats"):
         assert torch.equal(getattr(out, name), getattr(ref, name)), name
     for x, y in zip(out.rows.fields(), ref.rows.fields()):

@@ -220,15 +220,16 @@ def test_bench_on_the_cpu(capsys, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("num_envs", [2048, 1000])
+def test_kernel_matches_plain_on_card(num_envs):
     """The CUDA kernel against its plain version on the same uniforms in
     both modes, and the sampled kernel against the collect kernel from the
-    same seed (the checks chip_smoke.py runs): every output matches
-    exactly."""
+    same seed (the checks chip_smoke.py runs), at a ragged env count too:
+    every output matches exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dev = torch.device("cuda")
-    t, p = 32, 2048
+    t, p = 32, num_envs
     ep = EnvParams(num_parallel=p, episode_len=10)
     ic = TriangleInitConfig(num_parallel=p, noisy_ags=True)
     sm = StepMath(ep, ic, NormalizerConfig(), ScalerConfig())
