@@ -16,17 +16,21 @@ update route (full batch; -bs 250 with the affine and with the
 un-collapsed actor) and on the autograd one, runs
 one repeat with sliced minibatches and one more with
 ``MARLNAV_ACTOR_LAYOUT=packed`` (the un-collapsed actor gradient's path),
-holds the critic-gradient kernel against float64 also at a ragged row
-count and at a narrow and the widest width it takes, counts the
-tensor-core (HMMA) instructions in its SASS, holds the rollout kernel
+holds the gradient kernels against float64 also at a ragged row count and
+at the wide widths the JAX package trains (-no 8, -hs 128, 4 agents with 8
+obstacles) with each output's error printed, counts the tensor-core (HMMA)
+instructions in the SASS of every instance of the critic's and the
+un-collapsed actor's shared kernel body, holds the rollout kernel
 against its plain version (at every timed shape, the bench's included)
 and against the collect kernel, runs the
 bench (``python -m marlnav_tpu_torch.bench
---plain`` at 16384 envs x 500 steps, the rollout kernel's path), and
-times every kernel.  Each path's launch counts are set to 0 just before
-it and read just after.  Every phase prints as it goes; any failure exits
-non-zero.  The last three lines are the kernels' JSON object, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  It exits
+--plain`` at 16384 envs x 500 steps, the rollout kernel's path), trains
+2 short repeats with ``--fused-collect --fused-updates`` at ``-no 8`` and
+at ``-hs 128`` on both actor routes, and times every kernel.  Each path's
+launch counts are set to 0 just before it and read just after.  Every
+phase prints as it goes; any failure exits non-zero.  The last three
+lines are the kernels' JSON object, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  It exits
 non-zero, printing no result, where CUDA is unavailable.  The training
 artifacts and a JSON record of the run go to ``--out`` (default: a
 temporary directory, removed at exit).
@@ -178,14 +182,16 @@ def timed(fn, reps=3):
 
 
 def hmma_counts(sass):
-    """{(KS, NT): HMMA instructions} of each critic_grad_kernel instance
-    in ``cuobjdump -sass`` output."""
+    """{(head, KS, NT): HMMA instructions} of each instance of
+    tc_grad_kernel<CriticHead<NT> or ActorHead<NT>, KS> in ``cuobjdump
+    -sass`` output."""
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"critic_grad_kernelILi(\d+)ELi(\d+)E",
-                          line)
-            key = tuple(int(x) for x in m.groups()) if m else None
+            m = re.search(r"tc_grad_kernelI\w*?(Critic|Actor)HeadILi(\d+)E"
+                          r"EELi(\d+)E", line)
+            key = ((m.group(1).lower(), int(m.group(3)), int(m.group(2)))
+                   if m else None)
             if key:
                 counts[key] = 0
         elif key and "HMMA" in line:
@@ -273,23 +279,28 @@ def main(out_dir):
     record["build_s"] = time.perf_counter() - t0
     print(f"all {len(builds)} libraries built in parallel: "
           f"{record['build_s']:.1f} s")
+    record["ptxas"] = {}
     for name, (_, build) in builds.items():
         print(f"{name}: {build['seconds']:.1f} s -> {build['path']}")
-        print("\n".join(ptxas_summary(build["log"])))
-    # The critic kernel's products on the tensor cores: HMMA instructions in
-    # each instance's SASS; its loop body holds 3 (KS NT + 2 MT NT).
+        record["ptxas"][name] = ptxas_summary(build["log"])
+        print("\n".join(record["ptxas"][name]))
+    # The products of the critic and the un-collapsed actor on the tensor
+    # cores: HMMA instructions in the SASS of every instance of their
+    # shared body; its forward holds 3 KS NT a chunk.
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(os.path.realpath(find_nvcc())), "cuobjdump")
     if os.path.exists(cuobjdump):
         hmma = hmma_counts(subprocess.run(
             [cuobjdump, "-sass", builds["fused_update"][1]["path"]],
             capture_output=True, text=True, check=True).stdout)
-        for (ks, nt), count in sorted(hmma.items()):
-            print(f"critic_grad_kernel<KS={ks}, NT={nt}>: {count} "
-                  f"HMMA in its SASS (loop body: "
-                  f"{3 * (ks * nt + 2 * ((ks + 1) // 2) * nt)})")
-        assert hmma and all(c > 0 for c in hmma.values()), hmma
-        record["critic_hmma"] = {f"{k}": c for k, c in hmma.items()}
+        for (head, ks, nt), count in sorted(hmma.items()):
+            print(f"tc_grad_kernel<{head.capitalize()}Head<NT={nt}>, KS={ks}>"
+                  f": {count} HMMA in its SASS (forward: {3 * ks * nt}); "
+                  + instance_line(builds["fused_update"][1]["log"],
+                                  f"{head.capitalize()}HeadILi{nt}EEELi{ks}E"))
+        assert {h for h, _, _ in hmma} == {"critic", "actor"}, hmma
+        assert all(c > 0 for c in hmma.values()), hmma
+        record["tc_hmma"] = {f"{k}": c for k, c in hmma.items()}
     else:
         print("cuobjdump not found: HMMA count not measured")
 
@@ -659,6 +670,12 @@ def main(out_dir):
 
     actor_fns = {"fused_actor_grad": actor_inputs,
                  "fused_actor_grad_uncollapsed": uncollapsed_inputs}
+    # The outputs of each kernel, in order.
+    outputs = {"fused_actor_grad": ("loss", "dz", "dzs"),
+               "fused_critic_grad": ("loss", "dW1", "db1", "dW2", "db2"),
+               "fused_actor_grad_uncollapsed": (
+                   "loss", "dW1", "db1", "dWmu", "dbmu", "dWvar", "dbvar")}
+    record["output_errors"] = {}
 
     def check(name, label, args):
         kernel, plain = fns[name]
@@ -670,22 +687,33 @@ def main(out_dir):
         assert all(torch.equal(a, b) for a, b in zip(k1, k2)), \
             f"{name} {label}: two launches differ"
         err_k = err_p = 0.0
-        for k, q, w in zip(k1, p32, p64):
+        per_output = {}
+        for out_name, k, q, w in zip(outputs[name], k1, p32, p64):
             w = w / n
             ek = (k.double() / n - w).abs().max().item()
             ep = (q.double() / n - w).abs().max().item()
             tol = 1e-4 * w.abs().max().item() + 1e-7
-            assert ek <= tol, f"{name} {label}: error {ek} > {tol}"
             err_k, err_p = max(err_k, ek), max(err_p, ep)
+            per_output[out_name] = (ek, ep, tol)
         print(f"{name} {label}: {n:,} rows; max abs err against float64: "
               f"kernel {err_k:.3e}, plain float32 {err_p:.3e}; two launches "
               f"bitwise equal")
+        if name in TENSOR_CORE_WORK:
+            # Which output carries the tensor-core kernels' error.
+            print("  per output, kernel / plain float32: " + ", ".join(
+                f"{o} {ek:.2e} / {ep:.2e} ({ek / ep if ep else math.inf:.1f}x)"
+                for o, (ek, ep, _) in per_output.items()))
+            record["output_errors"][f"{name} {label}"] = per_output
+        for o, (ek, ep, tol) in per_output.items():
+            assert ek <= tol, (f"{name} {label} {o}: error {ek} > {tol} "
+                               f"(plain float32 {ep})")
         errors[name] = max(errors.get(name, 0.0), err_k)
 
-    def work(name, n, mcfg):
-        """The bytes and float operations of ``name`` on ``n`` rows."""
-        f, h = mcfg.obs_size, mcfg.hidden_size
-        n_in = mcfg.num_agents * f
+    def work(name, n, mcfg, widths=None):
+        """The bytes and float operations of ``name`` on ``n`` rows, at the
+        widths (F, H, In) of ``mcfg`` unless given."""
+        f, h, n_in = widths or (mcfg.obs_size, mcfg.hidden_size,
+                                mcfg.num_agents * mcfg.obs_size)
         n_par = h * n_in + 2 * h + 1
         return {
             "fused_actor_grad": (
@@ -699,13 +727,13 @@ def main(out_dir):
                 n * (4 * f + 16) + 4 * (2 * (h * f + 5 * h + 4) + 1),
                 n * uncollapsed_ops_per_row(f, h))}[name]
 
-    def time_kernels(key, label, inputs, mcfg):
+    def time_kernels(key, label, inputs, mcfg, widths=None):
         """Each kernel and its plain version on ``inputs``, against the
         bound, kept in ``times`` under ``key``."""
         for name, args in inputs.items():
             kernel, plain = fns[name]
             n = args[rows_arg[name]].shape[0]
-            nbytes, ops = work(name, n, mcfg)
+            nbytes, ops = work(name, n, mcfg, widths)
             k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -777,6 +805,9 @@ def main(out_dir):
             check("fused_critic_grad", "ragged 100,003 rows", tuple(
                 x[:100_003] if i in (4, 5, 6) else x
                 for i, x in enumerate(inputs["fused_critic_grad"])))
+            check("fused_actor_grad_uncollapsed", "ragged 100,003 rows",
+                  tuple(x[:100_003] if i in (6, 7, 8, 9) else x for i, x in
+                        enumerate(inputs["fused_actor_grad_uncollapsed"])))
 
         time_kernels((p, t), f"P={p} T={t}", inputs, mcfg)
         if slice_inputs is not None:
@@ -784,25 +815,59 @@ def main(out_dir):
             time_kernels((p, 250), f"P={p} -bs 250 slice 0", slice_inputs,
                          mcfg)
 
-    # The critic kernel at a narrow width (2 agents, hidden 32: In 20) and
-    # at the widest it takes (In 63 = 3 x 21, whose rows load 4 bytes a
-    # copy, and hidden 64), on random rows: old values spread around the
-    # new ones, returns apart from both.
+    # Other widths, on 200,003 random rows through freshly initialised
+    # networks: a narrow critic (2 agents, hidden 32: In 20), the widths of
+    # -no 8 (obs 22: critic In 66), -hs 128, 4 agents with 8 obstacles (In
+    # 96) and the widest each kernel takes (critic In 103 = 1 x 103; In 66
+    # and 103 load their rows 4 bytes a copy).  Critic: old values spread
+    # around the new ones, returns apart from both.  Actors: behaviour
+    # log-probs the network's own plus noise (sd 0.1), so the ratios spread
+    # over the clip band as in training.
     lib = fu._library()
-    widest = (lib.marlnav_critic_max_in(), lib.marlnav_critic_max_hidden())
-    for agents, f, h in ((2, EnvParams(num_agents=2).obs_size, 32),
-                         (3, widest[0] // 3, widest[1])):
-        gen = make_generator(20 + agents, dev)
-        critic = Critic(f, agents, h,
-                        generator=torch.Generator().manual_seed(h)).to(dev)
-        n = 200_003
-        obs = torch.randn((n, agents * f), device=dev, generator=gen)
-        vold = 0.1 * torch.randn(n, device=dev, generator=gen)
-        ret = torch.randn(n, device=dev, generator=gen)
-        check("fused_critic_grad", f"In {agents * f}, H {h}",
-              (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
-               critic.fc2.weight.detach(), critic.fc2.bias.detach(), obs,
-               vold, ret, 0.2))
+    max_h = lib.marlnav_max_hidden()
+    n = 200_003
+    wide = {"fused_critic_grad": [
+                (2, EnvParams(num_agents=2).obs_size, 32), (3, 22, 50),
+                (3, 12, 128), (4, 24, 128),
+                (1, lib.marlnav_critic_max_in(), max_h)],
+            "fused_actor_grad_uncollapsed": [
+                (1, 22, 50), (1, 22, 128), (1, 32, 128),
+                (1, lib.marlnav_uncollapsed_max_obs(), max_h)],
+            "fused_actor_grad": [(1, 22, 50), (1, 32, 50)]}
+    for name, cases in wide.items():
+        for agents, f, h in cases:
+            gen = make_generator(20 + f + h, dev)
+            net_gen = torch.Generator().manual_seed(h)
+            x = torch.randn((n, agents * f), device=dev, generator=gen)
+            if name == "fused_critic_grad":
+                critic = Critic(f, agents, h, generator=net_gen).to(dev)
+                label = f"In {agents * f}, H {h}"
+                args = (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
+                        critic.fc2.weight.detach(), critic.fc2.bias.detach(),
+                        x, 0.1 * torch.randn(n, device=dev, generator=gen),
+                        torch.randn(n, device=dev, generator=gen), 0.2)
+            else:
+                actor = Actor(f, h, generator=net_gen).to(dev)
+                label = f"F {f}" + (f", H {h}" if name != "fused_actor_grad"
+                                    else "")
+                act = torch.rand((n, 2), device=dev, generator=gen) * 2 - 1
+                with torch.no_grad():
+                    hid = actor.fc1(x)
+                    var = torch.nn.functional.softplus(actor.fc_var(hid))
+                    lp = -0.5 * (2.0 * math.log(2.0 * math.pi)
+                                 + torch.log(var).sum(1)
+                                 + ((act - torch.tanh(actor.fc_mu(hid))) ** 2
+                                    / var).sum(1))
+                rows = (x, act,
+                        lp + 0.1 * torch.randn(n, device=dev, generator=gen),
+                        torch.randn(n, device=dev, generator=gen), 0.2, 0.001)
+                weights = (fc._affine_compose(actor) if name ==
+                           "fused_actor_grad" else
+                           tuple(p_.detach() for p_ in actor.parameters()))
+                args = (*weights, *rows)
+            check(name, label, args)
+            time_kernels(label, label, {name: args}, None,
+                         (f, h, agents * f))
 
     # ------------------------------------------------------------------
     phase("7. rollout kernel against its plain version and the collect "
@@ -921,7 +986,57 @@ def main(out_dir):
     assert all(math.isfinite(v) for v in result["mean_rewards"].values())
     record["bench"] = result
 
-    record["times"] = {name: {f"{p}x{t}": v for (p, t), v in by.items()}
+    # ------------------------------------------------------------------
+    phase("9. training at wide widths: -no 8 and -hs 128, 2 repeats, "
+          "--fused-collect --fused-updates, both actor routes")
+    # Widths the JAX package trains.  P=256 x buffer 100, 5 + 5 epochs: the
+    # affine actor at full batch and the un-collapsed one
+    # (MARLNAV_ACTOR_LAYOUT=packed) at -bs 50 (2 slices).
+    record["wide_training"] = {}
+    epochs, wp, wt = 5, 256, 100
+    for extra in (["-no", "8"], ["-hs", "128"]):
+        for layout, bs in ((None, wt), ("packed", wt // 2)):
+            wcfg = resolve_run_config(build_parser().parse_args(
+                ["-np", str(wp), "-bl", str(wt), "-bs", str(bs), "-ne",
+                 str(epochs), "-nt", str(2 * wp * wt), "-se", "0",
+                 "--output-root", out_dir, "--fused-updates"] + extra))
+            if layout:
+                os.environ["MARLNAV_ACTOR_LAYOUT"] = layout
+            try:
+                reset_counts()
+                _, _, wlog = train(wcfg, device="cuda", fused_collect=True,
+                                   output_root=out_dir, verbose=False)
+                torch.cuda.synchronize()
+                wide_launches = read_counts()
+            finally:
+                os.environ.pop("MARLNAV_ACTOR_LAYOUT", None)
+            grads = 2 * epochs * (wt // bs)
+            actor_kernel = ("fused_actor_grad_uncollapsed" if layout
+                            else "fused_actor_grad")
+            label = (f"{' '.join(extra)}, "
+                     f"{'un-collapsed' if layout else 'affine'} actor, "
+                     f"-bs {bs}")
+            logs = wlog.logs
+            print(f"{label}: obs {wcfg.model.obs_size}, critic input "
+                  f"{wcfg.model.num_agents * wcfg.model.obs_size}, hidden "
+                  f"{wcfg.model.hidden_size}; kernel launches "
+                  f"{wide_launches}; mean_rew {logs['mean_rews']}; last "
+                  f"losses actor {logs['actor'][-1]:.6f}, critic "
+                  f"{logs['critic'][-1]:.6f}")
+            assert wide_launches == expect(
+                fused_collect=2, fused_critic_grad=grads,
+                **{actor_kernel: grads}), (label, wide_launches)
+            assert len(logs["mean_rews"]) == 2
+            for key in ("mean_rews", "actor", "critic"):
+                assert all(math.isfinite(v) for v in logs[key]), (label, key)
+            record["wide_training"][label] = {
+                "launches": wide_launches, "mean_rews": logs["mean_rews"]}
+
+    def shape_key(key):
+        """(P, T) as "PxT"; other shapes by their label."""
+        return f"{key[0]}x{key[1]}" if isinstance(key, tuple) else key
+
+    record["times"] = {name: {shape_key(k): v for k, v in by.items()}
                        for name, by in times.items()}
     record["max_abs_err"] = errors
     record["launches"] = path_launches
@@ -936,10 +1051,10 @@ def main(out_dir):
                 "ms": main_["ms"], "plain_ms": main_["plain_ms"],
                 "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
                 "library_ms": None,
-                "by_shape": {f"{p}x{t}": {k: v[k] for k in
-                                          ("ms", "plain_ms", "bound_ms",
-                                           "fp32_bound_ms") if k in v}
-                             for (p, t), v in times[name].items()}}
+                "by_shape": {shape_key(key): {k: v[k] for k in
+                                              ("ms", "plain_ms", "bound_ms",
+                                               "fp32_bound_ms") if k in v}
+                             for key, v in times[name].items()}}
 
     print(json.dumps({"kernels": [entry(name) for name in KERNELS]}))
     print(card)

@@ -7,14 +7,15 @@
 //                          (pallas_call :226, the full-batch route) and
 //                          fused_update.py:706 _make_actor_grad_affine
 //                          (pallas_call :758, staged, sliced minibatches);
-//   critic_grad_kernel  <- fused_update_tiled.py:265 make_tiled_critic_grad
+//   tc_grad_kernel<CriticHead>
+//                       <- fused_update_tiled.py:265 make_tiled_critic_grad
 //                          (pallas_call :347) and fused_update.py:787
 //                          make_fused_critic_grad (pallas_call :844);
-//   actor_grad_uncollapsed_kernel
+//   tc_grad_kernel<ActorHead>
 //                       <- fused_update.py:436 make_fused_actor_grad, the
 //                          "packed" layout (pallas_call :509), and :553
 //                          _make_actor_grad_undilated (pallas_call :618):
-//                          the actor through the 12 -> 50 -> 2+2 network
+//                          the actor through the F -> H -> 2+2 network
 //                          itself (MARLNAV_ACTOR_LAYOUT=packed|undilated).
 // The layouts were the TPU's concern; the kernels read a time slice of the
 // canonical Buffer as flat rows (actor (t, p, a) rows of obs (N, F); critic
@@ -33,61 +34,67 @@
 // card's SM count, so two launches on the same input agree bit for bit.
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32 without tensor
-// cores), default configuration (F = 12, A*F = 36, H = 50), faithful full
-// batch: 999 x 1024 x 3 = 3,068,928 actor rows, 1,022,976 critic rows.
+// cores, 495 TFLOP/s TF32 on them), default configuration (F = 12, A*F =
+// 36, H = 50), faithful full batch: 999 x 1024 x 3 = 3,068,928 actor rows,
+// 1,022,976 critic rows.
 //   actor:  64 B a row (obs 48, action 8, log-prob 4, advantage 4)
 //           = 196 MB -> 58.6 us; ~292 float operations a row (0.9 GFLOP,
 //           13 us).  Bytes bound it.  Design: one thread per row in a
 //           grid-stride loop over 4 blocks an SM, the 4 x F + 4 operator in
 //           shared memory, the 4F + 5 sums in registers, coalesced float2
 //           loads; one warp-shuffle + shared-memory reduction a block.
+//           Instances: even F = 2 .. 32.
 //   critic: 152 B a row (obs 144, old value, return) = 155.5 MB -> 46.4 us;
 //           4*In*H + 10*H + 30 operations a row (7,730: two 36 x 50
-//           products, W1 x forward and g_pre x^T backward, and the chain)
-//           = 7.9 GFLOP: 16.0 us on the tensor cores in TF32 (495 TFLOP/s
-//           dense), 118 us on the CUDA cores (67 TFLOP/s).  With the
-//           products on the tensor cores the bytes bound it.  The three
-//           TF32 passes and the padding (In + 1 = 37 -> 40 and 48, H = 50
-//           -> 56) make 30 GFLOP of tensor-core work, 61 us at that peak,
-//           and the per-row chain stays on the CUDA cores: what the design
-//           keeps busy is the tensor cores, not the memory.
-//           Design (critic_grad_kernel): each warp takes 16 rows at a time,
-//           on its own, with no block barrier in its loop.
-//           - Loads: the rows' obs (contiguous, 16-byte cp.async a thread),
-//             old values and returns go into the warp's double buffer in
-//             shared memory while the rows before them are computed.
-//           - Forward: pre = [x | 1] [W1^T ; b1] (the bias as a ones
-//             column, K padded to 8 KS) by mma.sync m16n8k8 in 3xTF32
-//             (mma_tf32.cuh), with W1 and b1 split into their TF32 halves
-//             once a block, in fragment order in shared memory.
-//           - Per row, in the accumulator fragments (a row's columns sit on
-//             one quad of 4 lanes): ReLU, v = w2 . h + b2 by fixed-order
-//             partial sums and two shuffles, critic_row, then g_pre =
-//             (w2 g_v) (h > 0) and the dW2 sums; padding rows get g_v = 0.
-//           - Backward: [x | 1]^T g_pre gives dW1^T and db1 in one product
-//             (M = In + 1 padded to 16 MT, N = H padded to 8 NT, K = the
-//             rows), its accumulators in registers across every row the
-//             warp visits; g_pre reaches the B layout through a 16-row
-//             tile in shared memory, x^T is read from the row buffer.
-//           - A persistent grid of one block an SM; the block's warps sum
-//             their accumulators in a fixed order into one partial.
-//           Widths are template instances on the padded sizes (In <= 63,
-//           H <= 64; critic_instance).  mma.sync, not wgmma: see
-//           mma_tf32.cuh.
+//           products and the chain) = 7.9 GFLOP: 16.0 us in TF32, 118 us
+//           on the CUDA cores.  The bytes bound it.
 //   un-collapsed actor: 64 B a row, as the actor = 196 MB -> 58.6 us;
-//           4*F*H + 25*H + 100 float operations a row (3,750: W1 x, the two
-//           heads, the PPO chain, g_h, the four sums) = 11.5 GFLOP: 23 us
-//           in TF32 on the tensor cores, 172 us on the CUDA cores.  Design:
-//           the shared-memory tiles of the critic kernel before it moved to
-//           the tensor cores, with the actor's chain; the H*F + 5H + 5 sums
-//           split over the block (H*F entries over all threads, 5 a hidden
-//           unit, 5 a tile row).  Its products run on the CUDA cores; the
-//           helpers of mma_tf32.cuh serve its redesign.
+//           4*F*H + 25*H + 100 operations a row (3,750: W1 x, the heads,
+//           the PPO chain, g_h and the sums) = 11.5 GFLOP: 23 us in TF32,
+//           172 us on the CUDA cores.  The bytes bound it.
+// Both run on one body, tc_grad_kernel<Head, KS>, whose two products run on
+// the tensor cores by mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh); the three
+// TF32 passes and the padding make the tensor cores, not the memory, what
+// the design keeps busy.
+//   - Rows: each warp takes 16 rows at a time (a chunk).  Their obs
+//     (16-byte cp.async a thread where In % 4 == 0, else 4-byte copies) and
+//     the head's per-row inputs go into the warp's double buffer in shared
+//     memory while the rows before them are computed.
+//   - Forward: pre = [x | 1] [W1^T ; b1] (the bias as a ones column, K
+//     padded to 8 KS); W1 and b1 sit in shared memory once a block in
+//     fragment order, split into their TF32 halves (or as floats, split at
+//     each load, where the halves do not fit beside 8 warps' buffers).
+//   - The head, per row in the accumulator fragments (a row's columns sit
+//     on one quad of 4 lanes; fixed-order partial sums and two xor
+//     shuffles give every lane of the quad the same sums):
+//       critic: ReLU, v = w2 . h + b2, critic_row, g_pre = (w2 g_v)(h > 0),
+//         and the dW2 and db2 sums in registers;
+//       actor: no activation (the reference's quirk), z = [Wmu; Wvar] h +
+//         [bmu; bvar] (4 outputs), ppo_row, g_h = [Wmu; Wvar]^T g_z; h and
+//         g_z go to shared memory for a third product, dWh = g_z^T h, and
+//         the head biases' sums stay in registers.
+//     Padding rows (past n_rows) get zero gradients.
+//   - Backward: [x | 1]^T g_pre (dW1^T, with db1 as its last row; M = In +
+//     1 padded to 16 MT, N = H padded to 8 NT, K = the rows), and for the
+//     actor g_z^T h as one more m-tile, accumulated across every chunk in
+//     registers.  Where a warp's registers hold every output tile (MT NT <=
+//     21: the default critic and actor), each warp runs on its own, with
+//     no block barrier, over its own rows, and the block's warps are summed
+//     in order at the end.  Past that the block's warps share their rows:
+//     each round every warp writes its chunk's g_pre, a block barrier, then
+//     each warp runs the backward of its own output tiles (a WM x WN grid
+//     of m- and n-tiles) over all the block's chunks, a block barrier
+//     before the buffers are refilled; at the end each warp writes its
+//     tiles straight to the block's partial.
+//   - A persistent grid of one block an SM (two for the actor's narrow
+//     instances, whose registers allow it).
+// Widths are template instances on padded sizes (critic In <= 103, H <=
+// 128; un-collapsed actor F <= 39, H <= 128; critic_instance and
+// actor_instance).  mma.sync, not wgmma: see mma_tf32.cuh.
 // Built with -fmad=false like the collect kernel (one flag set for the
 // port's libraries): every multiply and add rounds separately, as PyTorch's
-// elementwise operations do, at the price of the fused multiply-adds the
-// CUDA-core products would otherwise use.  The flag does not touch the
-// tensor cores' mma instructions.
+// elementwise operations do.  The flag does not touch the tensor cores'
+// mma instructions.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -100,15 +107,12 @@ namespace update {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;  // the wrapper sizes the grid with it
-constexpr int kMaxObs = 24;      // actor widths instantiated: even 2 .. 24
-constexpr int kTileRows = 64;    // rows staged a tile (un-collapsed actor)
-constexpr int kMaxHidden = 64;   // un-collapsed actor
-constexpr int kCriticMaxIn = 63;
-constexpr int kCriticMaxHidden = 64;
-// dW1 entries a thread of the un-collapsed actor kernel (H <= kMaxHidden,
-// F <= kMaxObs).
-constexpr int kMaxUncollapsedEntries =
-    (kMaxHidden * kMaxObs + kThreads - 1) / kThreads;
+constexpr int kMaxObs = 32;      // actor widths instantiated: even 2 .. 32
+constexpr int kCriticMaxIn = 103;
+constexpr int kUncollapsedMaxObs = 39;
+constexpr int kMaxHidden = 128;  // critic and un-collapsed actor
+// Shared memory a block may take on an H100 (227 KB), in floats.
+constexpr int kSmemFloats = 232448 / 4;
 constexpr float kLog2Pi2 = static_cast<float>(2.0 * 1.8378770664093453);
 constexpr float kEnt0 = static_cast<float>(1.0 + 1.8378770664093453);
 
@@ -262,63 +266,427 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct CriticArgs {
-  const float* obs;   // (N, In)
-  const float* vold;  // (N,) behaviour values
-  const float* ret;   // (N,)
-  const float* w1;    // (H, In)
-  const float* b1;    // (H,)
-  const float* w2;    // (1, H)
-  const float* b2;    // (1,)
+// ----------------------------------------------------------------------
+// The tensor-core body and its two heads
+// ----------------------------------------------------------------------
+
+struct GradArgs {
+  const float* obs;      // (N, In): rows of x
+  const float* w1;       // (H, In)
+  const float* b1;       // (H,)
+  const float* row[3];   // the head's per-row inputs
+  const float* head[4];  // the head's weights
   long long n_rows;
   int in_size, hidden;
-  float eps;
-  bool vec4;        // obs rows load in 16-byte copies (In % 4 == 0, aligned)
-  float* partials;  // (gridDim.x, 1 + H*In + 2H + 1)
+  bool vec4;       // obs rows load in 16-byte copies (In % 4 == 0, aligned)
+  float eps;       // critic: the value clip
+  PpoConsts k;     // actor: the PPO constants
+  float* partials;  // (gridDim.x, n_out)
 };
 
-// The instances of critic_grad_kernel: KS k-steps of 8 over [x | 1] (In + 1
-// <= 8 KS), NT n-tiles of 8 over the hidden units (H <= 8 NT).  False
-// outside the range the instances cover.
-inline bool critic_instance(int in, int hid, int* ks, int* nt) {
-  if (in < 1 || in > kCriticMaxIn || hid < 1 || hid > kCriticMaxHidden)
-    return false;
-  const int k = (in + 8) / 8, n = (hid + 7) / 8;
-  *ks = k <= 3 ? 3 : k <= 5 ? 5 : k <= 6 ? 6 : 8;
-  *nt = n <= 4 ? 4 : n <= 7 ? 7 : 8;
-  return true;
+// Copy 16 floats of a per-row input (rows r0 .. r0 + rows - 1) from the
+// lanes lo .. lo + 15.
+__device__ __forceinline__ void prefetch_column(const float* src, long long r0,
+                                                int rows, float* dst, int lane,
+                                                int lo) {
+  const int r = lane - lo;
+  if (r >= 0 && r < 16 && r < rows) mma::cp_async4(dst + r, src + r0 + r);
 }
 
-// Warps a block, one block an SM.  With 8 a thread may hold 255 registers:
-// the default instance takes 211 without spilling.  12 warps cap it at 168,
-// where it spilled and ran 9% slower on an H100 (0.239 against 0.218 ms at
-// 1,022,976 rows).
-constexpr int kCriticWarps = 8;
+// The critic's head: In -> H ReLU -> 1, the clipped-value loss.
+//   row:  old values (N,), returns (N,);
+//   head: w2 (1, H), b2 (1,);
+//   out:  loss_sum, dW1 (H, In), db1 (H), dW2 (H), db2.
+template <int NT>
+struct CriticHead {
+  static constexpr int kNt = NT;
+  static constexpr int kAux = 2;    // floats a row: old value, return
+  static constexpr int kThird = 0;  // dW2 stays in registers
+  static constexpr int kParamFloats = NT * 8;  // w2, zero-padded
+  static __host__ __device__ int n_out(int in, int hid) {
+    return 1 + hid * in + 2 * hid + 1;
+  }
+  // Per-warp sums besides the tiles: loss, dW2 (H), db2.
+  static __host__ __device__ int n_small(int hid) { return hid + 2; }
+  static __device__ int small_index(int k, int in, int hid) {
+    return k == 0 ? 0 : 1 + hid * in + hid + (k - 1);
+  }
+  // Output of element (m, j) of the backward product: dW1 (j, m), db1 (j)
+  // in row In; -1 in the padding.
+  static __device__ int tile_index(int m, int j, int in, int hid, int) {
+    if (j >= hid || m > in) return -1;
+    return m < in ? 1 + j * in + m : 1 + hid * in + j;
+  }
 
-// Shared memory of one instance, in floats.  The row buffer's stride LDX
-// (= 4 mod 8) keeps the forward A loads free of bank conflicts (the
-// transposed backward loads have 2-way ones); g_pre's LDG (= 8 or 24 mod
-// 32) keeps the backward B loads free of them.
-template <int KS, int NT>
-struct CriticShape {
-  static constexpr int kMt = (KS + 1) / 2;  // backward m-tiles over [x | 1]
-  static constexpr int kLdx = kMt * 16 + 4;
-  static constexpr int kLdg = NT * 8 % 16 == 0 ? NT * 8 + 8 : NT * 8;
-  // a warp: rows (2, 16, LDX), g_pre (16, LDG), old values and returns (2,
-  // 32)
-  static constexpr int kWarpFloats = 2 * 16 * kLdx + 16 * kLdg + 2 * 32;
-  static constexpr int kFragFloats = KS * NT * 32 * 4;  // W1 | b1, split
-  static constexpr int kMainFloats =
-      kFragFloats + NT * 8 + kCriticWarps * kWarpFloats;
+  float acc_w2[NT][2];  // dW2, columns 8 nt + 2t, + 1, over this lane's rows
+  float acc_loss, acc_b2;  // lanes t == 0: rows g and g + 8
+  float b2, eps;
+
+  __device__ void init(const GradArgs& a, float* s_par, int tid,
+                       int threads) {
+    for (int j = tid; j < NT * 8; j += threads)
+      s_par[j] = j < a.hidden ? a.head[0][j] : 0.f;
+    b2 = a.head[1][0];
+    eps = a.eps;
+    acc_loss = acc_b2 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc_w2[nt][0] = acc_w2[nt][1] = 0.f;
+  }
+
+  // Old values into aux[0 .. 15], returns into aux[16 .. 31].
+  static __device__ void prefetch(const GradArgs& a, long long r0, int rows,
+                                  float* aux, int lane) {
+    prefetch_column(a.row[0], r0, rows, aux, lane, 0);
+    prefetch_column(a.row[1], r0, rows, aux + 16, lane, 16);
+  }
+
+  // The 16 rows of a chunk from their pre-activations c (the fragments of
+  // rows g and g + 8): h = relu(pre) in place, the loss chain, g_pre into
+  // s_g (16, LDG); rows from row0 on are valid below n.
+  template <int LDG>
+  __device__ void rows(float (&c)[NT][4], const float* s_par, const float* aux,
+                       long long row0, long long n, int g, int t, float* s_g,
+                       float*, float*) {
+    float p[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 w =
+          *reinterpret_cast<const float2*>(s_par + nt * 8 + 2 * t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nt][i] = fmaxf(c[nt][i], 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[h] = p[h] + w.x * c[nt][2 * h];
+        p[h] = p[h] + w.y * c[nt][2 * h + 1];
+      }
+    }
+    float gv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 1);
+      p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 2);
+      const int row = g + 8 * h;
+      float loss;
+      const float gvr = critic_row(p[h] + b2, aux[row], aux[16 + row], &loss);
+      const bool valid = row0 + row < n;
+      gv[h] = valid ? gvr : 0.f;
+      if (valid && t == 0) {
+        acc_loss += loss;
+        acc_b2 += gvr;
+      }
+    }
+    // g_pre = (w2 g_v) (h > 0) into the warp's tile; dW2 += g_v h.
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 w =
+          *reinterpret_cast<const float2*>(s_par + nt * 8 + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float h0 = c[nt][2 * h], h1 = c[nt][2 * h + 1];
+        *reinterpret_cast<float2*>(s_g + (g + 8 * h) * LDG + nt * 8 + 2 * t) =
+            make_float2((w.x * gv[h]) * flag(h0 > 0.f),
+                        (w.y * gv[h]) * flag(h1 > 0.f));
+        acc_w2[nt][0] += gv[h] * h0;
+        acc_w2[nt][1] += gv[h] * h1;
+      }
+    }
+  }
+
+  // One row of update_math.critic_chain; returns g_v, the loss term in
+  // *loss.
+  __device__ float critic_row(float v, float vold, float ret,
+                              float* loss) const {
+    const float lo = vold - eps, hi = vold + eps;
+    const float clamped = fminf(fmaxf(v, lo), hi);
+    const float e1 = v - ret;
+    const float e2 = clamped - ret;
+    const float d1 = e1 * e1;
+    const float d2 = e2 * e2;
+    *loss = fmaxf(d1, d2);
+    const float w_d2 = flag(d1 < d2) + 0.5f * flag(d1 == d2);
+    const float w_d1 = 1.f - w_d2;
+    return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
+  }
+
+  // This warp's loss, dW2 and db2 sums into dst, at small index k, or at
+  // its output index where `full`.
+  __device__ void store_small(float* dst, bool full, int in, int hid, int g,
+                              int t, int lane) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = acc_w2[nt][e];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        const int j = nt * 8 + 2 * t + e;
+        if (g == 0 && j < hid)
+          dst[full ? small_index(1 + j, in, hid) : 1 + j] = s;
+      }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      acc_loss += __shfl_xor_sync(0xffffffffu, acc_loss, off);
+      acc_b2 += __shfl_xor_sync(0xffffffffu, acc_b2, off);
+    }
+    if (lane == 0) {
+      dst[0] = acc_loss;
+      dst[full ? small_index(hid + 1, in, hid) : hid + 1] = acc_b2;
+    }
+  }
 };
 
+// The un-collapsed actor's head: F -> H (no activation) -> 2 + 2, the PPO
+// objective (update_math.actor_grad_sums_uncollapsed_reference).
+//   row:  actions (N, 2), behaviour log-probs (N,), advantages (N,);
+//   head: wmu (2, H), bmu (2,), wvar (2, H), bvar (2,);
+//   out:  loss_sum, dW1 (H, F), db1 (H), dWmu (2, H), dbmu (2), dWvar
+//         (2, H), dbvar (2).
+template <int NT>
+struct ActorHead {
+  static constexpr int kNt = NT;
+  static constexpr int kAux = 4;    // floats a row: action (2), lp, adv
+  static constexpr int kThird = 1;  // dWmu, dWvar = g_z^T h, one m-tile
+  // [Wmu; Wvar] (4, 8 NT), zero-padded, then [bmu; bvar].
+  static constexpr int kParamFloats = 4 * NT * 8 + 4;
+  static __host__ __device__ int n_out(int in, int hid) {
+    return 1 + hid * in + 5 * hid + 4;
+  }
+  // Per-warp sums besides the tiles: loss, dbmu (2), dbvar (2).
+  static __host__ __device__ int n_small(int) { return 5; }
+  static __device__ int small_index(int k, int in, int hid) {
+    const int o_bmu = 1 + hid * in + 3 * hid;
+    return k == 0 ? 0 : k < 3 ? o_bmu + k - 1 : o_bmu + 2 * hid + k - 1;
+  }
+  // Output of element (m, j) of the backward products: rows m < extra0 are
+  // [x | 1]^T g_h (dW1 (j, m), db1 (j) in row In), rows extra0 + c (c < 4)
+  // are g_z^T h (dWmu, then dWvar); -1 in the padding.
+  static __device__ int tile_index(int m, int j, int in, int hid,
+                                   int extra0) {
+    if (j >= hid) return -1;
+    if (m < extra0) {
+      if (m > in) return -1;
+      return m < in ? 1 + j * in + m : 1 + hid * in + j;
+    }
+    const int c = m - extra0, o_wmu = 1 + hid * in + hid;
+    if (c >= 4) return -1;
+    return c < 2 ? o_wmu + c * hid + j
+                 : o_wmu + 2 * hid + 2 + (c - 2) * hid + j;
+  }
+
+  float acc_loss, acc_bh[4];  // lanes t == 0: rows g and g + 8
+  PpoConsts k;
+
+  __device__ void init(const GradArgs& a, float* s_par, int tid,
+                       int threads) {
+    const int hid = a.hidden;
+    for (int i = tid; i < 4 * NT * 8; i += threads) {
+      const int c = i / (NT * 8), j = i - c * NT * 8;
+      s_par[i] = j >= hid ? 0.f
+                 : c < 2  ? a.head[0][c * hid + j]
+                          : a.head[2][(c - 2) * hid + j];
+    }
+    if (tid < 4)
+      s_par[4 * NT * 8 + tid] = tid < 2 ? a.head[1][tid] : a.head[3][tid - 2];
+    k = a.k;
+    acc_loss = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_bh[c] = 0.f;
+  }
+
+  // Actions into aux[0 .. 31] (row r at 2r, 2r + 1), log-probs into
+  // aux[32 .. 47], advantages into aux[48 .. 63].
+  static __device__ void prefetch(const GradArgs& a, long long r0, int rows,
+                                  float* aux, int lane) {
+    if (lane < 2 * rows) mma::cp_async4(aux + lane, a.row[0] + 2 * r0 + lane);
+    prefetch_column(a.row[1], r0, rows, aux + 32, lane, 0);
+    prefetch_column(a.row[2], r0, rows, aux + 48, lane, 16);
+  }
+
+  // The 16 rows of a chunk from h = [x | 1][W1^T ; b1] in c (the fragments
+  // of rows g and g + 8): the heads, the PPO chain, then h into s_h (16,
+  // LDG), g_z into s_z (16, 4) and g_h into s_g (16, LDG).
+  template <int LDG>
+  __device__ void rows(float (&c)[NT][4], const float* s_par, const float* aux,
+                       long long row0, long long n, int g, int t, float* s_g,
+                       float* s_h, float* s_z) {
+    float p[4][2];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) p[o][0] = p[o][1] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const float2 w = *reinterpret_cast<const float2*>(
+            s_par + o * NT * 8 + nt * 8 + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          p[o][h] = p[o][h] + w.x * c[nt][2 * h];
+          p[o][h] = p[o][h] + w.y * c[nt][2 * h + 1];
+        }
+      }
+    // The PPO chain once a lane: lanes t = 0, 1 of the quad take row g,
+    // lanes 2, 3 row g + 8; the quad's other row comes by one shuffle.
+    const int mh = t >> 1, row = g + 8 * mh;
+    float z[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[o][h] = p[o][h] + __shfl_xor_sync(0xffffffffu, p[o][h], 1);
+        p[o][h] = p[o][h] + __shfl_xor_sync(0xffffffffu, p[o][h], 2);
+      }
+      z[o] = (mh ? p[o][1] : p[o][0]) + s_par[4 * NT * 8 + o];
+    }
+    float g_row[4], gz[2][4];  // gz: rows g and g + 8
+    const float loss = ppo_row(z, make_float2(aux[2 * row], aux[2 * row + 1]),
+                               aux[32 + row], aux[48 + row], k, g_row);
+    const bool valid = row0 + row < n;
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      g_row[o] = valid ? g_row[o] : 0.f;
+      const float other = __shfl_xor_sync(0xffffffffu, g_row[o], 2);
+      gz[0][o] = mh ? other : g_row[o];
+      gz[1][o] = mh ? g_row[o] : other;
+    }
+    if (valid && (t & 1) == 0) {
+      acc_loss += loss;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) acc_bh[o] += g_row[o];
+    }
+    if ((t & 1) == 0)
+      *reinterpret_cast<float4*>(s_z + row * 4) =
+          make_float4(g_row[0], g_row[1], g_row[2], g_row[3]);
+    // h and g_h = Wmu^T g_u + Wvar^T g_s into the warp's tiles.
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float w[4][2];
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            s_par + o * NT * 8 + nt * 8 + 2 * t);
+        w[o][0] = v.x;
+        w[o][1] = v.y;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at = (g + 8 * h) * LDG + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(s_h + at) =
+            make_float2(c[nt][2 * h], c[nt][2 * h + 1]);
+        float gh[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gh[e] = ((w[0][e] * gz[h][0] + w[1][e] * gz[h][1]) +
+                   w[2][e] * gz[h][2]) +
+                  w[3][e] * gz[h][3];
+        *reinterpret_cast<float2*>(s_g + at) = make_float2(gh[0], gh[1]);
+      }
+    }
+  }
+
+  // This warp's loss, dbmu and dbvar sums into dst (see CriticHead).
+  __device__ void store_small(float* dst, bool full, int in, int hid, int,
+                              int, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      acc_loss += __shfl_xor_sync(0xffffffffu, acc_loss, off);
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        acc_bh[o] += __shfl_xor_sync(0xffffffffu, acc_bh[o], off);
+    }
+    if (lane == 0) {
+      dst[0] = acc_loss;
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        dst[full ? small_index(1 + o, in, hid) : 1 + o] = acc_bh[o];
+    }
+  }
+};
+
+// The backward's cost to a warp, a k-step of 8 rows, where a grid of
+// (warps / wn) x wn warps shares (mt, nt) output tiles: 3 mma a tile
+// (weighed as 2 instructions each), 16 instructions to load and split an
+// A fragment, 8 a B fragment.
+constexpr int tc_cost(int mt, int nt, int warps, int wn) {
+  const int mtw = (mt + warps / wn - 1) / (warps / wn);
+  const int ntw = (nt + wn - 1) / wn;
+  return 6 * mtw * ntw + 16 * mtw + 8 * ntw;
+}
+
+// The wn (a divisor of warps) of the least cost, the largest on a tie.
+constexpr int tc_best_wn(int mt, int nt, int warps) {
+  int best = 1;
+  for (int wn = 2; wn <= warps; ++wn)
+    if (warps % wn == 0 &&
+        tc_cost(mt, nt, warps, wn) <= tc_cost(mt, nt, warps, best))
+      best = wn;
+  return best;
+}
+
+// The shape of tc_grad_kernel<Head, KS>: KS k-steps of 8 over [x | 1] (In +
+// 1 <= 8 KS), NT = Head::kNt n-tiles of 8 over the hidden units (H <= 8 NT).
+template <class Head, int KS>
+struct TcShape {
+  static constexpr int kNt = Head::kNt;
+  static constexpr int kMt = (KS + 1) / 2;  // backward m-tiles over [x | 1]
+  static constexpr int kMtAll = kMt + Head::kThird;
+  // The row buffer's stride LDX (= 4 mod 8) keeps the forward A loads free
+  // of bank conflicts (the transposed backward loads have 2-way ones);
+  // g_pre's LDG (= 8 or 24 mod 32) keeps the backward B loads free of them.
+  static constexpr int kLdx = kMt * 16 + 4;
+  static constexpr int kLdg = kNt * 8 % 16 == 0 ? kNt * 8 + 8 : kNt * 8;
+  // Warps share their rows where one warp's registers would not hold
+  // every output tile: the default critic (3 x 7 tiles, 211 registers)
+  // is the largest that does not.
+  static constexpr bool kShared = kMtAll * kNt > 21;
+  // A warp's region: rows (2, 16, LDX) | g_pre (16, LDG) | h (16, LDG) and
+  // g_z (16, 4) for a third product | per-row inputs (2, 16 kAux).
+  static constexpr int kOffG = 2 * 16 * kLdx;
+  static constexpr int kOffH = kOffG + 16 * kLdg;
+  static constexpr int kOffZ = kOffH + Head::kThird * 16 * kLdg;
+  static constexpr int kOffAux = kOffZ + Head::kThird * 16 * 4;
+  static constexpr int kWarpFloats = kOffAux + 2 * 16 * Head::kAux;
+  // W1's fragments split into TF32 halves once a block where that fits
+  // beside 8 warps, else as floats split at each load.
+  static constexpr bool kPreSplit =
+      KS * kNt * 32 * 4 + Head::kParamFloats + 8 * kWarpFloats <=
+      kSmemFloats;
+  static constexpr int kFragFloats = KS * kNt * 32 * (kPreSplit ? 4 : 2);
+  static constexpr int kFit =
+      (kSmemFloats - kFragFloats - Head::kParamFloats) / kWarpFloats;
+  static constexpr int kWarps = kFit < 8 ? kFit : 8;
+  static constexpr int kMainFloats =
+      kFragFloats + Head::kParamFloats + kWarps * kWarpFloats;
+  // Output tiles of a warp: a WM x WN grid of warps over (kMtAll, NT)
+  // tiles where the rows are shared, else all of them.
+  static constexpr int kWn = kShared ? tc_best_wn(kMtAll, kNt, kWarps) : 1;
+  static constexpr int kWm = kShared ? kWarps / kWn : 1;
+  static constexpr int kMtw = (kMtAll + kWm - 1) / kWm;
+  // Blocks an SM: two of the actor's per-warp instances of up to 14 tiles,
+  // which fit 128 registers a thread without spilling and whose chain
+  // leaves the tensor cores idle between chunks; one of every other (the
+  // critic's default keeps 211 registers).
+  static constexpr int kBlocks = Head::kThird && kMtAll * kNt <= 14 ? 2 : 1;
+  static constexpr int kNtw = (kNt + kWn - 1) / kWn;
+  static_assert(kWarps >= 1 && kMainFloats <= kSmemFloats,
+                "an instance fits the block's shared memory");
+  static_assert(kShared || kWarps == 8, "per-warp instances take 8 warps");
+};
+
+template <int S>
+__device__ __forceinline__ void group_sync() {
+  if (S == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
 // Start the copies of rows 16 chunk .. 16 chunk + 15 (those below n_rows)
-// into one buffer of a warp: obs into sx (16, LDX), old values and returns
-// into svr (32,).
-template <int LDX>
-__device__ __forceinline__ void critic_prefetch(const CriticArgs& a,
-                                                long long chunk, float* sx,
-                                                float* svr, int lane) {
+// into one buffer of a warp: obs into sx (16, LDX), the head's per-row
+// inputs into aux (16 kAux).
+template <class Head, int LDX>
+__device__ __forceinline__ void tc_prefetch(const GradArgs& a, long long chunk,
+                                            float* sx, float* aux, int lane) {
   const long long r0 = chunk * 16;
   const int rows = static_cast<int>(a.n_rows - r0 < 16 ? a.n_rows - r0 : 16);
   const int in = a.in_size;
@@ -336,45 +704,28 @@ __device__ __forceinline__ void critic_prefetch(const CriticArgs& a,
       mma::cp_async4(sx + r * LDX + (u - r * in), src + u);
     }
   }
-  if (lane < rows)
-    mma::cp_async4(svr + lane, a.vold + r0 + lane);
-  else if (lane >= 16 && lane - 16 < rows)
-    mma::cp_async4(svr + lane, a.ret + r0 + lane - 16);
+  Head::prefetch(a, r0, rows, aux, lane);
 }
 
-// One row of update_math.critic_chain; returns g_v, the loss term in *loss.
-__device__ __forceinline__ float critic_row(float v, float vold, float ret,
-                                           float eps, float* loss) {
-  const float lo = vold - eps, hi = vold + eps;
-  const float clamped = fminf(fmaxf(v, lo), hi);
-  const float e1 = v - ret;
-  const float e2 = clamped - ret;
-  const float d1 = e1 * e1;
-  const float d2 = e2 * e2;
-  *loss = fmaxf(d1, d2);
-  const float w_d2 = flag(d1 < d2) + 0.5f * flag(d1 == d2);
-  const float w_d1 = 1.f - w_d2;
-  return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
-}
-
-template <int KS, int NT>
-__global__ void __launch_bounds__(kCriticWarps * 32, 1)
-    critic_grad_kernel(const CriticArgs args) {
-  constexpr int W = kCriticWarps;
-  using Shape = CriticShape<KS, NT>;
-  constexpr int MT = Shape::kMt, LDX = Shape::kLdx, LDG = Shape::kLdg;
+template <class Head, int KS>
+__global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
+                                  TcShape<Head, KS>::kBlocks)
+    tc_grad_kernel(const GradArgs args) {
+  using Sh = TcShape<Head, KS>;
+  constexpr int NT = Sh::kNt, W = Sh::kWarps, S = Sh::kShared ? W : 1;
+  constexpr int MT = Sh::kMt, LDX = Sh::kLdx, LDG = Sh::kLdg;
+  constexpr int WM = Sh::kWm, WN = Sh::kWn, MTW = Sh::kMtw, NTW = Sh::kNtw;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int in = args.in_size, hid = args.hidden;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   // (KS, NT, 32) B fragments of [W1^T ; b1]: big b0, big b1, small b0,
-  // small b1 a lane.
-  const float4* s_wf = smem4;
-  float* s_w2 = smem + Shape::kFragFloats;  // (8 NT,), zero-padded
-  float* s_x = s_w2 + NT * 8 + warp * Shape::kWarpFloats;  // (2, 16, LDX)
-  float* s_g = s_x + 2 * 16 * LDX;                         // (16, LDG)
-  float* s_vr = s_g + 16 * LDG;  // (2, 32): 16 old values, 16 returns
+  // small b1 a lane (or b0, b1 as floats), then the head's weights, then
+  // the warps' regions.
+  float* s_par = smem + Sh::kFragFloats;
+  float* s_warps = s_par + Head::kParamFloats;
+  float* mine = s_warps + warp * Sh::kWarpFloats;
 
   for (int i = tid; i < KS * NT * 32; i += W * 32) {
     const int l = i & 31, nt = (i >> 5) % NT, ks = (i >> 5) / NT;
@@ -388,51 +739,56 @@ __global__ void __launch_bounds__(kCriticWarps * 32, 1)
              : kk == in ? args.b1[n]
                         : 0.f;
     }
-    uint32_t big[2], small[2];
-    mma::split(b, big, small);
-    smem4[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
-                           __uint_as_float(small[0]),
-                           __uint_as_float(small[1]));
+    if (Sh::kPreSplit) {
+      uint32_t big[2], small[2];
+      mma::split(b, big, small);
+      smem4[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                             __uint_as_float(small[0]),
+                             __uint_as_float(small[1]));
+    } else {
+      reinterpret_cast<float2*>(smem)[i] = make_float2(b[0], b[1]);
+    }
   }
-  for (int j = tid; j < NT * 8; j += W * 32)
-    s_w2[j] = j < hid ? args.w2[j] : 0.f;
-  // Zero the warp's buffers (rows past n_rows stay finite), then the ones
+  Head head;
+  head.init(args, s_par, tid, W * 32);
+  // Zero the warp's region (rows past n_rows stay finite), then the ones
   // column of [x | 1] in both row buffers.
-  for (int i = lane; i < Shape::kWarpFloats; i += 32) s_x[i] = 0.f;
+  for (int i = lane; i < Sh::kWarpFloats; i += 32) mine[i] = 0.f;
   __syncwarp();
-  s_x[lane * LDX + in] = 1.f;
-  const float b2 = args.b2[0];
+  mine[lane * LDX + in] = 1.f;
   __syncthreads();
 
-  float bacc[MT][NT][4];  // [x | 1]^T g_pre: dW1^T, then db1 in row In
-  float acc_w2[NT][2];    // dW2, columns 8 nt + 2t, + 1, over this lane's rows
+  // Backward accumulators of this warp's output tiles (m-tile wm + WM i,
+  // n-tile wn + WN j).
+  float bacc[MTW][NTW][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    acc_w2[nt][0] = acc_w2[nt][1] = 0.f;
+  for (int i = 0; i < MTW; ++i)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < NTW; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) bacc[mt][nt][i] = 0.f;
-  }
-  float acc_loss = 0.f, acc_b2 = 0.f;  // lanes t == 0: rows g and g + 8
+      for (int e = 0; e < 4; ++e) bacc[i][j][e] = 0.f;
+  const int own = warp % S, wq0 = warp - own;  // the group's first warp
+  const int wm = own / WN, wn = own % WN;
 
+  // Each round the group of S warps takes S chunks, one a warp.
   const long long n = args.n_rows, n_chunks = (n + 15) / 16;
   const long long stride = static_cast<long long>(gridDim.x) * W;
-  long long chunk = static_cast<long long>(blockIdx.x) * W + warp;
-  if (chunk < n_chunks) critic_prefetch<LDX>(args, chunk, s_x, s_vr, lane);
+  long long base = static_cast<long long>(blockIdx.x) * W + wq0;
+  float* aux_own = mine + Sh::kOffAux;
+  if (base + own < n_chunks)
+    tc_prefetch<Head, LDX>(args, base + own, mine, aux_own, lane);
   mma::cp_async_commit();
-  for (int buf = 0; chunk < n_chunks; chunk += stride, buf ^= 1) {
-    const long long next = chunk + stride;
+  for (int buf = 0; base < n_chunks; base += stride, buf ^= 1) {
+    const long long chunk = base + own, next = chunk + stride;
     if (next < n_chunks)
-      critic_prefetch<LDX>(args, next, s_x + (buf ^ 1) * 16 * LDX,
-                           s_vr + (buf ^ 1) * 32, lane);
+      tc_prefetch<Head, LDX>(args, next, mine + (buf ^ 1) * 16 * LDX,
+                             aux_own + (buf ^ 1) * 16 * Head::kAux, lane);
     mma::cp_async_commit();
     mma::cp_async_wait<1>();
     __syncwarp();
-    const float* x = s_x + buf * 16 * LDX;
-    const float* vr = s_vr + buf * 32;
+    const float* x = mine + buf * 16 * LDX;
 
-    // Forward: pre = [x | 1] [W1^T ; b1] over the 16 rows.
+    // Forward: pre = [x | 1] [W1^T ; b1] over the warp's 16 rows.
     float c[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -446,313 +802,115 @@ __global__ void __launch_bounds__(kCriticWarps * 32, 1)
       mma::split(a, a_big, a_small);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float4 w = s_wf[(ks * NT + nt) * 32 + lane];
-        const uint32_t b_big[2] = {__float_as_uint(w.x), __float_as_uint(w.y)};
-        const uint32_t b_small[2] = {__float_as_uint(w.z),
-                                     __float_as_uint(w.w)};
+        uint32_t b_big[2], b_small[2];
+        if (Sh::kPreSplit) {
+          const float4 w = smem4[(ks * NT + nt) * 32 + lane];
+          b_big[0] = __float_as_uint(w.x);
+          b_big[1] = __float_as_uint(w.y);
+          b_small[0] = __float_as_uint(w.z);
+          b_small[1] = __float_as_uint(w.w);
+        } else {
+          const float2 w = reinterpret_cast<const float2*>(
+              smem)[(ks * NT + nt) * 32 + lane];
+          const float b[2] = {w.x, w.y};
+          mma::split(b, b_big, b_small);
+        }
         mma::mma_3xtf32(c[nt], a_big, a_small, b_big, b_small);
       }
     }
+    head.template rows<LDG>(c, s_par, aux_own + buf * 16 * Head::kAux,
+                            chunk * 16, n, g, t, mine + Sh::kOffG,
+                            mine + Sh::kOffH, mine + Sh::kOffZ);
+    group_sync<S>();
 
-    // h = relu(pre) in place; v of rows g and g + 8 from the quad's
-    // fixed-order partial sums.
-    float p[2] = {0.f, 0.f};
+    // Backward over the group's S chunks, K = 16 rows each in two steps of
+    // 8: [x | 1]^T g_pre, and g_z^T h for the actor.
+#pragma unroll 1
+    for (int q = 0; q < S; ++q) {
+      const float* rq = s_warps + (wq0 + q) * Sh::kWarpFloats;
+      const float* xq = rq + buf * 16 * LDX;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float2 w = *reinterpret_cast<const float2*>(s_w2 + nt * 8 + 2 * t);
+      for (int kr = 0; kr < 2; ++kr) {
+        uint32_t a_big[MTW][4], a_small[MTW][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) c[nt][i] = fmaxf(c[nt][i], 0.f);
+        for (int i = 0; i < MTW; ++i) {
+          const int mt = wm + WM * i;
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+          if (mt < MT) {
+            mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
+          } else if (Head::kThird && mt == MT && g < 4) {
+            // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
+            const float* z = rq + Sh::kOffZ + kr * 8 * 4;
+            a[0] = z[t * 4 + g];
+            a[2] = z[(t + 4) * 4 + g];
+          }
+          mma::split(a, a_big[i], a_small[i]);
+        }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        p[h] = p[h] + w.x * c[nt][2 * h];
-        p[h] = p[h] + w.y * c[nt][2 * h + 1];
+        for (int j = 0; j < NTW; ++j) {
+          const int nt = wn + WN * j;
+          if (nt >= NT) continue;
+          float b[2];
+          uint32_t b_big[2], b_small[2];
+          mma::load_b_rows(rq + Sh::kOffG + kr * 8 * LDG + nt * 8, LDG, lane,
+                           b);
+          mma::split(b, b_big, b_small);
+#pragma unroll
+          for (int i = 0; i < MTW; ++i) {
+            const int mt = wm + WM * i;
+            if (mt < MT) {
+              mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], b_big,
+                              b_small);
+            } else if (Head::kThird && mt == MT) {
+              float hb[2];
+              uint32_t h_big[2], h_small[2];
+              mma::load_b_rows(rq + Sh::kOffH + kr * 8 * LDG + nt * 8, LDG,
+                               lane, hb);
+              mma::split(hb, h_big, h_small);
+              mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], h_big,
+                              h_small);
+            }
+          }
+        }
       }
     }
-    float gv[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 1);
-      p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 2);
-      const int row = g + 8 * h;
-      float loss;
-      const float gvr = critic_row(p[h] + b2, vr[row], vr[16 + row],
-                                   args.eps, &loss);
-      const bool valid = chunk * 16 + row < n;
-      gv[h] = valid ? gvr : 0.f;
-      if (valid && t == 0) {
-        acc_loss += loss;
-        acc_b2 += gvr;
-      }
-    }
-
-    // g_pre = (w2 g_v) (h > 0) into the warp's tile; dW2 += g_v h.
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float2 w = *reinterpret_cast<const float2*>(s_w2 + nt * 8 + 2 * t);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float h0 = c[nt][2 * h], h1 = c[nt][2 * h + 1];
-        *reinterpret_cast<float2*>(s_g + (g + 8 * h) * LDG + nt * 8 + 2 * t) =
-            make_float2((w.x * gv[h]) * flag(h0 > 0.f),
-                        (w.y * gv[h]) * flag(h1 > 0.f));
-        acc_w2[nt][0] += gv[h] * h0;
-        acc_w2[nt][1] += gv[h] * h1;
-      }
-    }
-    __syncwarp();
-
-    // Backward: [x | 1]^T g_pre, K = the 16 rows in two steps of 8.
-#pragma unroll
-    for (int kr = 0; kr < 2; ++kr) {
-      uint32_t a_big[MT][4], a_small[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        float a[4];
-        mma::load_a_cols(x + kr * 8 * LDX + mt * 16, LDX, lane, a);
-        mma::split(a, a_big[mt], a_small[mt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float b[2];
-        uint32_t b_big[2], b_small[2];
-        mma::load_b_rows(s_g + kr * 8 * LDG + nt * 8, LDG, lane, b);
-        mma::split(b, b_big, b_small);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          mma::mma_3xtf32(bacc[mt][nt], a_big[mt], a_small[mt], b_big,
-                          b_small);
-      }
-    }
-    __syncwarp();  // the buffers are refilled next
+    group_sync<S>();  // the buffers are refilled next
   }
   mma::cp_async_wait<0>();
   __syncthreads();
 
-  // The block's partial: each warp's sums into its row of red (W, n_out),
-  // then the warps summed in order.  red reuses all of shared memory.
-  const int n_w1 = hid * in, n_out = 1 + n_w1 + 2 * hid + 1;
-  float* red = smem;
-  float* mine = red + warp * n_out;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = mt * 16 + g + 8 * (i >> 1);
-        const int j = nt * 8 + 2 * t + (i & 1);
-        if (j < hid && m <= in)
-          mine[m < in ? 1 + j * in + m : 1 + n_w1 + j] = bacc[mt][nt][i];
-      }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = acc_w2[nt][e];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      const int j = nt * 8 + 2 * t + e;
-      if (g == 0 && j < hid) mine[1 + n_w1 + hid + j] = s;
-    }
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    acc_loss += __shfl_xor_sync(0xffffffffu, acc_loss, off);
-    acc_b2 += __shfl_xor_sync(0xffffffffu, acc_b2, off);
-  }
-  if (lane == 0) {
-    mine[0] = acc_loss;
-    mine[n_out - 1] = acc_b2;
-  }
-  __syncthreads();
-  for (int k = tid; k < n_out; k += W * 32) {
-    float s = 0.f;
-    for (int w = 0; w < W; ++w) s += red[w * n_out + k];
-    args.partials[static_cast<long long>(blockIdx.x) * n_out + k] = s;
-  }
-}
-
-struct UncollapsedArgs {
-  const float* obs;   // (N, F)
-  const float* act;   // (N, 2)
-  const float* lp;    // (N,) behaviour log-probs
-  const float* adv;   // (N,)
-  const float* w1;    // (H, F)
-  const float* b1;    // (H,)
-  const float* wmu;   // (2, H)
-  const float* bmu;   // (2,)
-  const float* wvar;  // (2, H)
-  const float* bvar;  // (2,)
-  long long n_rows;
-  int obs_size, hidden;
-  PpoConsts k;
-  float* partials;  // (gridDim.x, 1 + H*F + H + 2*(2H + 2))
-};
-
-// Dynamic shared memory of actor_grad_uncollapsed_kernel, in floats.  Odd
-// row strides for W1 and the activations keep the column-wise reads free
-// of bank conflicts.
-constexpr int uncollapsed_smem_floats(int obs_size, int hidden) {
-  return hidden * (obs_size | 1) + hidden + 4 * hidden + 4 +
-         kTileRows * obs_size + kTileRows * (hidden | 1) + 4 * kTileRows +
-         5 * kTileRows;
-}
-static_assert(sizeof(float) * uncollapsed_smem_floats(kMaxObs, kMaxHidden) <=
-                  48 * 1024,
-              "the widest instance fits the default 48 KiB of dynamic "
-              "shared memory");
-
-// The actor's loss and its five gradient sums through the network itself
-// (update_math.actor_grad_sums_uncollapsed_reference): the critic kernel's
-// design with the actor's PPO chain.  A block stages a 64-row tile of obs
-// and of h = W1 x + b1 (then g_h) in shared memory; the H*F entries of
-// dW1 are split over the block's threads, the 4H of dWmu and dWvar and
-// the H of db1 go to one thread a unit, the loss and the head biases' 4
-// sums to one thread a tile row.
-__global__ void __launch_bounds__(kThreads)
-    actor_grad_uncollapsed_kernel(const UncollapsedArgs args) {
-  extern __shared__ float smem[];
-  const int in = args.obs_size, hid = args.hidden;
-  const int ldw = in | 1, ldh = hid | 1, tid = threadIdx.x;
-  float* s_w1 = smem;                  // (H, ldw)
-  float* s_b1 = s_w1 + hid * ldw;      // (H,)
-  float* s_wh = s_b1 + hid;            // (4, H): Wmu rows, then Wvar rows
-  float* s_bh = s_wh + 4 * hid;        // (4,): bmu, then bvar
-  float* s_x = s_bh + 4;               // (kTileRows, F)
-  float* s_h = s_x + kTileRows * in;   // (kTileRows, ldh): h, then g_h
-  float* s_g = s_h + kTileRows * ldh;  // (kTileRows, 4): g_u, then g_s
-  float* s_red = s_g + 4 * kTileRows;  // (5, kTileRows)
-  for (int i = tid; i < hid * in; i += kThreads)
-    s_w1[(i / in) * ldw + i % in] = args.w1[i];
-  for (int j = tid; j < hid; j += kThreads) s_b1[j] = args.b1[j];
-  for (int i = tid; i < 2 * hid; i += kThreads) {
-    s_wh[i] = args.wmu[i];
-    s_wh[2 * hid + i] = args.wvar[i];
-  }
-  if (tid < 2) {
-    s_bh[tid] = args.bmu[tid];
-    s_bh[2 + tid] = args.bvar[tid];
-  }
-  __syncthreads();
-
-  const int n_w1 = hid * in;
-  float acc[kMaxUncollapsedEntries];  // dW1 entries tid + m * kThreads
-#pragma unroll
-  for (int m = 0; m < kMaxUncollapsedEntries; ++m) acc[m] = 0.f;
-  float acc_b1 = 0.f, acc_wh[4] = {0.f, 0.f, 0.f, 0.f};  // unit tid < H
-  float acc_loss = 0.f, acc_bh[4] = {0.f, 0.f, 0.f, 0.f};  // row tid < 64
-
-  const long long n_tiles = (args.n_rows + kTileRows - 1) / kTileRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile * kTileRows;
-    const int rows = static_cast<int>(
-        args.n_rows - r0 < kTileRows ? args.n_rows - r0 : kTileRows);
-    const float* src = args.obs + r0 * in;
-    for (int i = tid; i < kTileRows * in; i += kThreads)
-      s_x[i] = i < rows * in ? src[i] : 0.f;
-    __syncthreads();
-
-    // Forward: h = W1 x + b1 (no activation), one (row, unit) pair a thread.
-    for (int p = tid; p < kTileRows * hid; p += kThreads) {
-      const int r = p / hid, j = p - r * hid;
-      const float* w = s_w1 + j * ldw;
-      const float* x = s_x + r * in;
-      float a = 0.f;
-      for (int k = 0; k < in; ++k) a = a + w[k] * x[k];
-      s_h[r * ldh + j] = a + s_b1[j];
-    }
-    __syncthreads();
-
-    // The heads z = [Wmu; Wvar] h + [bmu; bvar] and the PPO chain, one row
-    // a thread; padding rows get g = 0.
-    if (tid < kTileRows) {
-      float g[4] = {0.f, 0.f, 0.f, 0.f};
-      if (tid < rows) {
-        const float* h = s_h + tid * ldh;
-        float z[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float* w = s_wh + c * hid;
-          float a = 0.f;
-          for (int j = 0; j < hid; ++j) a = a + w[j] * h[j];
-          z[c] = a + s_bh[c];
-        }
-        const long long row = r0 + tid;
-        acc_loss += ppo_row(z, reinterpret_cast<const float2*>(args.act)[row],
-                            args.lp[row], args.adv[row], args.k, g);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc_bh[c] += g[c];
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s_g[tid * 4 + c] = g[c];
-    }
-    __syncthreads();
-
-    // dWmu, dWvar = sum g h^T; then g_h = Wmu^T g_u + Wvar^T g_s in place
-    // of h, and db1 = sum g_h: one hidden unit a thread.
-    if (tid < hid) {
-      float w[4], sw[4] = {0.f, 0.f, 0.f, 0.f}, sb = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w[c] = s_wh[c * hid + tid];
-      for (int r = 0; r < kTileRows; ++r) {
-        const float h = s_h[r * ldh + tid];
-        const float* g = s_g + 4 * r;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sw[c] = sw[c] + g[c] * h;
-        const float gh =
-            ((w[0] * g[0] + w[1] * g[1]) + w[2] * g[2]) + w[3] * g[3];
-        s_h[r * ldh + tid] = gh;
-        sb = sb + gh;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc_wh[c] += sw[c];
-      acc_b1 += sb;
-    }
-    __syncthreads();
-
-    // dW1 = sum g_h x^T over the tile, each thread its own entries.
-#pragma unroll
-    for (int m = 0; m < kMaxUncollapsedEntries; ++m) {
-      const int e = tid + m * kThreads;
-      if (e < n_w1) {
-        const int j = e / in, k = e - j * in;
-        float s = 0.f;
-        for (int r = 0; r < kTileRows; ++r)
-          s = s + s_h[r * ldh + j] * s_x[r * in + k];
-        acc[m] += s;
-      }
-    }
-    __syncthreads();
-  }
-
-  // This block's partials: loss, dW1 (H, F), db1 (H), dWmu (2, H), dbmu
-  // (2), dWvar (2, H), dbvar (2).
-  const int o_b1 = 1 + n_w1, o_wmu = o_b1 + hid, o_bmu = o_wmu + 2 * hid;
-  const int o_wvar = o_bmu + 2, o_bvar = o_wvar + 2 * hid, n_out = o_bvar + 2;
+  // The block's partial.  Per-warp instances: each warp's sums into its row
+  // of red (W, n_out), then the warps summed in order.  Shared rows: each
+  // tile has one owner, which writes it straight to the partial; the small
+  // sums go through red (W, n_small).  red reuses all of shared memory.
+  const int n_out = Head::n_out(in, hid);
+  const int n_red = S == 1 ? n_out : Head::n_small(hid);
   float* out = args.partials + static_cast<long long>(blockIdx.x) * n_out;
+  float* red = smem;
+  float* my_red = red + warp * n_red;
 #pragma unroll
-  for (int m = 0; m < kMaxUncollapsedEntries; ++m) {
-    const int e = tid + m * kThreads;
-    if (e < n_w1) out[1 + e] = acc[m];
-  }
-  if (tid < hid) {
-    out[o_b1 + tid] = acc_b1;
-    out[o_wmu + tid] = acc_wh[0];
-    out[o_wmu + hid + tid] = acc_wh[1];
-    out[o_wvar + tid] = acc_wh[2];
-    out[o_wvar + hid + tid] = acc_wh[3];
-  }
-  if (tid < kTileRows) {
-    s_red[tid] = acc_loss;
+  for (int i = 0; i < MTW; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s_red[(1 + c) * kTileRows + tid] = acc_bh[c];
-  }
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int mt = wm + WM * i, nt = wn + WN * j;
+        if (mt >= Sh::kMtAll || nt >= NT) continue;
+        const int o = Head::tile_index(mt * 16 + g + 8 * (e >> 1),
+                                       nt * 8 + 2 * t + (e & 1), in, hid,
+                                       16 * MT);
+        if (o < 0) continue;
+        if (S == 1)
+          my_red[o] = bacc[i][j][e];
+        else
+          out[o] = bacc[i][j][e];
+      }
+  head.store_small(my_red, S == 1, in, hid, g, t, lane);
   __syncthreads();
-  if (tid < 5) {
-    float v = 0.f;
-    for (int r = 0; r < kTileRows; ++r) v += s_red[tid * kTileRows + r];
-    // tid 0: the loss; 1, 2: dbmu; 3, 4: dbvar.
-    out[tid == 0 ? 0 : (tid < 3 ? o_bmu + tid - 1 : o_bvar + tid - 3)] = v;
+  for (int k = tid; k < n_red; k += W * 32) {
+    float s = 0.f;
+    for (int w = 0; w < W; ++w) s += red[w * n_red + k];
+    out[S == 1 ? k : Head::small_index(k, in, hid)] = s;
   }
 }
 
@@ -776,19 +934,87 @@ inline cudaError_t reduce(const float* partials, int blocks, int n_out,
   return cudaGetLastError();
 }
 
-template <int KS, int NT>
-cudaError_t launch_critic(const CriticArgs& args, int blocks,
-                          cudaStream_t s) {
-  constexpr int W = kCriticWarps, kMain = CriticShape<KS, NT>::kMainFloats;
-  const int n_out = 1 + args.hidden * args.in_size + 2 * args.hidden + 1;
-  const int floats = kMain > W * n_out ? kMain : W * n_out;
+template <class Head, int KS>
+cudaError_t launch_tc(const GradArgs& args, int blocks, cudaStream_t s) {
+  using Sh = TcShape<Head, KS>;
+  constexpr int W = Sh::kWarps;
+  const int n_red = Sh::kShared ? Head::n_small(args.hidden)
+                                : Head::n_out(args.in_size, args.hidden);
+  const int floats =
+      Sh::kMainFloats > W * n_red ? Sh::kMainFloats : W * n_red;
+  if (floats > kSmemFloats) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(sizeof(float)) * floats;
   cudaError_t err = cudaFuncSetAttribute(
-      critic_grad_kernel<KS, NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tc_grad_kernel<Head, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  critic_grad_kernel<KS, NT><<<blocks, W * 32, smem, s>>>(args);
+  tc_grad_kernel<Head, KS><<<blocks, W * 32, smem, s>>>(args);
   return cudaGetLastError();
+}
+
+// k-steps of 8 over [x | 1] and n-tiles of 8 over the hidden units, each
+// rounded up to an instance; 0 outside the widths built.
+inline int critic_ks(int in) {
+  const int k = (in + 8) / 8;
+  return in < 1 || in > kCriticMaxIn ? 0
+         : k <= 3                    ? 3
+         : k <= 5                    ? 5
+         : k <= 9                    ? 9
+                                     : 13;
+}
+inline int actor_ks(int f) {
+  const int k = (f + 8) / 8;
+  return f < 1 || f > kUncollapsedMaxObs ? 0 : k <= 2 ? 2 : k <= 3 ? 3 : 5;
+}
+inline int hidden_nt(int hid) {
+  const int n = (hid + 7) / 8;
+  return hid < 1 || hid > kMaxHidden ? 0
+         : n <= 4                    ? 4
+         : n <= 7                    ? 7
+         : n <= 8                    ? 8
+                                     : 16;
+}
+
+// The instance of Head for (KS, NT): its warps a block (0 where none is
+// built) and its blocks an SM in *per_sm; with args, it is also launched,
+// its error in *err.
+#define MARLNAV_TC(HEAD, KS_, NT_)                                   \
+  if (ks == KS_ && nt == NT_) {                                      \
+    if (args) *err = launch_tc<HEAD<NT_>, KS_>(*args, blocks, s);    \
+    if (per_sm) *per_sm = TcShape<HEAD<NT_>, KS_>::kBlocks;          \
+    return TcShape<HEAD<NT_>, KS_>::kWarps;                          \
+  }
+#define MARLNAV_TC_NT(HEAD, KS_)                                       \
+  MARLNAV_TC(HEAD, KS_, 4) MARLNAV_TC(HEAD, KS_, 7)                    \
+  MARLNAV_TC(HEAD, KS_, 8) MARLNAV_TC(HEAD, KS_, 16)
+
+inline int critic_instance(int in, int hid, int* per_sm = nullptr,
+                           const GradArgs* args = nullptr, int blocks = 0,
+                           cudaStream_t s = nullptr,
+                           cudaError_t* err = nullptr) {
+  const int ks = critic_ks(in), nt = hidden_nt(hid);
+  MARLNAV_TC_NT(CriticHead, 3)
+  MARLNAV_TC_NT(CriticHead, 5)
+  MARLNAV_TC_NT(CriticHead, 9)
+  MARLNAV_TC_NT(CriticHead, 13)
+  return 0;
+}
+
+inline int actor_instance(int f, int hid, int* per_sm = nullptr,
+                          const GradArgs* args = nullptr, int blocks = 0,
+                          cudaStream_t s = nullptr,
+                          cudaError_t* err = nullptr) {
+  const int ks = actor_ks(f), nt = hidden_nt(hid);
+  MARLNAV_TC_NT(ActorHead, 2)
+  MARLNAV_TC_NT(ActorHead, 3)
+  MARLNAV_TC_NT(ActorHead, 5)
+  return 0;
+}
+#undef MARLNAV_TC_NT
+#undef MARLNAV_TC
+
+inline bool aligned16(const float* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace update
@@ -798,24 +1024,31 @@ extern "C" {
 
 int marlnav_update_blocks_per_sm() { return marlnav::update::kBlocksPerSm; }
 int marlnav_actor_max_obs() { return marlnav::update::kMaxObs; }
-int marlnav_critic_max_hidden() { return marlnav::update::kCriticMaxHidden; }
 int marlnav_critic_max_in() { return marlnav::update::kCriticMaxIn; }
-int marlnav_uncollapsed_max_hidden() { return marlnav::update::kMaxHidden; }
-int marlnav_uncollapsed_tile_rows() { return marlnav::update::kTileRows; }
+int marlnav_uncollapsed_max_obs() {
+  return marlnav::update::kUncollapsedMaxObs;
+}
+int marlnav_max_hidden() { return marlnav::update::kMaxHidden; }
 
-// Warps a block of the critic kernel's instance for (In, H), 16 rows a warp
-// at a time; 0 outside the widths it takes.
+// Warps a block of the tensor-core kernel's instance for these widths, 16
+// rows a warp at a time (0 outside the widths built), and, for the actor,
+// its blocks an SM, which size the persistent grid (the critic's: 1).
 int marlnav_critic_warps(int in_size, int hidden) {
-  int ks, nt;
-  return marlnav::update::critic_instance(in_size, hidden, &ks, &nt)
-             ? marlnav::update::kCriticWarps
-             : 0;
+  return marlnav::update::critic_instance(in_size, hidden);
+}
+int marlnav_uncollapsed_warps(int obs_size, int hidden) {
+  return marlnav::update::actor_instance(obs_size, hidden);
+}
+int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden) {
+  int per_sm = 0;
+  marlnav::update::actor_instance(obs_size, hidden, &per_sm);
+  return per_sm;
 }
 
-// Both launch on `stream` (a cudaStream_t from torch.cuda.current_stream()):
-// the grad kernel on `blocks` blocks, then the fixed-order reduction of its
-// partials into `out`.  They return cudaGetLastError(): 0 when both
-// launches were accepted.
+// Each launches on `stream` (a cudaStream_t from
+// torch.cuda.current_stream()): the grad kernel on `blocks` blocks, then the
+// fixed-order reduction of its partials into `out`.  They return
+// cudaGetLastError(): 0 when both launches were accepted.
 
 // out: loss_sum, dz (4, F), dzs (4).
 int marlnav_actor_grad_sums(const float* obs, const float* act,
@@ -847,6 +1080,10 @@ int marlnav_actor_grad_sums(const float* obs, const float* act,
     MARLNAV_LAUNCH(20)
     MARLNAV_LAUNCH(22)
     MARLNAV_LAUNCH(24)
+    MARLNAV_LAUNCH(26)
+    MARLNAV_LAUNCH(28)
+    MARLNAV_LAUNCH(30)
+    MARLNAV_LAUNCH(32)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -864,28 +1101,20 @@ int marlnav_critic_grad_sums(const float* obs, const float* vold,
                              float* partials, float* out, int device,
                              void* stream) {
   using namespace marlnav::update;
-  int ks, nt;
-  if (!critic_instance(in_size, hidden, &ks, &nt))
+  if (!critic_instance(in_size, hidden))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 =
-      in_size % 4 == 0 && reinterpret_cast<std::uintptr_t>(obs) % 16 == 0;
-  const CriticArgs args{obs, vold, ret, w1, b1, w2, b2, n_rows,
-                        in_size, hidden, eps, vec4, partials};
-#define MARLNAV_CRITIC(KS, NT) \
-  if (ks == KS && nt == NT) err = launch_critic<KS, NT>(args, blocks, s); else
-  MARLNAV_CRITIC(3, 4) MARLNAV_CRITIC(3, 7) MARLNAV_CRITIC(3, 8)
-  MARLNAV_CRITIC(5, 4) MARLNAV_CRITIC(5, 7) MARLNAV_CRITIC(5, 8)
-  MARLNAV_CRITIC(6, 4) MARLNAV_CRITIC(6, 7) MARLNAV_CRITIC(6, 8)
-  MARLNAV_CRITIC(8, 4) MARLNAV_CRITIC(8, 7) MARLNAV_CRITIC(8, 8)
-  err = cudaErrorInvalidValue;
-#undef MARLNAV_CRITIC
+  const GradArgs args{obs,    w1,      b1,
+                      {vold, ret, nullptr}, {w2, b2, nullptr, nullptr},
+                      n_rows, in_size, hidden,
+                      in_size % 4 == 0 && aligned16(obs),
+                      eps,    {},      partials};
+  critic_instance(in_size, hidden, nullptr, &args, blocks, s, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce(partials, blocks,
-                                 1 + hidden * in_size + 2 * hidden + 1, out,
-                                 s));
+  return static_cast<int>(reduce(
+      partials, blocks, CriticHead<4>::n_out(in_size, hidden), out, s));
 }
 
 // out: loss_sum, dW1 (H, F), db1 (H), dWmu (2, H), dbmu (2), dWvar (2, H),
@@ -897,21 +1126,21 @@ int marlnav_actor_grad_uncollapsed_sums(
     int hidden, float lo, float hi, float ent_c, float ent_half, int blocks,
     float* partials, float* out, int device, void* stream) {
   using namespace marlnav::update;
-  if (obs_size < 1 || obs_size > kMaxObs || hidden < 1 ||
-      hidden > kMaxHidden)
+  if (!actor_instance(obs_size, hidden))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * uncollapsed_smem_floats(obs_size,
-                                                              hidden);
-  const UncollapsedArgs args{obs, act, lp, adv, w1, b1, wmu, bmu, wvar, bvar,
-                             n_rows, obs_size, hidden,
-                             {lo, hi, ent_c, ent_half}, partials};
-  actor_grad_uncollapsed_kernel<<<blocks, kThreads, smem, s>>>(args);
-  return static_cast<int>(reduce(partials, blocks,
-                                 1 + hidden * obs_size + 5 * hidden + 4, out,
-                                 s));
+  const GradArgs args{obs,    w1,       b1,
+                      {act, lp, adv},   {wmu, bmu, wvar, bvar},
+                      n_rows, obs_size, hidden,
+                      obs_size % 4 == 0 && aligned16(obs),
+                      0.f,    {lo, hi, ent_c, ent_half},
+                      partials};
+  actor_instance(obs_size, hidden, nullptr, &args, blocks, s, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce(
+      partials, blocks, ActorHead<4>::n_out(obs_size, hidden), out, s));
 }
 
 }  // extern "C"

@@ -15,13 +15,18 @@ gradients to the same ``torch.optim.Adam`` the autograd route uses.
   gradients outside.
 * ``critic_grad_sums`` replaces ``make_tiled_critic_grad`` and the staged
   ``make_fused_critic_grad``: the clipped-value loss through ``In -> H ReLU
-  -> 1`` and ``dW1, db1, dW2, db2``.  Its two products run on the tensor
-  cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``), for In <= 63 and H <= 64.
+  -> 1`` and ``dW1, db1, dW2, db2``.
 * ``actor_grad_uncollapsed_sums`` replaces the staged actor kernels of the
   "packed" (``make_fused_actor_grad``) and "undilated"
   (``_make_actor_grad_undilated``) layouts: the actor loss through the
   network itself, ``F -> H -> 2 + 2``, and its five gradients directly, no
   recomposition.  ``train.uncollapsed_actor`` says when it runs.
+
+The last two share one kernel body with a head for each (critic: ReLU and
+the value; actor: the 2 + 2 heads and the PPO chain), whose products run on
+the tensor cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``).  Widths built:
+critic In <= 103 and H <= 128; un-collapsed actor F <= 39 and H <= 128;
+affine actor even F <= 32.  Past them each wrapper raises ``ValueError``.
 
 The TPU needed two layouts of each (tiled and staged); here the Buffer's
 time slice is already a contiguous block of rows, so one kernel serves the
@@ -71,13 +76,12 @@ def _library():
                lib.marlnav_actor_grad_uncollapsed_sums):
         fn.restype = i32
     for getter in (lib.marlnav_update_blocks_per_sm,
-                   lib.marlnav_actor_max_obs, lib.marlnav_critic_max_hidden,
-                   lib.marlnav_critic_max_in,
-                   lib.marlnav_uncollapsed_max_hidden,
-                   lib.marlnav_uncollapsed_tile_rows):
+                   lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
+                   lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
-    lib.marlnav_critic_warps.argtypes = [i32, i32]
-    lib.marlnav_critic_warps.restype = i32
+    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps,
+                  lib.marlnav_uncollapsed_blocks_per_sm):
+        shape.argtypes, shape.restype = [i32, i32], i32
     return lib
 
 
@@ -172,10 +176,10 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
     lib = _library()
     warps = lib.marlnav_critic_warps(n_in, h)  # 16 rows a warp at a time
     if not warps:
-        max_h, max_in = (lib.marlnav_critic_max_hidden(),
-                         lib.marlnav_critic_max_in())
-        raise ValueError(f"critic grad kernel takes hidden 1..{max_h} and "
-                         f"input 1..{max_in}, got {h} and {n_in}")
+        raise ValueError(f"critic grad kernel takes hidden "
+                         f"1..{lib.marlnav_max_hidden()} and input "
+                         f"1..{lib.marlnav_critic_max_in()}, got {h} and "
+                         f"{n_in}")
     _, blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
     n_out = 1 + h * n_in + 2 * h + 1
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -214,16 +218,15 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         ("bmu", bmu, (2,)), ("wvar", wvar, (2, h)), ("bvar", bvar, (2,)),
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
-    lib, blocks, index, stream = _launch_setup(
-        obs.device, n, _library().marlnav_uncollapsed_tile_rows())
-    max_h = lib.marlnav_uncollapsed_max_hidden()
-    max_f = lib.marlnav_actor_max_obs()
-    if not (1 <= h <= max_h and 1 <= f <= max_f):
+    lib = _library()
+    warps = lib.marlnav_uncollapsed_warps(f, h)  # 16 rows a warp at a time
+    if not warps:
         raise ValueError(f"un-collapsed actor grad kernel takes hidden "
-                         f"1..{max_h} and obs 1..{max_f}, got {h} and {f}")
-    if actions.data_ptr() % 8:
-        raise ValueError("un-collapsed actor grad kernel: actions must be "
-                         "8-byte aligned (float2 loads)")
+                         f"1..{lib.marlnav_max_hidden()} and obs "
+                         f"1..{lib.marlnav_uncollapsed_max_obs()}, got {h} "
+                         f"and {f}")
+    _, blocks, index, stream = _launch_setup(
+        obs.device, n, 16 * warps, lib.marlnav_uncollapsed_blocks_per_sm(f, h))
     n_out = 1 + h * f + 5 * h + 4
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)

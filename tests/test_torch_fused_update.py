@@ -82,12 +82,12 @@ def cfgs(p, t, **kw):
     return JMAPPOConfig(**base), MAPPOConfig(**base)
 
 
-def rand_buffer(seed, t, p, mode="faithful", done_frac=0.2):
+def rand_buffer(seed, t, p, mode="faithful", done_frac=0.2, obs=OBS):
     """One numpy buffer handed to both packages; in GAE mode its returns
     are GAE advantages + values, as collect stores them."""
     rng = np.random.default_rng(seed)
     b = dict(
-        obs=rng.normal(size=(t, p, A, OBS)).astype(np.float32),
+        obs=rng.normal(size=(t, p, A, obs)).astype(np.float32),
         actions=rng.uniform(-1, 1, size=(t, p, A, 2)).astype(np.float32),
         log_probs=rng.normal(-1.0, 0.5, size=(t, p * A)).astype(np.float32),
         values=rng.normal(size=(t, p, 1)).astype(np.float32),
@@ -286,6 +286,40 @@ def test_critic_grad_matches_kernel_inside_clip_band():
     assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5)
 
 
+# Widths the JAX package trains beyond the defaults: -no 8 (obs 2 + 2*8 + 4
+# = 22, critic input 3 x 22 = 66) and -hs 128.
+WIDE = {"no8-in66-h50": (22, 50), "hs128-in36-h128": (12, 128)}
+
+
+def wide_networks(obs, hidden):
+    """JAX and port actor and critic of these widths, equal weights."""
+    ja = actor_init(jax.random.PRNGKey(1), obs, hidden, 2)
+    jcr = critic_init(jax.random.PRNGKey(3), obs, A, hidden)
+    return (ja, jcr), from_jax_params(jax.tree.map(np.asarray, (ja, jcr)))
+
+
+@pytest.mark.parametrize("width", sorted(WIDE))
+def test_critic_grads_match_staged_kernel_at_wide_widths(width):
+    """critic_grad (plain route) against the JAX critic kernel in interpret
+    mode at the widths of -no 8 (In 66, H 50) and -hs 128 (In 36, H 128),
+    slice by slice: rtol/atol 2e-5, as at the default width."""
+    obs, hidden = WIDE[width]
+    t, p = 12, 4
+    jc, tc = cfgs(p, t, batch_size=6, obs_size=obs, hidden_size=hidden)
+    jb, tb = rand_buffer(0, t, p, obs=obs)
+    (_, jcr), (_, tcr) = wide_networks(obs, hidden)
+    critic_k = jax.jit(make_fused_critic_grad(jc, interpret=True),
+                       static_argnums=2)
+    for j_mb, t_mb in zip(jm.minibatch_slices(jb, jc),
+                          tm.minibatch_slices(tb, tc)):
+        lj, gj = critic_k(jcr, *stage_critic_minibatch(j_mb, jc))
+        lt, gt = fu.critic_grad(tcr, t_mb, tc)
+        assert gt["fc1.weight"].shape == (hidden, A * obs)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           f"critic {width}")
+
+
 # ----------------------------------------------------------------------
 # Rows 2 and 3: the tiled (full-batch) trainers
 # ----------------------------------------------------------------------
@@ -424,17 +458,20 @@ def test_cpu_routing_runs_plain_version_and_launches_nothing():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Both kernels against their plain versions, each against a float64
-    plain version (the check chip_smoke.py runs at full size): the kernel's
+    plain version (the check chip_smoke.py runs at full size), at the
+    default widths and at those of -no 8 (F 22) and -hs 128: the kernel's
     error stays within 1e-4 of each output's largest magnitude, and two
     launches agree bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    actor_in, critic_in = _sum_inputs(100_003, OBS, 50, "cuda")
-    for kernel, plain, args in (
-            (fu.actor_grad_sums, um.actor_grad_sums_reference,
-             (*actor_in, 0.01, 0.001)),
-            (fu.critic_grad_sums, um.critic_grad_sums_reference,
-             (*critic_in, 0.01))):
+    cases = []
+    for f, h in ((OBS, 50), (22, 50), (OBS, 128), (32, 128)):
+        actor_in, critic_in = _sum_inputs(100_003, f, h, "cuda")
+        cases += [(fu.actor_grad_sums, um.actor_grad_sums_reference,
+                   (*actor_in, 0.01, 0.001)),
+                  (fu.critic_grad_sums, um.critic_grad_sums_reference,
+                   (*critic_in, 0.01))]
+    for kernel, plain, args in cases:
         got, again = kernel(*args), kernel(*args)
         want = plain(*(x.double() if torch.is_tensor(x) else x for x in args))
         torch.cuda.synchronize()
@@ -474,6 +511,28 @@ def test_uncollapsed_grads_match_staged_kernels(layout, faithful, p):
                            f"{layout} actor")
 
 
+@pytest.mark.parametrize("layout", ["packed", "undilated"])
+def test_uncollapsed_grads_match_staged_kernels_at_wide_width(layout):
+    """actor_grad_uncollapsed (plain route) against the "packed" and
+    "undilated" JAX actor kernels at F 22 (-no 8) and H 128 (-hs 128), P 4,
+    slice by slice: rtol/atol 2e-5, as at the default width."""
+    obs, hidden, t, p = 22, 128, 12, 4
+    jc, tc = cfgs(p, t, batch_size=6, obs_size=obs, hidden_size=hidden)
+    jb, tb = rand_buffer(0, t, p, obs=obs)
+    (ja, _), (ta, _) = wide_networks(obs, hidden)
+    actor_k = jax.jit(make_fused_actor_grad(jc, interpret=True, layout=layout),
+                      static_argnums=2)
+    for j_mb, t_mb in zip(jm.minibatch_slices(jb, jc),
+                          tm.minibatch_slices(tb, tc)):
+        lj, gj = actor_k(ja, *stage_actor_minibatch(j_mb, jc, layout=layout))
+        lt, gt = fu.actor_grad_uncollapsed(
+            ta, t_mb, tm.minibatch_advantages(t_mb, tc), tc)
+        assert gt["fc1.weight"].shape == (hidden, obs)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           f"{layout} actor, F {obs} H {hidden}")
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_uncollapsed_grads_match_autograd(mode):
     """On every slice of a 2-minibatch split, the un-collapsed loss and
@@ -497,10 +556,13 @@ def test_uncollapsed_grads_match_autograd(mode):
 
 def _uncollapsed_inputs(n, f, h, device="cpu", seed=8):
     """Weights in nn.Linear layout (w1, b1, wmu, bmu, wvar, bvar), then
-    obs, actions, log-probs and advantages of n rows."""
+    obs, actions, log-probs and advantages of n rows.  The weights' scale
+    falls with the fan-in (0.3 at F 12 and H 50), so that wider networks
+    keep their log-prob ratios near 1."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-    xs = (0.3 * r(h, f), 0.1 * r(h), 0.3 * r(2, h), 0.1 * r(2), 0.3 * r(2, h),
+    s1, s2 = 0.3 * (12 / f) ** 0.5, 0.3 * (50 / h) ** 0.5
+    xs = (s1 * r(h, f), 0.1 * r(h), s2 * r(2, h), 0.1 * r(2), s2 * r(2, h),
           0.1 * r(2), r(n, f), r(n, 2).clamp(-1, 1), -1.0 + 0.5 * r(n), r(n))
     return tuple(x.to(device) for x in xs)
 
@@ -522,21 +584,23 @@ def test_uncollapsed_cpu_routing_runs_plain_version_and_launches_nothing():
 
 @pytest.mark.cuda
 def test_uncollapsed_kernel_matches_plain_on_card():
-    """The un-collapsed kernel at hidden 50 against a float64 plain version
-    (the check chip_smoke.py runs at full size): within 1e-4 of each
-    output's largest magnitude, and two launches agree bit for bit."""
+    """The un-collapsed kernel at F 12 / H 50, F 22 / H 128 and F 32 / H 128
+    against a float64 plain version (the check chip_smoke.py runs at full
+    size): within 1e-4 of each output's largest magnitude, and two launches
+    agree bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    args = (*_uncollapsed_inputs(100_003, OBS, 50, "cuda"), 0.01, 0.001)
-    got = fu.actor_grad_uncollapsed_sums(*args)
-    again = fu.actor_grad_uncollapsed_sums(*args)
-    want = um.actor_grad_sums_uncollapsed_reference(
-        *(x.double() if torch.is_tensor(x) else x for x in args))
-    torch.cuda.synchronize()
-    for k, k2, w in zip(got, again, want):
-        assert torch.equal(k, k2)
-        tol = 1e-4 * float(w.abs().max()) + 1e-6
-        assert float((k.double() - w).abs().max()) <= tol
+    for f, h in ((OBS, 50), (22, 128), (32, 128)):
+        args = (*_uncollapsed_inputs(100_003, f, h, "cuda"), 0.01, 0.001)
+        got = fu.actor_grad_uncollapsed_sums(*args)
+        again = fu.actor_grad_uncollapsed_sums(*args)
+        want = um.actor_grad_sums_uncollapsed_reference(
+            *(x.double() if torch.is_tensor(x) else x for x in args))
+        torch.cuda.synchronize()
+        for k, k2, w in zip(got, again, want):
+            assert torch.equal(k, k2)
+            tol = 1e-4 * float(w.abs().max()) + 1e-6
+            assert float((k.double() - w).abs().max()) <= tol
 
 
 # ----------------------------------------------------------------------
@@ -622,6 +686,62 @@ def test_critic_sums_need_three_tf32_passes():
     plain = errors(um.critic_grad_sums_reference(*args, eps))
     three = errors(critic_sums_tf32(*args, eps, passes=3))
     one = errors(critic_sums_tf32(*args, eps, passes=1))
+    for k in names:
+        assert three[k] <= 2.0 * plain[k], (k, three[k], plain[k])
+    assert one["dW1"] > 2.0 * plain["dW1"], (one["dW1"], plain["dW1"])
+
+
+def uncollapsed_sums_tf32(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
+                          log_probs, adv, eps, ent_c, passes):
+    """actor_grad_sums_uncollapsed_reference with the kernel's three
+    products through ``tf32_product``: h = [x | 1] [W1ᵀ ; b1], [x | 1]ᵀ
+    g_h (dW1ᵀ, with db1 as its last row) and g_zᵀ h (dWmu, then dWvar);
+    the heads, the chain, g_h and the bias sums stay float32."""
+    x1 = torch.cat([obs, torch.ones(obs.shape[0], 1)], dim=1)
+    h = tf32_product(x1, torch.cat([w1.T, b1[None]]), passes)
+    u = h @ wmu.T + bmu
+    s = h @ wvar.T + bvar
+    loss_rows, g_u, g_s = um.ppo_chain(u, s, actions, log_probs, adv, eps,
+                                       ent_c)
+    g_h = g_u @ wmu + g_s @ wvar
+    d = tf32_product(x1.T.contiguous(), g_h, passes)
+    dwh = tf32_product(torch.cat([g_u, g_s], dim=1).T.contiguous(), h,
+                       passes)
+    return (loss_rows.sum(), d[:-1].T, d[-1], dwh[:2], g_u.sum(0), dwh[2:],
+            g_s.sum(0))
+
+
+@pytest.mark.parametrize("obs,hidden", [(OBS, 50), (22, 128)],
+                         ids=["default", "no8-hs128"])
+def test_uncollapsed_sums_need_three_tf32_passes(obs, hidden):
+    """On 24,576 rand_buffer actor rows through a freshly initialised actor
+    (F 12, H 50, and the widest widths users train, F 22, H 128), the
+    un-collapsed sums with the kernel's 3-pass TF32 products stay within 2x
+    of the float32 plain version's error against float64, output by output
+    (each sum divided by the row count), as the critic's do; with one pass
+    the error on dW1 is more than twice the plain version's."""
+    t, p = 64, 128
+    _, tb = rand_buffer(12, t, p, obs=obs)
+    n = t * p * A
+    actor = Actor(obs, hidden, generator=torch.Generator().manual_seed(13))
+    adv = torch.tensor(np.random.default_rng(14).normal(size=n),
+                       dtype=torch.float32)
+    args = (*(p_.detach() for p_ in actor.parameters()),
+            tb.obs.reshape(n, -1), tb.actions.reshape(n, -1),
+            tb.log_probs.reshape(n), adv)
+    eps, ent_c = 0.2, 0.001
+    want = um.actor_grad_sums_uncollapsed_reference(
+        *(x.double() for x in args), eps, ent_c)
+    names = ("loss", "dW1", "db1", "dWmu", "dbmu", "dWvar", "dbvar")
+
+    def errors(got):
+        return {k: ((g.double() - w) / n).abs().max().item()
+                for k, g, w in zip(names, got, want)}
+
+    plain = errors(um.actor_grad_sums_uncollapsed_reference(*args, eps,
+                                                            ent_c))
+    three = errors(uncollapsed_sums_tf32(*args, eps, ent_c, passes=3))
+    one = errors(uncollapsed_sums_tf32(*args, eps, ent_c, passes=1))
     for k in names:
         assert three[k] <= 2.0 * plain[k], (k, three[k], plain[k])
     assert one["dW1"] > 2.0 * plain["dW1"], (one["dW1"], plain["dW1"])
