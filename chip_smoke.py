@@ -4,36 +4,40 @@
 
 Run from the root of the repository on a machine with a CUDA card and
 ``nvcc``.  It builds the port's CUDA kernels from the sources in the
-checkout (one ``nvcc`` per source, started together), holds each kernel
+checkout (one ``nvcc`` per source, started together) and prints each
+kernel's registers and spills (asserting that the affine actor kernel,
+one instance for every obs width, does not spill, and that no instance
+of the tensor-core body spills more than it did when this was written),
+holds each kernel
 against its plain PyTorch version (the collect and rollout kernels equal
 on every output field, at a ragged env count too), checks the collect
 kernel's random numbers, trains MAPPO through the port's entry point at
 the default configuration (1024 envs, buffer 1000, 50 + 50 epochs) for 2
 repeats with ``--fused-collect --fused-updates`` (the main path: every
-kernel's launch
-count is read around it), times each phase of a repeat on the fused
-update route (full batch; -bs 250 with the affine and with the
-un-collapsed actor) and on the autograd one, runs
-one repeat with sliced minibatches and one more with
-``MARLNAV_ACTOR_LAYOUT=packed`` (the un-collapsed actor gradient's path),
-holds the gradient kernels against float64 also at a ragged row count and
-at the wide widths the JAX package trains (-no 8, -hs 128, 4 agents with 8
-obstacles) with each output's error printed, counts the tensor-core (HMMA)
-instructions in the SASS of every instance of the critic's and the
-un-collapsed actor's shared kernel body, holds the rollout kernel
-against its plain version (at every timed shape, the bench's included)
-and against the collect kernel, runs the
-bench (``python -m marlnav_tpu_torch.bench
---plain`` at 16384 envs x 500 steps, the rollout kernel's path), trains
-2 short repeats with ``--fused-collect --fused-updates`` at ``-no 8`` and
-at ``-hs 128`` on both actor routes, and times every kernel.  Each path's
-launch counts are set to 0 just before it and read just after.  Every
-phase prints as it goes; any failure exits non-zero.  The last three
-lines are the kernels' JSON object, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  It exits
-non-zero, printing no result, where CUDA is unavailable.  The training
-artifacts and a JSON record of the run go to ``--out`` (default: a
-temporary directory, removed at exit).
+kernel's launch count is read around it), times each phase of a repeat
+on the fused update route (full batch; -bs 250 with the affine and with
+the un-collapsed actor) and on the autograd one, runs one repeat with
+sliced minibatches and one more with ``MARLNAV_ACTOR_LAYOUT=packed`` (the
+un-collapsed actor gradient's path), holds the gradient kernels against
+float64 also at ragged row counts and at the wide widths the JAX package
+trains (-no 8, -no 14, -hs 128, -hs 256, 4 agents with 8 obstacles, an
+odd obs width and the widest each kernel takes) with each output's error
+printed, times one ``torch.sum`` over the affine actor's bytes beside that
+kernel, counts the tensor-core (HMMA) instructions in the SASS of every
+instance of the critic's and the un-collapsed actor's shared kernel body,
+holds the rollout kernel against its plain version (at every timed
+shape, the bench's included) and against the collect kernel, runs the
+bench (``python -m marlnav_tpu_torch.bench --plain`` at 16384 envs x 500
+steps, the rollout kernel's path), trains 2 short repeats with
+``--fused-updates`` at ``-no 8``, ``-hs 128``, ``-hs 256`` and ``-no 14``
+on both actor routes, runs the card tests (``python -m pytest
+tests_cuda``), and times every kernel.  Each path's launch counts are set
+to 0 just before it and read just after.  Every phase prints as it goes;
+any failure exits non-zero.  The last three lines are the kernels' JSON
+object, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  It exits non-zero, printing no result, where CUDA is
+unavailable.  The training artifacts and a JSON record of the run go to
+``--out`` (default: a temporary directory, removed at exit).
 """
 
 import argparse
@@ -124,6 +128,11 @@ KERNELS = {
 # steps a slice), the rollout's the bench.
 MAIN_SHAPE = {"fused_actor_grad_uncollapsed": (1024, 250),
               "fused_rollout": (16384, 500)}
+# Spill stores (bytes) of the tensor-core instances that spill, by (head,
+# KS, NT), as the CUDA 12.9 toolkit's ptxas reports them for sm_90a: the
+# default un-collapsed actor's (held to 128 registers for two blocks an
+# SM) and one critic instance's.  Every other instance spills nothing.
+SPILL_STORES_TODAY = {("actor", 2, 7): 12, ("critic", 9, 16): 4}
 
 
 def phase(title):
@@ -253,7 +262,8 @@ def main(out_dir):
     from marlnav_tpu_torch.ops import fused_rollout as fr
     from marlnav_tpu_torch.ops import fused_update as fu
     from marlnav_tpu_torch.ops import update_math as um
-    from marlnav_tpu_torch.ops._build import find_nvcc, load_libraries
+    from marlnav_tpu_torch.ops._build import (BUILD_DIR, find_nvcc,
+                                              load_libraries)
     from marlnav_tpu_torch.ops.step_math import StepMath
     from marlnav_tpu_torch.train import train
     from marlnav_tpu_torch.utils.seeding import make_generator
@@ -274,6 +284,10 @@ def main(out_dir):
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(subprocess.run([find_nvcc(), "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[-1])
+    # Build from the sources on every run (an earlier build is removed):
+    # the build log carries ptxas's register and spill report, which this
+    # phase prints and checks.
+    shutil.rmtree(BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     builds = load_libraries(["fused_collect", "fused_rollout", "fused_update"])
     record["build_s"] = time.perf_counter() - t0
@@ -284,6 +298,14 @@ def main(out_dir):
         print(f"{name}: {build['seconds']:.1f} s -> {build['path']}")
         record["ptxas"][name] = ptxas_summary(build["log"])
         print("\n".join(record["ptxas"][name]))
+    # The affine actor kernel: one instance for every obs width, whose
+    # registers do not grow with F; it must not spill.
+    actor_line = instance_line(builds["fused_update"][1]["log"],
+                               "actor_grad_kernelE")
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", actor_line)]
+    print(f"actor_grad_kernel (every obs width): {actor_line}")
+    assert spills and not any(spills), actor_line
+    record["actor_ptxas"] = actor_line
     # The products of the critic and the un-collapsed actor on the tensor
     # cores: HMMA instructions in the SASS of every instance of their
     # shared body; its forward holds 3 KS NT a chunk.
@@ -293,13 +315,24 @@ def main(out_dir):
         hmma = hmma_counts(subprocess.run(
             [cuobjdump, "-sass", builds["fused_update"][1]["path"]],
             capture_output=True, text=True, check=True).stdout)
+        spilled = {}
         for (head, ks, nt), count in sorted(hmma.items()):
+            line = instance_line(builds["fused_update"][1]["log"],
+                                 f"{head.capitalize()}HeadILi{nt}EEELi{ks}E")
             print(f"tc_grad_kernel<{head.capitalize()}Head<NT={nt}>, KS={ks}>"
                   f": {count} HMMA in its SASS (forward: {3 * ks * nt}); "
-                  + instance_line(builds["fused_update"][1]["log"],
-                                  f"{head.capitalize()}HeadILi{nt}EEELi{ks}E"))
+                  + line)
+            stores = re.findall(r"(\d+) bytes spill stores", line)
+            assert stores, line
+            spilled[(head, ks, nt)] = int(stores[0])
         assert {h for h, _, _ in hmma} == {"critic", "actor"}, hmma
         assert all(c > 0 for c in hmma.values()), hmma
+        # No instance may spill more than it does today: none but these two,
+        # the default un-collapsed actor's among them (PERF.md, open
+        # questions; ROADMAP.md Queue 3).
+        worse = {k: v for k, v in spilled.items()
+                 if v > SPILL_STORES_TODAY.get(k, 0)}
+        assert not worse, f"tc_grad_kernel spill stores grew: {worse}"
         record["tc_hmma"] = {f"{k}": c for k, c in hmma.items()}
     else:
         print("cuobjdump not found: HMMA count not measured")
@@ -801,7 +834,11 @@ def main(out_dir):
                       fn(ts.actor, mb, mcfg))
             check("fused_critic_grad", "collecting critic (all rows tied)",
                   critic_inputs(ts.critic, mb, mcfg))
-            # A row count that leaves the last 16-row chunk ragged.
+            # A row count that leaves the last 16-row chunk (and the affine
+            # actor's last tile) ragged.
+            check("fused_actor_grad", "ragged 100,003 rows", tuple(
+                x[:100_003] if i in (2, 3, 4, 5) else x
+                for i, x in enumerate(inputs["fused_actor_grad"])))
             check("fused_critic_grad", "ragged 100,003 rows", tuple(
                 x[:100_003] if i in (4, 5, 6) else x
                 for i, x in enumerate(inputs["fused_critic_grad"])))
@@ -810,6 +847,23 @@ def main(out_dir):
                         enumerate(inputs["fused_actor_grad_uncollapsed"])))
 
         time_kernels((p, t), f"P={p} T={t}", inputs, mcfg)
+        if (p, t) == (1024, 1000):
+            # A yardstick for the affine actor kernel, which bytes bound:
+            # what one torch.sum reaches reading as many bytes.
+            nbytes = work("fused_actor_grad",
+                          inputs["fused_actor_grad"][4].shape[0], mcfg)[0]
+            flat = torch.ones(nbytes // 4, device=dev)
+            sum_ms = cuda_ms(lambda: flat.sum(), reps=7, warmup=2)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            record["actor_read_yardstick"] = dict(
+                bytes=nbytes, sum_ms=sum_ms, bound_ms=bytes_ms)
+            print(f"torch.sum over the affine actor's {nbytes / 1e6:.1f} MB: "
+                  f"{sum_ms:.4f} ms (median of 7), {bytes_ms / sum_ms:.1%} "
+                  f"of its bytes bound, {nbytes / sum_ms / 1e9:.2f} TB/s; "
+                  f"the kernel "
+                  f"{times['fused_actor_grad'][(p, t)]['ms'] / sum_ms:.2f}x "
+                  f"its time")
+            del flat
         if slice_inputs is not None:
             # The -bs 250 slices' shape: the un-collapsed kernel's path.
             time_kernels((p, 250), f"P={p} -bs 250 slice 0", slice_inputs,
@@ -817,23 +871,36 @@ def main(out_dir):
 
     # Other widths, on 200,003 random rows through freshly initialised
     # networks: a narrow critic (2 agents, hidden 32: In 20), the widths of
-    # -no 8 (obs 22: critic In 66), -hs 128, 4 agents with 8 obstacles (In
-    # 96) and the widest each kernel takes (critic In 103 = 1 x 103; In 66
-    # and 103 load their rows 4 bytes a copy).  Critic: old values spread
-    # around the new ones, returns apart from both.  Actors: behaviour
-    # log-probs the network's own plus noise (sd 0.1), so the ratios spread
-    # over the clip band as in training.
+    # -no 8 (obs 22: critic In 66), -no 14 (obs 34: In 102), -hs 128, -hs
+    # 256 (two passes of the tensor-core body), 4 agents with 8 obstacles
+    # (In 96), an odd obs width (13) and the widest each kernel takes
+    # (critic In 103 = 1 x 103; In 66, 102 and 103 load their rows 4 bytes
+    # a copy; affine actor obs 255).  Old values 0.05 or 0.4 from the
+    # critic's own values, and behaviour log-probs as far from the actor's
+    # own, either side: the values and the ratios lie inside and outside
+    # the clip band of eps 0.2 but never on its edge, where float32 and
+    # float64 may take different sides of a clip or a min and a row's
+    # whole gradient jumps.  Returns apart from both.
     lib = fu._library()
     max_h = lib.marlnav_max_hidden()
     n = 200_003
+
+    def margins(gen):
+        """n offsets of -0.4, -0.05, 0.05 or 0.4."""
+        return torch.tensor([-0.4, -0.05, 0.05, 0.4], device=dev)[
+            torch.randint(0, 4, (n,), device=dev, generator=gen)]
+
     wide = {"fused_critic_grad": [
                 (2, EnvParams(num_agents=2).obs_size, 32), (3, 22, 50),
-                (3, 12, 128), (4, 24, 128),
-                (1, lib.marlnav_critic_max_in(), max_h)],
+                (3, 12, 128), (4, 24, 128), (1, 103, 128), (3, 12, 256),
+                (3, 34, 256), (1, lib.marlnav_critic_max_in(), max_h)],
             "fused_actor_grad_uncollapsed": [
-                (1, 22, 50), (1, 22, 128), (1, 32, 128),
+                (1, 22, 50), (1, 22, 128), (1, 32, 128), (1, 39, 128),
+                (1, 12, 256), (1, 34, 256),
                 (1, lib.marlnav_uncollapsed_max_obs(), max_h)],
-            "fused_actor_grad": [(1, 22, 50), (1, 32, 50)]}
+            "fused_actor_grad": [(1, 22, 50), (1, 32, 50), (1, 34, 50),
+                                 (1, 13, 50),
+                                 (1, lib.marlnav_actor_max_obs(), 50)]}
     for name, cases in wide.items():
         for agents, f, h in cases:
             gen = make_generator(20 + f + h, dev)
@@ -841,10 +908,19 @@ def main(out_dir):
             x = torch.randn((n, agents * f), device=dev, generator=gen)
             if name == "fused_critic_grad":
                 critic = Critic(f, agents, h, generator=net_gen).to(dev)
+                # Hidden biases of +-2 against pre-activations of spread at
+                # most 1 (x ~ N(0, 1), orthogonal W1): no unit sits at the
+                # ReLU's kink, where the kernel's and float64's roundings
+                # may take different sides and a row's whole term of dW1
+                # and db1 jumps.
+                with torch.no_grad():
+                    critic.fc1.bias.copy_(2.0 * torch.sign(torch.randn(
+                        h, device=dev, generator=gen)))
+                    v = critic(x)[:, 0]
                 label = f"In {agents * f}, H {h}"
                 args = (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
                         critic.fc2.weight.detach(), critic.fc2.bias.detach(),
-                        x, 0.1 * torch.randn(n, device=dev, generator=gen),
+                        x, v + margins(gen),
                         torch.randn(n, device=dev, generator=gen), 0.2)
             else:
                 actor = Actor(f, h, generator=net_gen).to(dev)
@@ -858,8 +934,7 @@ def main(out_dir):
                                  + torch.log(var).sum(1)
                                  + ((act - torch.tanh(actor.fc_mu(hid))) ** 2
                                     / var).sum(1))
-                rows = (x, act,
-                        lp + 0.1 * torch.randn(n, device=dev, generator=gen),
+                rows = (x, act, lp + margins(gen),
                         torch.randn(n, device=dev, generator=gen), 0.2, 0.001)
                 weights = (fc._affine_compose(actor) if name ==
                            "fused_actor_grad" else
@@ -987,14 +1062,20 @@ def main(out_dir):
     record["bench"] = result
 
     # ------------------------------------------------------------------
-    phase("9. training at wide widths: -no 8 and -hs 128, 2 repeats, "
-          "--fused-collect --fused-updates, both actor routes")
+    phase("9. training at wide widths: -no 8, -hs 128, -hs 256 and -no 14, "
+          "2 repeats, --fused-updates, both actor routes")
     # Widths the JAX package trains.  P=256 x buffer 100, 5 + 5 epochs: the
     # affine actor at full batch and the un-collapsed one
-    # (MARLNAV_ACTOR_LAYOUT=packed) at -bs 50 (2 slices).
+    # (MARLNAV_ACTOR_LAYOUT=packed) at -bs 50 (2 slices); with
+    # --fused-collect, except at -no 14: the collect kernel takes at most
+    # 8 obstacles, so that run collects through the plain step loop on
+    # the card (its update kernels see obs 34 and critic input 102).
     record["wide_training"] = {}
     epochs, wp, wt = 5, 256, 100
-    for extra in (["-no", "8"], ["-hs", "128"]):
+    max_o = fc._library()[0].marlnav_collect_max_obstacles()
+    for extra in (["-no", "8"], ["-hs", "128"], ["-hs", "256"],
+                  ["-no", "14"]):
+        fused_collect = int(extra[1]) <= max_o if extra[0] == "-no" else True
         for layout, bs in ((None, wt), ("packed", wt // 2)):
             wcfg = resolve_run_config(build_parser().parse_args(
                 ["-np", str(wp), "-bl", str(wt), "-bs", str(bs), "-ne",
@@ -1004,7 +1085,8 @@ def main(out_dir):
                 os.environ["MARLNAV_ACTOR_LAYOUT"] = layout
             try:
                 reset_counts()
-                _, _, wlog = train(wcfg, device="cuda", fused_collect=True,
+                _, _, wlog = train(wcfg, device="cuda",
+                                   fused_collect=fused_collect,
                                    output_root=out_dir, verbose=False)
                 torch.cuda.synchronize()
                 wide_launches = read_counts()
@@ -1015,7 +1097,8 @@ def main(out_dir):
                             else "fused_actor_grad")
             label = (f"{' '.join(extra)}, "
                      f"{'un-collapsed' if layout else 'affine'} actor, "
-                     f"-bs {bs}")
+                     f"-bs {bs}"
+                     + ("" if fused_collect else ", plain collect"))
             logs = wlog.logs
             print(f"{label}: obs {wcfg.model.obs_size}, critic input "
                   f"{wcfg.model.num_agents * wcfg.model.obs_size}, hidden "
@@ -1024,13 +1107,33 @@ def main(out_dir):
                   f"losses actor {logs['actor'][-1]:.6f}, critic "
                   f"{logs['critic'][-1]:.6f}")
             assert wide_launches == expect(
-                fused_collect=2, fused_critic_grad=grads,
-                **{actor_kernel: grads}), (label, wide_launches)
+                fused_collect=2 if fused_collect else 0,
+                fused_critic_grad=grads, **{actor_kernel: grads}), (
+                    label, wide_launches)
             assert len(logs["mean_rews"]) == 2
             for key in ("mean_rews", "actor", "critic"):
                 assert all(math.isfinite(v) for v in logs[key]), (label, key)
             record["wide_training"][label] = {
                 "launches": wide_launches, "mean_rews": logs["mean_rews"]}
+
+    # ------------------------------------------------------------------
+    phase("10. the card tests: python -m pytest tests_cuda -q")
+    # The kernels against their plain versions under pytest, in a process
+    # of their own (the libraries built above are found by their hash).
+    t0 = time.perf_counter()
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests_cuda", "-q",
+         "-p", "no:cacheprovider"], cwd=here, capture_output=True, text=True)
+    summary = (tests.stdout.strip().splitlines() or [""])[-1]
+    counts = {word: int(num) for num, word in
+              re.findall(r"(\d+) (passed|failed|errors?|skipped)", summary)}
+    print(f"tests_cuda: {summary} (rc {tests.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if tests.returncode != 0 or set(counts) != {"passed"}:
+        print(tests.stdout[-6000:], tests.stderr[-2000:])
+    assert tests.returncode == 0 and counts.get("passed", 0) > 0 \
+        and set(counts) == {"passed"}, summary
+    record["tests_cuda"] = counts
 
     def shape_key(key):
         """(P, T) as "PxT"; other shapes by their label."""

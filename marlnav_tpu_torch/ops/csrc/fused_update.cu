@@ -28,30 +28,28 @@
 //
 // No sequential grid: a TPU kernel carries its sums across grid steps in
 // VMEM.  Here each block writes one partial per output into `partials`
-// (gridDim.x, n_out), and reduce_partials_kernel, launched next on the same
-// stream, sums the blocks' partials in a fixed order (in double).  There is
-// no float atomicAdd, and the grid depends only on the row count and the
-// card's SM count, so two launches on the same input agree bit for bit.
+// (gridDim.x, n_out), which are then summed in a fixed block order (in
+// double): by the affine actor's last block to finish, and for the
+// tensor-core kernels by reduce_partials_kernel, launched next on the same
+// stream.  There is no float atomicAdd, and the grid depends only on the
+// row count, the widths and the card, so two launches on the same input
+// agree bit for bit.
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32 without tensor
 // cores, 495 TFLOP/s TF32 on them), default configuration (F = 12, A*F =
 // 36, H = 50), faithful full batch: 999 x 1024 x 3 = 3,068,928 actor rows,
 // 1,022,976 critic rows.
-//   actor:  64 B a row (obs 48, action 8, log-prob 4, advantage 4)
-//           = 196 MB -> 58.6 us; ~292 float operations a row (0.9 GFLOP,
-//           13 us).  Bytes bound it.  Design: one thread per row in a
-//           grid-stride loop over 4 blocks an SM, the 4 x F + 4 operator in
-//           shared memory, the 4F + 5 sums in registers, coalesced float2
-//           loads; one warp-shuffle + shared-memory reduction a block.
-//           Instances: even F = 2 .. 32.
-//   critic: 152 B a row (obs 144, old value, return) = 155.5 MB -> 46.4 us;
-//           4*In*H + 10*H + 30 operations a row (7,730: two 36 x 50
-//           products and the chain) = 7.9 GFLOP: 16.0 us in TF32, 118 us
-//           on the CUDA cores.  The bytes bound it.
-//   un-collapsed actor: 64 B a row, as the actor = 196 MB -> 58.6 us;
-//           4*F*H + 25*H + 100 operations a row (3,750: W1 x, the heads,
-//           the PPO chain, g_h and the sums) = 11.5 GFLOP: 23 us in TF32,
-//           172 us on the CUDA cores.  The bytes bound it.
+//   actor:  (4F + 16) B a row (obs 48, action 8, log-prob 4, advantage 4)
+//           = 196 MB -> 58.6 us; 16F + 100 float operations a row (0.9
+//           GFLOP, 13 us).  Bytes bound it.  Design (actor_grad_kernel, F
+//           at run time, 1 .. 255): a persistent grid of the blocks that fit
+//           the card at once streams row tiles through a ring of 4 stages
+//           in shared memory, each tile's four spans started by one thread
+//           as bulk copies (the tensor memory accelerator) on the stage's
+//           mbarrier three tiles ahead; a row's chain on 256 / R threads,
+//           the sums by threads that each own four columns of [x | 1] over
+//           a fixed subset of the rows (16 sums in registers at any F); the
+//           last block to finish sums the partials.
 // Both run on one body, tc_grad_kernel<Head, KS>, whose two products run on
 // the tensor cores by mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh); the three
 // TF32 passes and the padding make the tensor cores, not the memory, what
@@ -88,13 +86,19 @@
 //     tiles straight to the block's partial.
 //   - A persistent grid of one block an SM (two for the actor's narrow
 //     instances, whose registers allow it).
+//   - Past 128 hidden units (NT 32) the kernel runs a pass over its rows
+//     for each 16 n-tiles: each pass takes the whole forward, group by
+//     group (the head needs every unit), its own group last, and the
+//     backward of its own group's tiles.
 // Widths are template instances on padded sizes (critic In <= 103, H <=
-// 128; un-collapsed actor F <= 39, H <= 128; critic_instance and
+// 256; un-collapsed actor F <= 39, H <= 256; critic_instance and
 // actor_instance).  mma.sync, not wgmma: see mma_tf32.cuh.
 // Built with -fmad=false like the collect kernel (one flag set for the
 // port's libraries): every multiply and add rounds separately, as PyTorch's
-// elementwise operations do.  The flag does not touch the tensor cores'
-// mma instructions.
+// elementwise operations do, in the per-row chains.  The flag does not
+// touch the tensor cores' mma instructions, nor the affine actor's explicit
+// fused multiply-adds (__fmaf_rn) in z = a_comp x + c_comp and its sums,
+// which its plain version takes by matrix products.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,11 +110,16 @@ namespace update {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 4;  // the wrapper sizes the grid with it
-constexpr int kMaxObs = 32;      // actor widths instantiated: even 2 .. 32
+// The affine actor: a ring of kStages row tiles a block; obs widths up to
+// kActorMaxObs, whose 32-row tiles take 137 KB of shared memory.
+constexpr int kStages = 4;
+constexpr int kActorMaxObs = kThreads - 1;
+// Its tile takes the most rows (256, 128, 64, 32) whose block needs at most
+// this much shared memory, so that two blocks or more share an SM.
+constexpr int kActorSmemTarget = 96 * 1024;
 constexpr int kCriticMaxIn = 103;
 constexpr int kUncollapsedMaxObs = 39;
-constexpr int kMaxHidden = 128;  // critic and un-collapsed actor
+constexpr int kMaxHidden = 256;  // critic and un-collapsed actor
 // Shared memory a block may take on an H100 (227 KB), in floats.
 constexpr int kSmemFloats = 232448 / 4;
 constexpr float kLog2Pi2 = static_cast<float>(2.0 * 1.8378770664093453);
@@ -139,14 +148,18 @@ struct PpoConsts {
 };
 
 struct ActorArgs {
-  const float* obs;  // (N, F)
-  const float* act;  // (N, 2)
-  const float* lp;   // (N,) behaviour log-probs
-  const float* adv;  // (N,)
-  const float* op;   // (4F + 4): a_comp row-major, then c_comp
+  const float* obs;     // (N, F)
+  const float* act;     // (N, 2)
+  const float* lp;      // (N,) behaviour log-probs
+  const float* adv;     // (N,)
+  const float* a_comp;  // (4, F)
+  const float* c_comp;  // (4,)
   long long n_rows;
+  int obs_size, tile_rows;
   PpoConsts k;
-  float* partials;   // (gridDim.x, 1 + 4F + 4)
+  float* partials;      // (gridDim.x, 4F + 5)
+  float* out;           // (4F + 5): loss_sum, dz (4, F), dzs (4)
+  unsigned int* done;   // this launch's finished blocks, 0 at its start
 };
 
 // One row of update_math.ppo_chain: the row's loss term, and g_z =
@@ -196,73 +209,315 @@ __device__ __forceinline__ float ppo_row(const float z[4], float2 a,
   return loss;
 }
 
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-    actor_grad_kernel(const ActorArgs args) {
-  constexpr int kOut = 1 + 4 * F + 4;  // loss, dz (4, F), dzs (4)
-  __shared__ float s_op[4 * F + 4];
-  __shared__ float s_red[kWarps][kOut];
-  for (int i = threadIdx.x; i < 4 * F + 4; i += kThreads) s_op[i] = args.op[i];
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Floats a span of n floats takes in shared memory: up to 3 more, where its
+// source does not start on 16 bytes (span_of).
+__host__ __device__ constexpr int span_floats(int n) { return round4(n + 3); }
+
+// One row tile of the affine actor in shared memory, R rows as four spans:
+// obs (R, F) at 0, actions (R, 2) at act, log-probs and advantages (R) at
+// lp and adv; `floats` in all, each span starting on 16 bytes.
+struct ActorTile {
+  int act, lp, adv, floats;
+  __host__ __device__ ActorTile(int f, int r)
+      : act(span_floats(r * f)),
+        lp(act + span_floats(2 * r)),
+        adv(lp + span_floats(r)),
+        floats(adv + span_floats(r)) {}
+};
+
+// A block's shared memory in floats: [a_comp^T | c_comp] (F + 1, 4), g_z
+// (R, 4) and the ring of tiles; after the rows, the threads' sums (at most
+// kThreads x 16) and then the last block's doubles reuse it.
+__host__ __device__ inline int actor_smem_floats(int f, int r) {
+  const int main =
+      4 * (f + 1) + 4 * r + kStages * ActorTile(f, r).floats;
+  return main > 16 * kThreads ? main : 16 * kThreads;
+}
+
+// Rows a tile (0 outside the widths taken).  F 12: 256 rows, 70 KB, three
+// blocks an SM; F 255: 32 rows, 137 KB, one.
+inline int actor_tile_rows(int f) {
+  if (f < 1 || f > kActorMaxObs) return 0;
+  for (int r = 256; r > 32; r /= 2)
+    if (4 * actor_smem_floats(f, r) <= kActorSmemTarget) return r;
+  return 32;
+}
+
+// The source's offset within 16 bytes, in floats.
+__device__ __forceinline__ int span_lead(const float* src) {
+  return static_cast<int>((reinterpret_cast<std::uintptr_t>(src) >> 2) & 3);
+}
+
+// A span of n floats from src placed in shared memory at dst + lead (lead
+// = span_lead(src)), so that source and destination agree modulo 16 bytes:
+// its body, `units` of 16 bytes from float `head` on, goes by one bulk
+// copy, the up to 3 floats before and after it by 4-byte cp.async.
+struct Span {
+  float* d;
+  const float* src;
+  int n, head, units;
+};
+
+__device__ __forceinline__ Span span_of(float* dst, const float* src, int n) {
+  const int lead = span_lead(src);
+  const int head = min((4 - lead) & 3, n);
+  return {dst + lead, src, n, head, (n - head) >> 2};
+}
+
+// The span's 4-byte copies, on threads t = 0 .. 7.
+__device__ __forceinline__ void copy_edges(const Span& s, int t) {
+  if (t < s.head) mma::cp_async4(s.d + t, s.src + t);
+  const int e = s.head + 4 * s.units + t - 4;  // threads 4 .. 6: the tail
+  if (t >= 4 && e < s.n) mma::cp_async4(s.d + e, s.src + e);
+}
+
+// The affine actor's loss and sums over all rows.  A persistent grid (the
+// blocks resident at once, each on tiles blockIdx.x + k gridDim.x) streams
+// row tiles through a ring of kStages in shared memory: each tile's obs,
+// actions, log-probs and advantages are four contiguous spans, which one
+// thread starts as bulk copies on the stage's mbarrier while the tiles
+// before them are computed (kStages - 1 in flight).  A tile of R rows: kThreads / R threads a row take z = a_comp x
+// + c_comp (each a strided share of the columns, then an xor tree), and
+// ppo_row; one of them writes g_z to shared memory.  Then each thread sums
+// g_z [x | 1]^T of a group of four columns of [x | 1] (16 outputs, one
+// g_z load for 16 fused multiply-adds) over a fixed subset of the rows, so
+// its registers do not grow with F.  Each block writes one
+// partial (its row subsets summed in order), and the last block to finish
+// sums the partials in block order, in double.
+__global__ void __launch_bounds__(kThreads, 2)
+    actor_grad_kernel(const ActorArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ float s_loss[kWarps];
+  __shared__ bool s_last;
+  __shared__ uint64_t s_full[kStages];  // a stage's copies have landed
+  const int f = a.obs_size, rt = a.tile_rows, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const ActorTile tile(f, rt);
+  // s_op[j] = a_comp[:, j] (one 16-byte load a column of x), s_op[F] =
+  // c_comp.
+  const float4* s_op = smem4;
+  float4* s_gz = smem4 + f + 1;  // (R) g_z
+  float* s_ring = smem + 4 * (f + 1 + rt);
+  for (int i = tid; i < 4 * f; i += kThreads)
+    smem[4 * (i % f) + i / f] = a.a_comp[i];
+  if (tid < 4) smem[4 * f + tid] = a.c_comp[tid];
+  if (tid == 0)
+    for (int i = 0; i < kStages; ++i) mma::mbar_init(&s_full[i], 1);
   __syncthreads();
 
-  float loss = 0.f, dz[4][F], dzs[4];
+  const long long n = a.n_rows, n_tiles = (n + rt - 1) / rt;
+  const long long tiles = (n_tiles - 1 - blockIdx.x) / gridDim.x + 1;
+  auto first_row = [&](long long k) {
+    return (blockIdx.x + k * gridDim.x) * static_cast<long long>(rt);
+  };
+  // Warp 0 starts tile k's copies: thread 0 the four bodies (after a
+  // proxy fence: the stage was last read by the block's threads), threads
+  // 8 i .. 8 i + 7 span i's edges.
+  auto fetch = [&](long long k) {
+    if (warp != 0) return;
+    const long long r0 = first_row(k);
+    const int rows = static_cast<int>(n - r0 < rt ? n - r0 : rt);
+    const int stage = static_cast<int>(k % kStages);
+    float* st = s_ring + stage * tile.floats;
+    auto span = [&](int i) {
+      return i == 0   ? span_of(st, a.obs + r0 * f, rows * f)
+             : i == 1 ? span_of(st + tile.act, a.act + 2 * r0, 2 * rows)
+             : i == 2 ? span_of(st + tile.lp, a.lp + r0, rows)
+                      : span_of(st + tile.adv, a.adv + r0, rows);
+    };
+    if (tid == 0) {
+      mma::fence_proxy_async();
+      const Span sp[4] = {span(0), span(1), span(2), span(3)};
+      unsigned bytes = 0;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    dzs[c] = 0.f;
+      for (int i = 0; i < 4; ++i) bytes += 16u * sp[i].units;
+      mma::mbar_arrive_expect(&s_full[stage], bytes);
 #pragma unroll
-    for (int f = 0; f < F; ++f) dz[c][f] = 0.f;
+      for (int i = 0; i < 4; ++i)
+        if (sp[i].units)
+          mma::bulk_copy(sp[i].d + sp[i].head, sp[i].src + sp[i].head,
+                         16u * sp[i].units, &s_full[stage]);
+    }
+    copy_edges(span(lane >> 3), lane & 7);
+  };
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < tiles) fetch(k);
+    mma::cp_async_commit();
   }
 
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long row = static_cast<long long>(blockIdx.x) * kThreads +
-                       threadIdx.x;
-       row < args.n_rows; row += stride) {
-    float x[F];
-    const float2* xr = reinterpret_cast<const float2*>(args.obs + row * F);
+  // The chain: row `row` of a tile on threads k = 0 .. tpr - 1 (adjacent
+  // lanes), which sum columns k, k + tpr, ... of z.
+  const int tpr = kThreads / rt, row = tid / tpr, kr = tid % tpr;
+  const unsigned row_mask = ((1u << tpr) - 1u) << (lane & ~(tpr - 1));
+  // The sums: columns c0 .. c0 + 3 of [x | 1] (column F is the ones
+  // column, dzs; columns past it are none) over rows sub, sub + q, ... of
+  // each tile; a group's q threads are consecutive.
+  const int ng = (f + 4) / 4, q = kThreads / ng;
+  const int cg = tid / q, sub = tid % q, c0 = 4 * cg;
+  const bool summing = cg < ng, full4 = c0 + 4 <= f;
+  float acc[4][4] = {}, loss = 0.f;  // acc[column][output]
+  for (long long k = 0; k < tiles; ++k) {
+    mma::cp_async_wait<kStages - 2>();
+    mma::mbar_wait(&s_full[k % kStages],
+                   static_cast<unsigned>(k / kStages) & 1u);
+    __syncthreads();  // tile k is in; every thread is done with tile k - 1
+    if (k + kStages - 1 < tiles) fetch(k + kStages - 1);  // into k - 1's
+    mma::cp_async_commit();
+    const long long r0 = first_row(k);
+    const int rows = static_cast<int>(n - r0 < rt ? n - r0 : rt);
+    const float* st = s_ring + static_cast<int>(k % kStages) * tile.floats;
+    const int x0 = static_cast<int>(st - smem) + span_lead(a.obs + r0 * f);
+    // Rows on 16 bytes (F % 4 == 0 and obs on 16 bytes): a row's x by
+    // float4, which at a stride of F floats hits no bank twice in a
+    // quarter warp (4-byte loads of F 12 rows hit each bank 4 times).
+    const bool vec = (f & 3) == 0 && (x0 & 3) == 0;
+    if (row < rows) {
+      const float* xr = smem + x0 + row * f;
+      float z[4] = {0.f, 0.f, 0.f, 0.f};
+      auto column = [&](float xv, float4 w) {
+        z[0] = __fmaf_rn(w.x, xv, z[0]);
+        z[1] = __fmaf_rn(w.y, xv, z[1]);
+        z[2] = __fmaf_rn(w.z, xv, z[2]);
+        z[3] = __fmaf_rn(w.w, xv, z[3]);
+      };
+      if (vec) {  // 16-byte loads of x, free of bank conflicts
+        for (int j = 4 * kr; j < f; j += 4 * tpr) {
+          const float4 xv = *reinterpret_cast<const float4*>(xr + j);
+          column(xv.x, s_op[j]);
+          column(xv.y, s_op[j + 1]);
+          column(xv.z, s_op[j + 2]);
+          column(xv.w, s_op[j + 3]);
+        }
+      } else {
+        for (int j = kr; j < f; j += tpr) column(xr[j], s_op[j]);
+      }
+      for (int off = 1; off < tpr; off <<= 1)
 #pragma unroll
-    for (int f = 0; f < F / 2; ++f) {
-      const float2 v = xr[f];
-      x[2 * f] = v.x;
-      x[2 * f + 1] = v.y;
+        for (int c = 0; c < 4; ++c)
+          z[c] += __shfl_xor_sync(row_mask, z[c], off);
+      const float4 cc = s_op[f];
+      z[0] = z[0] + cc.x;
+      z[1] = z[1] + cc.y;
+      z[2] = z[2] + cc.z;
+      z[3] = z[3] + cc.w;
+      const float* act = st + tile.act + span_lead(a.act + 2 * r0) + 2 * row;
+      float g[4];
+      const float l = ppo_row(z, make_float2(act[0], act[1]),
+                              st[tile.lp + span_lead(a.lp + r0) + row],
+                              st[tile.adv + span_lead(a.adv + r0) + row],
+                              a.k, g);
+      if (kr == 0) {
+        loss += l;
+        s_gz[row] = make_float4(g[0], g[1], g[2], g[3]);
+      }
     }
-    float z[4];
+    __syncthreads();  // the tile's g_z
+    if (summing) {
+      auto add = [&](const float4 g, const float (&xv)[4]) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float acc = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] = __fmaf_rn(g.x, xv[i], acc[i][0]);
+          acc[i][1] = __fmaf_rn(g.y, xv[i], acc[i][1]);
+          acc[i][2] = __fmaf_rn(g.z, xv[i], acc[i][2]);
+          acc[i][3] = __fmaf_rn(g.w, xv[i], acc[i][3]);
+        }
+      };
+      const float* xc = smem + x0 + c0;
+      if (full4 && vec) {
+        for (int r = sub; r < rows; r += q) {
+          const float4 v = *reinterpret_cast<const float4*>(xc + r * f);
+          const float xv[4] = {v.x, v.y, v.z, v.w};
+          add(s_gz[r], xv);
+        }
+      } else if (full4) {
+        for (int r = sub; r < rows; r += q) {
+          const float* xr = xc + r * f;
+          const float xv[4] = {xr[0], xr[1], xr[2], xr[3]};
+          add(s_gz[r], xv);
+        }
+      } else {  // the last group: x columns c0 .. F - 1, the ones, none
+        for (int r = sub; r < rows; r += q) {
+          const float* xr = xc + r * f;
+          float xv[4];
 #pragma unroll
-      for (int f = 0; f < F; ++f) acc = acc + s_op[c * F + f] * x[f];
-      z[c] = acc + s_op[4 * F + c];
-    }
-    float g_z[4];
-    loss += ppo_row(z, reinterpret_cast<const float2*>(args.act)[row],
-                    args.lp[row], args.adv[row], args.k, g_z);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      dzs[c] += g_z[c];
-#pragma unroll
-      for (int f = 0; f < F; ++f) dz[c][f] += g_z[c] * x[f];
+          for (int i = 0; i < 4; ++i)
+            xv[i] = c0 + i < f ? xr[i] : c0 + i == f ? 1.f : 0.f;
+          add(s_gz[r], xv);
+        }
+      }
     }
   }
-
-  // Block reduction: warp shuffles, then the warps in order.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float v = warp_sum(loss);
-  if (lane == 0) s_red[warp][0] = v;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      v = warp_sum(dz[c][f]);
-      if (lane == 0) s_red[warp][1 + c * F + f] = v;
-    }
-    v = warp_sum(dzs[c]);
-    if (lane == 0) s_red[warp][1 + 4 * F + c] = v;
-  }
+  mma::cp_async_wait<0>();
   __syncthreads();
-  for (int k = threadIdx.x; k < kOut; k += kThreads) {
+
+  // The block's partial: each output's row subsets in order, the loss by
+  // warp shuffles and then the warps in order.
+  float4* red = smem4;  // (q, ng, 4 columns) of the 4 outputs
+  if (summing)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      red[(sub * ng + cg) * 4 + i] =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  const float v = warp_sum(loss);
+  if (lane == 0) s_loss[warp] = v;
+  __syncthreads();
+  const int n_out = 4 * f + 5;
+  float* part = a.partials + static_cast<long long>(blockIdx.x) * n_out;
+  const float* red_f = smem;
+  for (int o = tid; o < 4 * (f + 1); o += kThreads) {  // column o / 4
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += s_red[w][k];
-    args.partials[static_cast<long long>(blockIdx.x) * kOut + k] = s;
+    for (int j = 0; j < q; ++j) s += red_f[16 * j * ng + o];
+    const int c = o & 3, cl = o >> 2;
+    part[cl < f ? 1 + c * f + cl : 1 + 4 * f + c] = s;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += s_loss[w];
+    part[0] = s;
+  }
+
+  // The last block to finish sums the partials, in double: consecutive
+  // threads on consecutive outputs (coalesced), `parts` groups of threads
+  // on blocks part, part + parts, ..., eight loads in flight a thread
+  // (into eight sums, added in a fixed tree), then the groups in order.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(a.done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int span = n_out < kThreads ? (n_out + 31) & ~31 : kThreads;
+  const int parts = kThreads / span, part_i = tid / span, oi = tid % span;
+  const int grid = static_cast<int>(gridDim.x);
+  double* s_sum = reinterpret_cast<double*>(smem);  // (parts, span)
+  for (int o0 = 0; o0 < n_out; o0 += span) {
+    const int o = o0 + oi;
+    double s[8] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+    if (o < n_out) {
+      const float* p = a.partials + o;
+      int b = part_i;
+      for (; b + 7 * parts < grid; b += 8 * parts)
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          s[u] += static_cast<double>(
+              __ldcg(p + static_cast<long long>(b + u * parts) * n_out));
+      for (; b < grid; b += parts)
+        s[0] += static_cast<double>(
+            __ldcg(p + static_cast<long long>(b) * n_out));
+    }
+    s_sum[part_i * span + oi] =
+        ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
+    __syncthreads();
+    if (part_i == 0 && o < n_out) {
+      double t = s_sum[oi];
+      for (int j = 1; j < parts; ++j) t += s_sum[j * span + oi];
+      a.out[o] = static_cast<float>(t);
+    }
+    __syncthreads();
   }
 }
 
@@ -297,12 +552,24 @@ __device__ __forceinline__ void prefetch_column(const float* src, long long r0,
 //   row:  old values (N,), returns (N,);
 //   head: w2 (1, H), b2 (1,);
 //   out:  loss_sum, dW1 (H, In), db1 (H), dW2 (H), db2.
+// The hidden units (8 NT) run in passes of kNtg n-tiles (at most 16: 128
+// units) over the rows; see tc_grad_kernel.
 template <int NT>
-struct CriticHead {
+struct PassTiles {
   static constexpr int kNt = NT;
+  static constexpr int kNtg = NT > 16 ? 16 : NT;
+  static constexpr int kGroups = NT / kNtg;
+  static_assert(NT % kNtg == 0, "whole passes");
+};
+
+template <int NT>
+struct CriticHead : PassTiles<NT> {
+  static constexpr int kNtg = PassTiles<NT>::kNtg;
   static constexpr int kAux = 2;    // floats a row: old value, return
   static constexpr int kThird = 0;  // dW2 stays in registers
   static constexpr int kParamFloats = NT * 8;  // w2, zero-padded
+  static constexpr int kSums = 2;   // a lane's share of v, rows g and g + 8
+  static constexpr int kSmallMax = NT * 8 + 2;
   static __host__ __device__ int n_out(int in, int hid) {
     return 1 + hid * in + 2 * hid + 1;
   }
@@ -318,7 +585,7 @@ struct CriticHead {
     return m < in ? 1 + j * in + m : 1 + hid * in + j;
   }
 
-  float acc_w2[NT][2];  // dW2, columns 8 nt + 2t, + 1, over this lane's rows
+  float acc_w2[kNtg][2];  // dW2 of the pass's columns, over this lane's rows
   float acc_loss, acc_b2;  // lanes t == 0: rows g and g + 8
   float b2, eps;
 
@@ -329,8 +596,13 @@ struct CriticHead {
     b2 = a.head[1][0];
     eps = a.eps;
     acc_loss = acc_b2 = 0.f;
+    clear();
+  }
+
+  // Zero the sums of a pass's columns.
+  __device__ void clear() {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc_w2[nt][0] = acc_w2[nt][1] = 0.f;
+    for (int nt = 0; nt < kNtg; ++nt) acc_w2[nt][0] = acc_w2[nt][1] = 0.f;
   }
 
   // Old values into aux[0 .. 15], returns into aux[16 .. 31].
@@ -340,18 +612,16 @@ struct CriticHead {
     prefetch_column(a.row[1], r0, rows, aux + 16, lane, 16);
   }
 
-  // The 16 rows of a chunk from their pre-activations c (the fragments of
-  // rows g and g + 8): h = relu(pre) in place, the loss chain, g_pre into
-  // s_g (16, LDG); rows from row0 on are valid below n.
-  template <int LDG>
-  __device__ void rows(float (&c)[NT][4], const float* s_par, const float* aux,
-                       long long row0, long long n, int g, int t, float* s_g,
-                       float*, float*) {
-    float p[2] = {0.f, 0.f};
+  // From the pre-activations c of hidden units col0 + 8 nt + 2t, + 1 (the
+  // fragments of rows g and g + 8): h = relu(pre) in place, and this lane's
+  // share of w2 . h added to p.
+  template <int NTG>
+  static __device__ void sums(float (&c)[NTG][4], const float* s_par,
+                              int col0, int t, float (&p)[kSums]) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NTG; ++nt) {
       const float2 w =
-          *reinterpret_cast<const float2*>(s_par + nt * 8 + 2 * t);
+          *reinterpret_cast<const float2*>(s_par + col0 + nt * 8 + 2 * t);
 #pragma unroll
       for (int i = 0; i < 4; ++i) c[nt][i] = fmaxf(c[nt][i], 0.f);
 #pragma unroll
@@ -360,6 +630,17 @@ struct CriticHead {
         p[h] = p[h] + w.y * c[nt][2 * h + 1];
       }
     }
+  }
+
+  // The 16 rows of a chunk from the lane's shares p of w2 . h (all hidden
+  // units) and the pass's h in c (units col0 ..): the loss chain, g_pre
+  // into s_g (16, LDG); rows from row0 on are valid below n.  The loss and
+  // db2 count where `first` (the first pass).
+  template <int NTG, int LDG>
+  __device__ void rows(float (&c)[NTG][4], float (&p)[kSums],
+                       const float* s_par, const float* aux, long long row0,
+                       long long n, int g, int t, int col0, bool first,
+                       float* s_g, float*, float*) {
     float gv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -370,16 +651,16 @@ struct CriticHead {
       const float gvr = critic_row(p[h] + b2, aux[row], aux[16 + row], &loss);
       const bool valid = row0 + row < n;
       gv[h] = valid ? gvr : 0.f;
-      if (valid && t == 0) {
+      if (valid && t == 0 && first) {
         acc_loss += loss;
         acc_b2 += gvr;
       }
     }
     // g_pre = (w2 g_v) (h > 0) into the warp's tile; dW2 += g_v h.
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NTG; ++nt) {
       const float2 w =
-          *reinterpret_cast<const float2*>(s_par + nt * 8 + 2 * t);
+          *reinterpret_cast<const float2*>(s_par + col0 + nt * 8 + 2 * t);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float h0 = c[nt][2 * h], h1 = c[nt][2 * h + 1];
@@ -408,22 +689,25 @@ struct CriticHead {
     return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
   }
 
-  // This warp's loss, dW2 and db2 sums into dst, at small index k, or at
-  // its output index where `full`.
+  // This warp's dW2 sums of the pass's columns (col0 ..) and, with
+  // `scalars`, its loss and db2 sums into dst, at small index k, or at
+  // their output index where `full`.
   __device__ void store_small(float* dst, bool full, int in, int hid, int g,
-                              int t, int lane) {
+                              int t, int lane, int col0 = 0,
+                              bool scalars = true) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < kNtg; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float s = acc_w2[nt][e];
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off);
-        const int j = nt * 8 + 2 * t + e;
+        const int j = col0 + nt * 8 + 2 * t + e;
         if (g == 0 && j < hid)
           dst[full ? small_index(1 + j, in, hid) : 1 + j] = s;
       }
+    if (!scalars) return;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       acc_loss += __shfl_xor_sync(0xffffffffu, acc_loss, off);
@@ -443,12 +727,16 @@ struct CriticHead {
 //   out:  loss_sum, dW1 (H, F), db1 (H), dWmu (2, H), dbmu (2), dWvar
 //         (2, H), dbvar (2).
 template <int NT>
-struct ActorHead {
-  static constexpr int kNt = NT;
+struct ActorHead : PassTiles<NT> {
+  static constexpr int kNtg = PassTiles<NT>::kNtg;
   static constexpr int kAux = 4;    // floats a row: action (2), lp, adv
   static constexpr int kThird = 1;  // dWmu, dWvar = g_z^T h, one m-tile
   // [Wmu; Wvar] (4, 8 NT), zero-padded, then [bmu; bvar].
   static constexpr int kParamFloats = 4 * NT * 8 + 4;
+  // A lane's share of z = [Wmu; Wvar] h: p[2 o + h], output o, rows g and
+  // g + 8.
+  static constexpr int kSums = 8;
+  static constexpr int kSmallMax = 5;
   static __host__ __device__ int n_out(int in, int hid) {
     return 1 + hid * in + 5 * hid + 4;
   }
@@ -494,6 +782,9 @@ struct ActorHead {
     for (int c = 0; c < 4; ++c) acc_bh[c] = 0.f;
   }
 
+  // The pass's sums are all tiles of the backward.
+  __device__ void clear() {}
+
   // Actions into aux[0 .. 31] (row r at 2r, 2r + 1), log-probs into
   // aux[32 .. 47], advantages into aux[48 .. 63].
   static __device__ void prefetch(const GradArgs& a, long long r0, int rows,
@@ -503,28 +794,35 @@ struct ActorHead {
     prefetch_column(a.row[2], r0, rows, aux + 48, lane, 16);
   }
 
-  // The 16 rows of a chunk from h = [x | 1][W1^T ; b1] in c (the fragments
-  // of rows g and g + 8): the heads, the PPO chain, then h into s_h (16,
-  // LDG), g_z into s_z (16, 4) and g_h into s_g (16, LDG).
-  template <int LDG>
-  __device__ void rows(float (&c)[NT][4], const float* s_par, const float* aux,
-                       long long row0, long long n, int g, int t, float* s_g,
-                       float* s_h, float* s_z) {
-    float p[4][2];
+  // This lane's share of z = [Wmu; Wvar] h over hidden units col0 + 8 nt +
+  // 2t, + 1, whose h = [x | 1][W1^T ; b1] is in c (the fragments of rows g
+  // and g + 8), added to p.
+  template <int NTG>
+  static __device__ void sums(float (&c)[NTG][4], const float* s_par,
+                              int col0, int t, float (&p)[kSums]) {
 #pragma unroll
-    for (int o = 0; o < 4; ++o) p[o][0] = p[o][1] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NTG; ++nt)
 #pragma unroll
       for (int o = 0; o < 4; ++o) {
         const float2 w = *reinterpret_cast<const float2*>(
-            s_par + o * NT * 8 + nt * 8 + 2 * t);
+            s_par + o * NT * 8 + col0 + nt * 8 + 2 * t);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          p[o][h] = p[o][h] + w.x * c[nt][2 * h];
-          p[o][h] = p[o][h] + w.y * c[nt][2 * h + 1];
+          p[2 * o + h] = p[2 * o + h] + w.x * c[nt][2 * h];
+          p[2 * o + h] = p[2 * o + h] + w.y * c[nt][2 * h + 1];
         }
       }
+  }
+
+  // The 16 rows of a chunk from the lane's shares p of z (all hidden units)
+  // and the pass's h in c (units col0 ..): the PPO chain, then h into s_h
+  // (16, LDG), g_z into s_z (16, 4) and g_h into s_g (16, LDG).  The loss
+  // and the head biases' sums count where `first` (the first pass).
+  template <int NTG, int LDG>
+  __device__ void rows(float (&c)[NTG][4], float (&p)[kSums],
+                       const float* s_par, const float* aux, long long row0,
+                       long long n, int g, int t, int col0, bool first,
+                       float* s_g, float* s_h, float* s_z) {
     // The PPO chain once a lane: lanes t = 0, 1 of the quad take row g,
     // lanes 2, 3 row g + 8; the quad's other row comes by one shuffle.
     const int mh = t >> 1, row = g + 8 * mh;
@@ -533,10 +831,11 @@ struct ActorHead {
     for (int o = 0; o < 4; ++o) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        p[o][h] = p[o][h] + __shfl_xor_sync(0xffffffffu, p[o][h], 1);
-        p[o][h] = p[o][h] + __shfl_xor_sync(0xffffffffu, p[o][h], 2);
+        float& q = p[2 * o + h];
+        q = q + __shfl_xor_sync(0xffffffffu, q, 1);
+        q = q + __shfl_xor_sync(0xffffffffu, q, 2);
       }
-      z[o] = (mh ? p[o][1] : p[o][0]) + s_par[4 * NT * 8 + o];
+      z[o] = (mh ? p[2 * o + 1] : p[2 * o]) + s_par[4 * NT * 8 + o];
     }
     float g_row[4], gz[2][4];  // gz: rows g and g + 8
     const float loss = ppo_row(z, make_float2(aux[2 * row], aux[2 * row + 1]),
@@ -549,7 +848,7 @@ struct ActorHead {
       gz[0][o] = mh ? other : g_row[o];
       gz[1][o] = mh ? g_row[o] : other;
     }
-    if (valid && (t & 1) == 0) {
+    if (valid && (t & 1) == 0 && first) {
       acc_loss += loss;
 #pragma unroll
       for (int o = 0; o < 4; ++o) acc_bh[o] += g_row[o];
@@ -559,12 +858,12 @@ struct ActorHead {
           make_float4(g_row[0], g_row[1], g_row[2], g_row[3]);
     // h and g_h = Wmu^T g_u + Wvar^T g_s into the warp's tiles.
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NTG; ++nt) {
       float w[4][2];
 #pragma unroll
       for (int o = 0; o < 4; ++o) {
         const float2 v = *reinterpret_cast<const float2*>(
-            s_par + o * NT * 8 + nt * 8 + 2 * t);
+            s_par + o * NT * 8 + col0 + nt * 8 + 2 * t);
         w[o][0] = v.x;
         w[o][1] = v.y;
       }
@@ -584,9 +883,11 @@ struct ActorHead {
     }
   }
 
-  // This warp's loss, dbmu and dbvar sums into dst (see CriticHead).
+  // This warp's loss, dbmu and dbvar sums into dst where `scalars` (see
+  // CriticHead).
   __device__ void store_small(float* dst, bool full, int in, int hid, int,
-                              int, int lane) {
+                              int, int lane, int = 0, bool scalars = true) {
+    if (!scalars) return;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       acc_loss += __shfl_xor_sync(0xffffffffu, acc_loss, off);
@@ -624,21 +925,24 @@ constexpr int tc_best_wn(int mt, int nt, int warps) {
 }
 
 // The shape of tc_grad_kernel<Head, KS>: KS k-steps of 8 over [x | 1] (In +
-// 1 <= 8 KS), NT = Head::kNt n-tiles of 8 over the hidden units (H <= 8 NT).
+// 1 <= 8 KS), NT = Head::kNt n-tiles of 8 over the hidden units (H <= 8 NT),
+// in kGroups passes of kNtg n-tiles each.
 template <class Head, int KS>
 struct TcShape {
   static constexpr int kNt = Head::kNt;
+  static constexpr int kNtg = Head::kNtg;
+  static constexpr int kGroups = Head::kGroups;
   static constexpr int kMt = (KS + 1) / 2;  // backward m-tiles over [x | 1]
   static constexpr int kMtAll = kMt + Head::kThird;
   // The row buffer's stride LDX (= 4 mod 8) keeps the forward A loads free
   // of bank conflicts (the transposed backward loads have 2-way ones);
   // g_pre's LDG (= 8 or 24 mod 32) keeps the backward B loads free of them.
   static constexpr int kLdx = kMt * 16 + 4;
-  static constexpr int kLdg = kNt * 8 % 16 == 0 ? kNt * 8 + 8 : kNt * 8;
+  static constexpr int kLdg = kNtg * 8 % 16 == 0 ? kNtg * 8 + 8 : kNtg * 8;
   // Warps share their rows where one warp's registers would not hold
-  // every output tile: the default critic (3 x 7 tiles, 211 registers)
-  // is the largest that does not.
-  static constexpr bool kShared = kMtAll * kNt > 21;
+  // every output tile of a pass: the default critic (3 x 7 tiles, 211
+  // registers) is the largest that does not.
+  static constexpr bool kShared = kGroups > 1 || kMtAll * kNtg > 21;
   // A warp's region: rows (2, 16, LDX) | g_pre (16, LDG) | h (16, LDG) and
   // g_z (16, 4) for a third product | per-row inputs (2, 16 kAux).
   static constexpr int kOffG = 2 * 16 * kLdx;
@@ -646,28 +950,32 @@ struct TcShape {
   static constexpr int kOffZ = kOffH + Head::kThird * 16 * kLdg;
   static constexpr int kOffAux = kOffZ + Head::kThird * 16 * 4;
   static constexpr int kWarpFloats = kOffAux + 2 * 16 * Head::kAux;
+  // With several passes, each warp keeps its small sums (loss, the head's
+  // bias sums, the critic's dW2) in a row of its own across them.
+  static constexpr int kSmall = kGroups > 1 ? Head::kSmallMax : 0;
   // W1's fragments split into TF32 halves once a block where that fits
   // beside 8 warps, else as floats split at each load.
   static constexpr bool kPreSplit =
-      KS * kNt * 32 * 4 + Head::kParamFloats + 8 * kWarpFloats <=
+      KS * kNt * 32 * 4 + Head::kParamFloats + 8 * (kWarpFloats + kSmall) <=
       kSmemFloats;
   static constexpr int kFragFloats = KS * kNt * 32 * (kPreSplit ? 4 : 2);
-  static constexpr int kFit =
-      (kSmemFloats - kFragFloats - Head::kParamFloats) / kWarpFloats;
+  static constexpr int kFit = (kSmemFloats - kFragFloats -
+                               Head::kParamFloats) / (kWarpFloats + kSmall);
   static constexpr int kWarps = kFit < 8 ? kFit : 8;
-  static constexpr int kMainFloats =
-      kFragFloats + Head::kParamFloats + kWarps * kWarpFloats;
-  // Output tiles of a warp: a WM x WN grid of warps over (kMtAll, NT)
-  // tiles where the rows are shared, else all of them.
-  static constexpr int kWn = kShared ? tc_best_wn(kMtAll, kNt, kWarps) : 1;
+  static constexpr int kMainFloats = kFragFloats + Head::kParamFloats +
+                                     kWarps * (kWarpFloats + kSmall);
+  // Output tiles of a warp: a WM x WN grid of warps over a pass's (kMtAll,
+  // kNtg) tiles where the rows are shared, else all of them.
+  static constexpr int kWn = kShared ? tc_best_wn(kMtAll, kNtg, kWarps) : 1;
   static constexpr int kWm = kShared ? kWarps / kWn : 1;
   static constexpr int kMtw = (kMtAll + kWm - 1) / kWm;
   // Blocks an SM: two of the actor's per-warp instances of up to 14 tiles,
-  // which fit 128 registers a thread without spilling and whose chain
-  // leaves the tensor cores idle between chunks; one of every other (the
-  // critic's default keeps 211 registers).
-  static constexpr int kBlocks = Head::kThird && kMtAll * kNt <= 14 ? 2 : 1;
-  static constexpr int kNtw = (kNt + kWn - 1) / kWn;
+  // held to 128 registers a thread, whose chain leaves the tensor cores
+  // idle between chunks; one of every other (the critic's default keeps
+  // 211 registers).
+  static constexpr int kBlocks =
+      Head::kThird && kGroups == 1 && kMtAll * kNtg <= 14 ? 2 : 1;
+  static constexpr int kNtw = (kNtg + kWn - 1) / kWn;
   static_assert(kWarps >= 1 && kMainFloats <= kSmemFloats,
                 "an instance fits the block's shared memory");
   static_assert(kShared || kWarps == 8, "per-warp instances take 8 warps");
@@ -707,14 +1015,61 @@ __device__ __forceinline__ void tc_prefetch(const GradArgs& a, long long chunk,
   Head::prefetch(a, r0, rows, aux, lane);
 }
 
+// pre = [x | 1] [W1^T ; b1] over a warp's 16 rows x (16, LDX) for the
+// n-tiles nt0 .. nt0 + NTG - 1, into c (the fragments of rows g and g + 8).
+template <class Sh, int KS, int NTG, int LDX>
+__device__ __forceinline__ void tc_forward(float (&c)[NTG][4], const float* x,
+                                           const float4* smem4, int nt0,
+                                           int lane) {
+  constexpr int NT = Sh::kNt;
+#pragma unroll
+  for (int nt = 0; nt < NTG; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    float a[4];
+    uint32_t a_big[4], a_small[4];
+    mma::load_a_rows(x + ks * 8, LDX, lane, a);
+    mma::split(a, a_big, a_small);
+#pragma unroll
+    for (int nt = 0; nt < NTG; ++nt) {
+      uint32_t b_big[2], b_small[2];
+      const int at = (ks * NT + nt0 + nt) * 32 + lane;
+      if (Sh::kPreSplit) {
+        const float4 w = smem4[at];
+        b_big[0] = __float_as_uint(w.x);
+        b_big[1] = __float_as_uint(w.y);
+        b_small[0] = __float_as_uint(w.z);
+        b_small[1] = __float_as_uint(w.w);
+      } else {
+        const float2 w = reinterpret_cast<const float2*>(smem4)[at];
+        const float b[2] = {w.x, w.y};
+        mma::split(b, b_big, b_small);
+      }
+      mma::mma_3xtf32(c[nt], a_big, a_small, b_big, b_small);
+    }
+  }
+}
+
+// Past 16 n-tiles (128 hidden units) the kernel runs kGroups passes over
+// its rows, pass q for the hidden units of n-tiles 16 q .. 16 q + 15: the
+// head needs every unit before a row's chain, so each pass takes the whole
+// forward, group by group (each group's share of the head summed on its
+// own, the shares added in group order, so every pass sees the same v or
+// z), its own group last, whose pre stays in registers for g_pre and the
+// backward of its tiles.  Registers stay those of a 16-tile pass; the
+// forward's products and the row reads are paid once a pass.
 template <class Head, int KS>
 __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
                                   TcShape<Head, KS>::kBlocks)
     tc_grad_kernel(const GradArgs args) {
   using Sh = TcShape<Head, KS>;
-  constexpr int NT = Sh::kNt, W = Sh::kWarps, S = Sh::kShared ? W : 1;
+  constexpr int NT = Sh::kNt, NTG = Sh::kNtg, G = Sh::kGroups;
+  constexpr int W = Sh::kWarps, S = Sh::kShared ? W : 1;
   constexpr int MT = Sh::kMt, LDX = Sh::kLdx, LDG = Sh::kLdg;
   constexpr int WM = Sh::kWm, WN = Sh::kWn, MTW = Sh::kMtw, NTW = Sh::kNtw;
+  constexpr int P = Head::kSums;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int in = args.in_size, hid = args.hidden;
@@ -722,9 +1077,10 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
   const int g = lane >> 2, t = lane & 3;
   // (KS, NT, 32) B fragments of [W1^T ; b1]: big b0, big b1, small b0,
   // small b1 a lane (or b0, b1 as floats), then the head's weights, then
-  // the warps' regions.
+  // the warps' regions, then (several passes) the warps' small sums.
   float* s_par = smem + Sh::kFragFloats;
   float* s_warps = s_par + Head::kParamFloats;
+  float* s_small = s_warps + W * Sh::kWarpFloats;
   float* mine = s_warps + warp * Sh::kWarpFloats;
 
   for (int i = tid; i < KS * NT * 32; i += W * 32) {
@@ -758,159 +1114,199 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
   mine[lane * LDX + in] = 1.f;
   __syncthreads();
 
-  // Backward accumulators of this warp's output tiles (m-tile wm + WM i,
-  // n-tile wn + WN j).
+  // Backward accumulators of this warp's output tiles of a pass (m-tile
+  // wm + WM i, n-tile wn + WN j of the pass's kNtg).
   float bacc[MTW][NTW][4];
-#pragma unroll
-  for (int i = 0; i < MTW; ++i)
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) bacc[i][j][e] = 0.f;
   const int own = warp % S, wq0 = warp - own;  // the group's first warp
   const int wm = own / WN, wn = own % WN;
-
-  // Each round the group of S warps takes S chunks, one a warp.
   const long long n = args.n_rows, n_chunks = (n + 15) / 16;
   const long long stride = static_cast<long long>(gridDim.x) * W;
-  long long base = static_cast<long long>(blockIdx.x) * W + wq0;
   float* aux_own = mine + Sh::kOffAux;
-  if (base + own < n_chunks)
-    tc_prefetch<Head, LDX>(args, base + own, mine, aux_own, lane);
-  mma::cp_async_commit();
-  for (int buf = 0; base < n_chunks; base += stride, buf ^= 1) {
-    const long long chunk = base + own, next = chunk + stride;
-    if (next < n_chunks)
-      tc_prefetch<Head, LDX>(args, next, mine + (buf ^ 1) * 16 * LDX,
-                             aux_own + (buf ^ 1) * 16 * Head::kAux, lane);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();
-    __syncwarp();
-    const float* x = mine + buf * 16 * LDX;
+  const int n_out = Head::n_out(in, hid);
+  float* out = args.partials + static_cast<long long>(blockIdx.x) * n_out;
 
-    // Forward: pre = [x | 1] [W1^T ; b1] over the warp's 16 rows.
-    float c[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      float a[4];
-      uint32_t a_big[4], a_small[4];
-      mma::load_a_rows(x + ks * 8, LDX, lane, a);
-      mma::split(a, a_big, a_small);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b_big[2], b_small[2];
-        if (Sh::kPreSplit) {
-          const float4 w = smem4[(ks * NT + nt) * 32 + lane];
-          b_big[0] = __float_as_uint(w.x);
-          b_big[1] = __float_as_uint(w.y);
-          b_small[0] = __float_as_uint(w.z);
-          b_small[1] = __float_as_uint(w.w);
-        } else {
-          const float2 w = reinterpret_cast<const float2*>(
-              smem)[(ks * NT + nt) * 32 + lane];
-          const float b[2] = {w.x, w.y};
-          mma::split(b, b_big, b_small);
-        }
-        mma::mma_3xtf32(c[nt], a_big, a_small, b_big, b_small);
-      }
-    }
-    head.template rows<LDG>(c, s_par, aux_own + buf * 16 * Head::kAux,
-                            chunk * 16, n, g, t, mine + Sh::kOffG,
-                            mine + Sh::kOffH, mine + Sh::kOffZ);
-    group_sync<S>();
-
-    // Backward over the group's S chunks, K = 16 rows each in two steps of
-    // 8: [x | 1]^T g_pre, and g_z^T h for the actor.
 #pragma unroll 1
-    for (int q = 0; q < S; ++q) {
-      const float* rq = s_warps + (wq0 + q) * Sh::kWarpFloats;
-      const float* xq = rq + buf * 16 * LDX;
+  for (int grp = 0; grp < G; ++grp) {
+    const int col0 = G == 1 ? 0 : grp * 8 * NTG;  // its first hidden unit
+    const bool first = G == 1 || grp == 0;
 #pragma unroll
-      for (int kr = 0; kr < 2; ++kr) {
-        uint32_t a_big[MTW][4], a_small[MTW][4];
+    for (int i = 0; i < MTW; ++i)
 #pragma unroll
-        for (int i = 0; i < MTW; ++i) {
-          const int mt = wm + WM * i;
-          float a[4] = {0.f, 0.f, 0.f, 0.f};
-          if (mt < MT) {
-            mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
-          } else if (Head::kThird && mt == MT && g < 4) {
-            // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
-            const float* z = rq + Sh::kOffZ + kr * 8 * 4;
-            a[0] = z[t * 4 + g];
-            a[2] = z[(t + 4) * 4 + g];
-          }
-          mma::split(a, a_big[i], a_small[i]);
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bacc[i][j][e] = 0.f;
+    head.clear();
+
+    // Each round the group of S warps takes S chunks, one a warp.
+    long long base = static_cast<long long>(blockIdx.x) * W + wq0;
+    if (base + own < n_chunks)
+      tc_prefetch<Head, LDX>(args, base + own, mine, aux_own, lane);
+    mma::cp_async_commit();
+    for (int buf = 0; base < n_chunks; base += stride, buf ^= 1) {
+      const long long chunk = base + own, next = chunk + stride;
+      if (next < n_chunks)
+        tc_prefetch<Head, LDX>(args, next, mine + (buf ^ 1) * 16 * LDX,
+                               aux_own + (buf ^ 1) * 16 * Head::kAux, lane);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+      __syncwarp();
+      const float* x = mine + buf * 16 * LDX;
+
+      // Forward: pre = [x | 1] [W1^T ; b1] over the warp's 16 rows, and
+      // the lane's share p of the head's sums.
+      float c[NTG][4], p[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) p[i] = 0.f;
+      if constexpr (G == 1) {
+        tc_forward<Sh, KS, NTG, LDX>(c, x, smem4, 0, lane);
+        Head::sums(c, s_par, 0, t, p);
+      } else {
+        float pg[G][P];
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+          for (int i = 0; i < P; ++i) pg[gi][i] = 0.f;
+          if (gi == grp) continue;
+          float o[NTG][4];
+          tc_forward<Sh, KS, NTG, LDX>(o, x, smem4, gi * NTG, lane);
+          Head::sums(o, s_par, gi * 8 * NTG, t, pg[gi]);
         }
+        float po[P];
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int nt = wn + WN * j;
-          if (nt >= NT) continue;
-          float b[2];
-          uint32_t b_big[2], b_small[2];
-          mma::load_b_rows(rq + Sh::kOffG + kr * 8 * LDG + nt * 8, LDG, lane,
-                           b);
-          mma::split(b, b_big, b_small);
+        for (int i = 0; i < P; ++i) po[i] = 0.f;
+        tc_forward<Sh, KS, NTG, LDX>(c, x, smem4, grp * NTG, lane);
+        Head::sums(c, s_par, col0, t, po);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int i = 0; i < P; ++i) p[i] = p[i] + (gi == grp ? po[i] : pg[gi][i]);
+      }
+      head.template rows<NTG, LDG>(c, p, s_par,
+                                   aux_own + buf * 16 * Head::kAux,
+                                   chunk * 16, n, g, t, col0, first,
+                                   mine + Sh::kOffG, mine + Sh::kOffH,
+                                   mine + Sh::kOffZ);
+      group_sync<S>();
+
+      // Backward over the group's S chunks, K = 16 rows each in two steps
+      // of 8: [x | 1]^T g_pre, and g_z^T h for the actor.
+#pragma unroll 1
+      for (int q = 0; q < S; ++q) {
+        const float* rq = s_warps + (wq0 + q) * Sh::kWarpFloats;
+        const float* xq = rq + buf * 16 * LDX;
+#pragma unroll
+        for (int kr = 0; kr < 2; ++kr) {
+          uint32_t a_big[MTW][4], a_small[MTW][4];
 #pragma unroll
           for (int i = 0; i < MTW; ++i) {
             const int mt = wm + WM * i;
+            float a[4] = {0.f, 0.f, 0.f, 0.f};
             if (mt < MT) {
-              mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], b_big,
-                              b_small);
-            } else if (Head::kThird && mt == MT) {
-              float hb[2];
-              uint32_t h_big[2], h_small[2];
-              mma::load_b_rows(rq + Sh::kOffH + kr * 8 * LDG + nt * 8, LDG,
-                               lane, hb);
-              mma::split(hb, h_big, h_small);
-              mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], h_big,
-                              h_small);
+              mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
+            } else if (Head::kThird && mt == MT && g < 4) {
+              // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
+              const float* z = rq + Sh::kOffZ + kr * 8 * 4;
+              a[0] = z[t * 4 + g];
+              a[2] = z[(t + 4) * 4 + g];
+            }
+            mma::split(a, a_big[i], a_small[i]);
+          }
+#pragma unroll
+          for (int j = 0; j < NTW; ++j) {
+            const int nt = wn + WN * j;
+            if (nt >= NTG) continue;
+            float b[2];
+            uint32_t b_big[2], b_small[2];
+            mma::load_b_rows(rq + Sh::kOffG + kr * 8 * LDG + nt * 8, LDG,
+                             lane, b);
+            mma::split(b, b_big, b_small);
+#pragma unroll
+            for (int i = 0; i < MTW; ++i) {
+              const int mt = wm + WM * i;
+              if (mt < MT) {
+                mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], b_big,
+                                b_small);
+              } else if (Head::kThird && mt == MT) {
+                float hb[2];
+                uint32_t h_big[2], h_small[2];
+                mma::load_b_rows(rq + Sh::kOffH + kr * 8 * LDG + nt * 8, LDG,
+                                 lane, hb);
+                mma::split(hb, h_big, h_small);
+                mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], h_big,
+                                h_small);
+              }
             }
           }
         }
       }
+      group_sync<S>();  // the buffers are refilled next
     }
-    group_sync<S>();  // the buffers are refilled next
-  }
-  mma::cp_async_wait<0>();
-  __syncthreads();
+    mma::cp_async_wait<0>();
+    __syncthreads();
 
-  // The block's partial.  Per-warp instances: each warp's sums into its row
-  // of red (W, n_out), then the warps summed in order.  Shared rows: each
-  // tile has one owner, which writes it straight to the partial; the small
-  // sums go through red (W, n_small).  red reuses all of shared memory.
-  const int n_out = Head::n_out(in, hid);
-  const int n_red = S == 1 ? n_out : Head::n_small(hid);
-  float* out = args.partials + static_cast<long long>(blockIdx.x) * n_out;
-  float* red = smem;
-  float* my_red = red + warp * n_red;
+    if constexpr (G > 1) {
+      // The pass's tiles straight to the partial (each has one owner), its
+      // small sums into the warp's row (the loss and the head's biases at
+      // the last pass).
 #pragma unroll
-  for (int i = 0; i < MTW; ++i)
+      for (int i = 0; i < MTW; ++i)
 #pragma unroll
-    for (int j = 0; j < NTW; ++j)
+        for (int j = 0; j < NTW; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int mt = wm + WM * i, nt = wn + WN * j;
-        if (mt >= Sh::kMtAll || nt >= NT) continue;
-        const int o = Head::tile_index(mt * 16 + g + 8 * (e >> 1),
-                                       nt * 8 + 2 * t + (e & 1), in, hid,
-                                       16 * MT);
-        if (o < 0) continue;
-        if (S == 1)
-          my_red[o] = bacc[i][j][e];
-        else
-          out[o] = bacc[i][j][e];
-      }
-  head.store_small(my_red, S == 1, in, hid, g, t, lane);
-  __syncthreads();
-  for (int k = tid; k < n_red; k += W * 32) {
-    float s = 0.f;
-    for (int w = 0; w < W; ++w) s += red[w * n_red + k];
-    out[S == 1 ? k : Head::small_index(k, in, hid)] = s;
+          for (int e = 0; e < 4; ++e) {
+            const int mt = wm + WM * i, nt = wn + WN * j;
+            if (mt >= Sh::kMtAll || nt >= NTG) continue;
+            const int o = Head::tile_index(
+                mt * 16 + g + 8 * (e >> 1), col0 + nt * 8 + 2 * t + (e & 1),
+                in, hid, 16 * MT);
+            if (o >= 0) out[o] = bacc[i][j][e];
+          }
+      head.store_small(s_small + warp * Sh::kSmall, false, in, hid, g, t,
+                       lane, col0, grp == G - 1);
+    }
+  }
+
+  if constexpr (G > 1) {
+    __syncthreads();
+    const int n_red = Head::n_small(hid);
+    for (int k = tid; k < n_red; k += W * 32) {
+      float s = 0.f;
+      for (int w = 0; w < W; ++w) s += s_small[w * Sh::kSmall + k];
+      out[Head::small_index(k, in, hid)] = s;
+    }
+  } else {
+    // The block's partial.  Per-warp instances: each warp's sums into its
+    // row of red (W, n_out), then the warps summed in order.  Shared rows:
+    // each tile has one owner, which writes it straight to the partial; the
+    // small sums go through red (W, n_small).  red reuses all of shared
+    // memory.
+    const int n_red = S == 1 ? n_out : Head::n_small(hid);
+    float* red = smem;
+    float* my_red = red + warp * n_red;
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int mt = wm + WM * i, nt = wn + WN * j;
+          if (mt >= Sh::kMtAll || nt >= NTG) continue;
+          const int o = Head::tile_index(mt * 16 + g + 8 * (e >> 1),
+                                         nt * 8 + 2 * t + (e & 1), in, hid,
+                                         16 * MT);
+          if (o < 0) continue;
+          if (S == 1)
+            my_red[o] = bacc[i][j][e];
+          else
+            out[o] = bacc[i][j][e];
+        }
+    head.store_small(my_red, S == 1, in, hid, g, t, lane);
+    __syncthreads();
+    for (int k = tid; k < n_red; k += W * 32) {
+      float s = 0.f;
+      for (int w = 0; w < W; ++w) s += red[w * n_red + k];
+      out[S == 1 ? k : Head::small_index(k, in, hid)] = s;
+    }
   }
 }
 
@@ -972,7 +1368,8 @@ inline int hidden_nt(int hid) {
          : n <= 4                    ? 4
          : n <= 7                    ? 7
          : n <= 8                    ? 8
-                                     : 16;
+         : n <= 16                   ? 16
+                                     : 32;
 }
 
 // The instance of Head for (KS, NT): its warps a block (0 where none is
@@ -986,7 +1383,8 @@ inline int hidden_nt(int hid) {
   }
 #define MARLNAV_TC_NT(HEAD, KS_)                                       \
   MARLNAV_TC(HEAD, KS_, 4) MARLNAV_TC(HEAD, KS_, 7)                    \
-  MARLNAV_TC(HEAD, KS_, 8) MARLNAV_TC(HEAD, KS_, 16)
+  MARLNAV_TC(HEAD, KS_, 8) MARLNAV_TC(HEAD, KS_, 16)                  \
+  MARLNAV_TC(HEAD, KS_, 32)
 
 inline int critic_instance(int in, int hid, int* per_sm = nullptr,
                            const GradArgs* args = nullptr, int blocks = 0,
@@ -1017,13 +1415,46 @@ inline bool aligned16(const float* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
+// Let the affine actor's blocks take the shared memory of its widest tile
+// (F 255 at 32 rows) on `device`, the current device; once a device.
+inline cudaError_t actor_allow_smem(int device) {
+  static bool allowed[64] = {};
+  const bool known = device >= 0 && device < 64;
+  if (known && allowed[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      actor_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      4 * actor_smem_floats(kActorMaxObs, 32));
+  if (known && err == cudaSuccess) allowed[device] = true;
+  return err;
+}
+
 }  // namespace update
 }  // namespace marlnav
 
 extern "C" {
 
-int marlnav_update_blocks_per_sm() { return marlnav::update::kBlocksPerSm; }
-int marlnav_actor_max_obs() { return marlnav::update::kMaxObs; }
+int marlnav_actor_max_obs() { return marlnav::update::kActorMaxObs; }
+int marlnav_actor_tile_rows(int obs_size) {
+  return marlnav::update::actor_tile_rows(obs_size);
+}
+// Blocks of the affine actor kernel resident on the card at once (the
+// most its grid takes) at this obs width: 0 outside the widths it takes,
+// -1 on a CUDA error.
+int marlnav_actor_resident_blocks(int obs_size, int device) {
+  using namespace marlnav::update;
+  const int rows = actor_tile_rows(obs_size);
+  if (!rows) return 0;
+  int per_sm = 0, sms = 0;
+  if (cudaSetDevice(device) != cudaSuccess ||
+      actor_allow_smem(device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, actor_grad_kernel, kThreads,
+          4 * actor_smem_floats(obs_size, rows)) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return -1;
+  return per_sm * sms;
+}
 int marlnav_critic_max_in() { return marlnav::update::kCriticMaxIn; }
 int marlnav_uncollapsed_max_obs() {
   return marlnav::update::kUncollapsedMaxObs;
@@ -1046,51 +1477,45 @@ int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden) {
 }
 
 // Each launches on `stream` (a cudaStream_t from
-// torch.cuda.current_stream()): the grad kernel on `blocks` blocks, then the
-// fixed-order reduction of its partials into `out`.  They return
-// cudaGetLastError(): 0 when both launches were accepted.
+// torch.cuda.current_stream()) and returns cudaGetLastError(): 0 when its
+// launches were accepted.
 
-// out: loss_sum, dz (4, F), dzs (4).
+// The affine actor on at most `capacity` blocks (its resident blocks) and
+// at most a block a tile; partials (capacity, 4F + 5).  out: loss_sum, dz
+// (4, F), dzs (4), summed by the kernel's last block.  done: one word of
+// the caller's, zeroed here on `stream` before the launch, where the
+// blocks count themselves done: the launch owns it, so launches on other
+// streams, or one cut short, cannot mix their counts.
 int marlnav_actor_grad_sums(const float* obs, const float* act,
                             const float* lp, const float* adv,
-                            const float* op, long long n_rows, int obs_size,
-                            float lo, float hi, float ent_c, float ent_half,
-                            int blocks, float* partials, float* out,
-                            int device, void* stream) {
+                            const float* a_comp, const float* c_comp,
+                            long long n_rows, int obs_size, float lo,
+                            float hi, float ent_c, float ent_half,
+                            int capacity, float* partials, float* out,
+                            unsigned int* done, int device, void* stream) {
   using namespace marlnav::update;
+  const int rows = actor_tile_rows(obs_size);
+  if (!rows || n_rows < 1 || capacity < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = actor_allow_smem(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n_rows + rows - 1) / rows;
+  const int blocks = static_cast<int>(tiles < capacity ? tiles : capacity);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ActorArgs args{obs, act, lp, adv, op, n_rows,
-                       {lo, hi, ent_c, ent_half}, partials};
-#define MARLNAV_LAUNCH(F)                                         \
-  case F:                                                        \
-    actor_grad_kernel<F><<<blocks, kThreads, 0, s>>>(args);       \
-    break;
-  switch (obs_size) {
-    MARLNAV_LAUNCH(2)
-    MARLNAV_LAUNCH(4)
-    MARLNAV_LAUNCH(6)
-    MARLNAV_LAUNCH(8)
-    MARLNAV_LAUNCH(10)
-    MARLNAV_LAUNCH(12)
-    MARLNAV_LAUNCH(14)
-    MARLNAV_LAUNCH(16)
-    MARLNAV_LAUNCH(18)
-    MARLNAV_LAUNCH(20)
-    MARLNAV_LAUNCH(22)
-    MARLNAV_LAUNCH(24)
-    MARLNAV_LAUNCH(26)
-    MARLNAV_LAUNCH(28)
-    MARLNAV_LAUNCH(30)
-    MARLNAV_LAUNCH(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef MARLNAV_LAUNCH
-  return static_cast<int>(reduce(partials, blocks, 1 + 4 * obs_size + 4,
-                                 out, s));
+  err = cudaMemsetAsync(done, 0, sizeof(unsigned int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ActorArgs args{obs,      act,  lp,   adv,
+                       a_comp,   c_comp, n_rows, obs_size,
+                       rows,     {lo, hi, ent_c, ent_half},
+                       partials, out,  done};
+  actor_grad_kernel<<<blocks, kThreads,
+                      4 * actor_smem_floats(obs_size, rows), s>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// The tensor-core kernels on `blocks` blocks, then the fixed-order
+// reduction of their partials into `out`.
 
 // out: loss_sum, dW1 (H, In), db1 (H), dW2 (H), db2.
 int marlnav_critic_grad_sums(const float* obs, const float* vold,

@@ -1,5 +1,7 @@
-// Float32 products on Hopper's tensor cores in 3xTF32, for the port's
-// hand-written kernels: warp-level mma.sync.m16n8k8 with TF32 operands and
+// Float32 products on Hopper's tensor cores in 3xTF32, and the
+// asynchronous copies that feed the port's hand-written kernels (cp.async,
+// and bulk copies on mbarriers), at the end.  The products: warp-level
+// mma.sync.m16n8k8 with TF32 operands and
 // float32 accumulators, each float32 operand x split into two TF32 halves
 //   big = cvt.rna.tf32(x),  small = cvt.rna.tf32(x - big),
 // and each product taken as small*big + big*small + big*big.  The one
@@ -21,7 +23,7 @@
 // mma.sync rather than wgmma: wgmma takes TF32 operands only K-major from
 // shared memory, so a backward product (a sum over rows) would need
 // transposed copies of its operands; mma.sync fragments load from any
-// layout.  wgmma, TMA and warp specialisation are later work.
+// layout.  wgmma and warp specialisation are later work.
 #pragma once
 
 #include <cstdint>
@@ -121,6 +123,60 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Bulk copies from device to shared memory by the tensor memory
+// accelerator (cp.async.bulk): one thread starts a copy of a multiple of
+// 16 bytes between 16-byte aligned addresses, which completes on an
+// mbarrier in shared memory that expects its bytes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive on bar, whose phase then also waits for `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Order the block's earlier shared-memory reads (after a barrier) before
+// this thread's next bulk copies into the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace mma

@@ -24,9 +24,11 @@ gradients to the same ``torch.optim.Adam`` the autograd route uses.
 
 The last two share one kernel body with a head for each (critic: ReLU and
 the value; actor: the 2 + 2 heads and the PPO chain), whose products run on
-the tensor cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``).  Widths built:
-critic In <= 103 and H <= 128; un-collapsed actor F <= 39 and H <= 128;
-affine actor even F <= 32.  Past them each wrapper raises ``ValueError``.
+the tensor cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``).  Widths taken:
+critic In <= 103 and H <= 256; un-collapsed actor F <= 39 and H <= 256;
+affine actor any F <= 255 (a runtime width: its rows stream through
+shared memory in tiles sized by F).  Past them each wrapper raises
+``ValueError``.
 
 The TPU needed two layouts of each (tiled and staged); here the Buffer's
 time slice is already a contiguous block of rows, so one kernel serves the
@@ -64,8 +66,8 @@ def _library():
     # passed as a 32-bit int and cuts the pointer.
     ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     lib.marlnav_actor_grad_sums.argtypes = (
-        [ptr] * 5 + [ctypes.c_longlong, i32] + [f32] * 4
-        + [i32, ptr, ptr, i32, ptr])
+        [ptr] * 6 + [ctypes.c_longlong, i32] + [f32] * 4
+        + [i32, ptr, ptr, ptr, i32, ptr])
     lib.marlnav_critic_grad_sums.argtypes = (
         [ptr] * 7 + [ctypes.c_longlong, i32, i32, f32, i32, ptr, ptr, i32,
                      ptr])
@@ -75,14 +77,30 @@ def _library():
     for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums,
                lib.marlnav_actor_grad_uncollapsed_sums):
         fn.restype = i32
-    for getter in (lib.marlnav_update_blocks_per_sm,
-                   lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
+    for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
+    lib.marlnav_actor_tile_rows.argtypes = [i32]
+    lib.marlnav_actor_tile_rows.restype = i32
     for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps,
-                  lib.marlnav_uncollapsed_blocks_per_sm):
+                  lib.marlnav_uncollapsed_blocks_per_sm,
+                  lib.marlnav_actor_resident_blocks):
         shape.argtypes, shape.restype = [i32, i32], i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _actor_resident_blocks(index: int, obs_size: int) -> int:
+    """The affine actor kernel's grid at most: its blocks resident on card
+    ``index`` at once at this obs width (the occupancy of its tile)."""
+    lib = _library()
+    blocks = lib.marlnav_actor_resident_blocks(obs_size, index)
+    if blocks == 0:
+        raise ValueError(f"actor grad kernel takes obs widths "
+                         f"1..{lib.marlnav_actor_max_obs()}, got {obs_size}")
+    if blocks < 0:
+        raise RuntimeError("actor grad kernel: occupancy query failed")
+    return blocks
 
 
 def _split(sums: torch.Tensor, shapes) -> Tuple[torch.Tensor, ...]:
@@ -95,20 +113,21 @@ def _split(sums: torch.Tensor, shapes) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
-                  blocks_per_sm: int = 0):
-    """(library, grid blocks, device index, stream) for a launch over
-    ``n_rows`` rows: at most a few persistent blocks an SM (the library's
-    ``marlnav_update_blocks_per_sm`` unless ``blocks_per_sm`` is given), so
-    the grid, and with it every sum's order, depends only on the rows and
-    the card."""
-    lib = _library()
-    index = device.index if device.index is not None \
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
         else torch.cuda.current_device()
+
+
+def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
+                  blocks_per_sm: int):
+    """(grid blocks, device index, stream) for a launch over ``n_rows``
+    rows: at most ``blocks_per_sm`` persistent blocks an SM, so the grid,
+    and with it every sum's order, depends only on the rows and the
+    card."""
+    index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    blocks = min(math.ceil(n_rows / rows_per_block),
-                 sms * (blocks_per_sm or lib.marlnav_update_blocks_per_sm()))
-    return lib, blocks, index, torch.cuda.current_stream(device).cuda_stream
+    blocks = min(math.ceil(n_rows / rows_per_block), sms * blocks_per_sm)
+    return blocks, index, torch.cuda.current_stream(device).cuda_stream
 
 
 def _check_rows(device, n_rows, named):
@@ -133,28 +152,24 @@ def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
         ("a_comp", a_comp, (4, f)), ("c_comp", c_comp, (4,)),
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
-    lib, blocks, index, stream = _launch_setup(obs.device, n, 256)
-    max_f = lib.marlnav_actor_max_obs()
-    if f % 2 or not 2 <= f <= max_f:
-        raise ValueError(f"actor grad kernel takes even obs widths 2..{max_f}"
-                         f", got {f}")
-    if obs.data_ptr() % 8 or actions.data_ptr() % 8:
-        raise ValueError("actor grad kernel: obs and actions must be 8-byte "
-                         "aligned (float2 loads)")
-    op = torch.cat([a_comp.reshape(-1), c_comp])
+    index = _device_index(obs.device)
+    capacity = _actor_resident_blocks(index, f)
     n_out = 1 + 4 * f + 4
-    partials = torch.empty((blocks, n_out), dtype=torch.float32,
-                           device=obs.device)
-    out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
-    err = lib.marlnav_actor_grad_sums(
+    # out, the blocks' partials (capacity, n_out) and the word where this
+    # launch's blocks count themselves done, in one allocation.
+    scratch = torch.empty((capacity + 1) * n_out + 1, dtype=torch.float32,
+                          device=obs.device)
+    out = scratch.data_ptr()
+    err = _library().marlnav_actor_grad_sums(
         obs.data_ptr(), actions.data_ptr(), log_probs.data_ptr(),
-        adv.data_ptr(), op.data_ptr(), n, f, 1.0 - eps, 1.0 + eps, ent_c,
-        ent_c * 0.5, blocks, partials.data_ptr(), out.data_ptr(), index,
-        stream)
+        adv.data_ptr(), a_comp.data_ptr(), c_comp.data_ptr(), n, f,
+        1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5, capacity, out + 4 * n_out,
+        out, out + 4 * (capacity + 1) * n_out, index,
+        torch.cuda.current_stream(obs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"actor grad kernel launch failed: CUDA error {err}")
     actor_grad_sums.launches += 1
-    return _split(out, ((), (4, f), (4,)))
+    return _split(scratch[:n_out], ((), (4, f), (4,)))
 
 
 actor_grad_sums.launches = 0
@@ -180,7 +195,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
                          f"1..{lib.marlnav_max_hidden()} and input "
                          f"1..{lib.marlnav_critic_max_in()}, got {h} and "
                          f"{n_in}")
-    _, blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
+    blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
     n_out = 1 + h * n_in + 2 * h + 1
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
@@ -225,7 +240,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
                          f"1..{lib.marlnav_max_hidden()} and obs "
                          f"1..{lib.marlnav_uncollapsed_max_obs()}, got {h} "
                          f"and {f}")
-    _, blocks, index, stream = _launch_setup(
+    blocks, index, stream = _launch_setup(
         obs.device, n, 16 * warps, lib.marlnav_uncollapsed_blocks_per_sm(f, h))
     n_out = 1 + h * f + 5 * h + 4
     partials = torch.empty((blocks, n_out), dtype=torch.float32,

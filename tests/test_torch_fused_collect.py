@@ -19,8 +19,8 @@ untamed random actor steers up to +-pi per step and amplifies ulp
 differences chaotically within a few steps.
 
 The CUDA kernel itself cannot run here; chip_smoke.py holds it against
-this plain version on the card (``test_kernel_matches_plain_on_card``
-does the same under pytest where a card is present).
+this plain version on the card, and so does
+``tests_cuda/test_cuda_fused_collect.py``, which chip_smoke.py runs.
 """
 
 import os
@@ -311,35 +311,3 @@ def test_launch_geometry_gives_each_env_one_group_in_one_warp(kernel,
     # each group's lanes share one warp
     for group_first in range(0, blocks * threads, lanes):
         assert group_first // 32 == (group_first + lanes - 1) // 32
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("num_envs", [2048, 1000])
-def test_kernel_matches_plain_on_card(num_envs):
-    """The CUDA kernel against its plain version on the same uniforms (the
-    check chip_smoke.py runs), at a ragged env count too: both perform the
-    same float32 operations in the same order, so every output matches
-    exactly."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    dev = torch.device("cuda")
-    t, p = 32, num_envs
-    ep = EnvParams(num_parallel=p, episode_len=10)
-    ic = TriangleInitConfig(num_parallel=p, noisy_ags=True)
-    sm = t_step_math.StepMath(ep, ic, NormalizerConfig(), ScalerConfig())
-    from marlnav_tpu_torch.env import make_env
-
-    rows = fc.env_state_to_rows(make_env(ep, ic, dev).init(
-        make_generator(1, dev)))
-    g = torch.Generator(device=dev).manual_seed(2)
-    a_comp = 0.1 * torch.randn(4, 12, generator=g, device=dev)
-    c_comp = torch.randn(4, generator=g, device=dev)
-    noise = torch.rand((t, sm.n_draws, p), generator=g, device=dev)
-    out = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, t, noise)
-    ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
-    torch.cuda.synchronize()
-    assert out.done.any()  # premise: resets fired
-    for name in ("obs", "actions", "log_probs", "rewards", "done", "stats"):
-        assert torch.equal(getattr(out, name), getattr(ref, name)), name
-    for x, y in zip(out.rows.fields(), ref.rows.fields()):
-        assert torch.equal(x, y)

@@ -17,9 +17,8 @@ differences chaotically within a few steps (tests/test_ops.py:84-118), so
 the untamed case is one step.
 
 The CUDA kernel itself cannot run here; chip_smoke.py holds it against
-this plain version and against the collect kernel on the card
-(``test_kernel_matches_plain_on_card`` does the same under pytest where a
-card is present).
+this plain version and against the collect kernel on the card, and so
+does ``tests_cuda/test_cuda_fused_rollout.py``, which chip_smoke.py runs.
 """
 
 import collections
@@ -217,41 +216,3 @@ def test_bench_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         bench.main(["--num-envs", "16", "--num-steps", "4"])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("num_envs", [2048, 1000])
-def test_kernel_matches_plain_on_card(num_envs):
-    """The CUDA kernel against its plain version on the same uniforms in
-    both modes, and the sampled kernel against the collect kernel from the
-    same seed (the checks chip_smoke.py runs), at a ragged env count too:
-    every output matches exactly."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    dev = torch.device("cuda")
-    t, p = 32, num_envs
-    ep = EnvParams(num_parallel=p, episode_len=10)
-    ic = TriangleInitConfig(num_parallel=p, noisy_ags=True)
-    sm = StepMath(ep, ic, NormalizerConfig(), ScalerConfig())
-    rows = fr.env_state_to_rows(make_env(ep, ic, dev).init(
-        make_generator(1, dev)))
-    g = torch.Generator(device=dev).manual_seed(2)
-    a_comp = 0.1 * torch.randn(4, 12, generator=g, device=dev)
-    c_comp = torch.randn(4, generator=g, device=dev)
-    noise = torch.rand((t, sm.n_draws, p), generator=g, device=dev)
-    for deterministic in (False, True):
-        got = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 9, t,
-                                    deterministic, noise)
-        want = fr.rollout_rows_reference(sm, rows, a_comp, c_comp, noise,
-                                         deterministic)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], want[1])
-        assert all(torch.equal(x, y) for x, y in zip(got[0].fields(),
-                                                     want[0].fields()))
-    col = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, t)
-    rows_k, rew_k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 9, t,
-                                          False)
-    torch.cuda.synchronize()
-    assert torch.equal(rew_k, col.rewards)
-    assert all(torch.equal(x, y) for x, y in zip(rows_k.fields(),
-                                                 col.rows.fields()))

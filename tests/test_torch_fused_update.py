@@ -287,8 +287,10 @@ def test_critic_grad_matches_kernel_inside_clip_band():
 
 
 # Widths the JAX package trains beyond the defaults: -no 8 (obs 2 + 2*8 + 4
-# = 22, critic input 3 x 22 = 66) and -hs 128.
-WIDE = {"no8-in66-h50": (22, 50), "hs128-in36-h128": (12, 128)}
+# = 22, critic input 3 x 22 = 66), -no 14 (obs 34, critic input 102), -hs
+# 128 and -hs 256.
+WIDE = {"no8-in66-h50": (22, 50), "hs128-in36-h128": (12, 128),
+        "hs256-in36-h256": (12, 256), "no14-in102-h50": (34, 50)}
 
 
 def wide_networks(obs, hidden):
@@ -301,8 +303,9 @@ def wide_networks(obs, hidden):
 @pytest.mark.parametrize("width", sorted(WIDE))
 def test_critic_grads_match_staged_kernel_at_wide_widths(width):
     """critic_grad (plain route) against the JAX critic kernel in interpret
-    mode at the widths of -no 8 (In 66, H 50) and -hs 128 (In 36, H 128),
-    slice by slice: rtol/atol 2e-5, as at the default width."""
+    mode at the widths of -no 8 (In 66, H 50), -no 14 (In 102, H 50), -hs
+    128 (In 36, H 128) and -hs 256 (In 36, H 256), slice by slice:
+    rtol/atol 2e-5, as at the default width."""
     obs, hidden = WIDE[width]
     t, p = 12, 4
     jc, tc = cfgs(p, t, batch_size=6, obs_size=obs, hidden_size=hidden)
@@ -318,6 +321,35 @@ def test_critic_grads_match_staged_kernel_at_wide_widths(width):
         np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
         assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
                            f"critic {width}")
+
+
+# The affine actor kernel takes any obs width: those of -no 8 and -no 14,
+# and an odd one (13), which the JAX staged kernel takes in interpret mode.
+AFFINE_WIDE = {"no8-obs22": 22, "no14-obs34": 34, "odd-obs13": 13}
+
+
+@pytest.mark.parametrize("width", sorted(AFFINE_WIDE))
+def test_affine_grads_match_staged_kernel_at_wide_widths(width):
+    """actor_grad (plain route) against the JAX affine actor kernel in
+    interpret mode at obs 22, 34 and 13 (hidden 50), slice by slice:
+    rtol/atol 2e-5, as at the default width."""
+    obs = AFFINE_WIDE[width]
+    t, p = 12, 4
+    jc, tc = cfgs(p, t, batch_size=6, obs_size=obs, hidden_size=50)
+    jb, tb = rand_buffer(0, t, p, obs=obs)
+    (ja, _), (ta, _) = wide_networks(obs, 50)
+    actor_k = jax.jit(make_fused_actor_grad(jc, interpret=True,
+                                            layout="affine"),
+                      static_argnums=2)
+    for j_mb, t_mb in zip(jm.minibatch_slices(jb, jc),
+                          tm.minibatch_slices(tb, tc)):
+        lj, gj = actor_k(ja, *stage_actor_minibatch(j_mb, jc,
+                                                    layout="affine"))
+        lt, gt = fu.actor_grad(ta, t_mb, tm.minibatch_advantages(t_mb, tc), tc)
+        assert gt["fc1.weight"].shape == (50, obs)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           f"affine actor, F {obs}")
 
 
 # ----------------------------------------------------------------------
@@ -418,7 +450,7 @@ def test_fused_grads_match_autograd(mode):
 
 
 # ----------------------------------------------------------------------
-# Routing, and the kernels on the card
+# Routing (the kernels themselves: tests_cuda/test_cuda_fused_update.py)
 # ----------------------------------------------------------------------
 
 def _sum_inputs(n, f, h, device="cpu", seed=7):
@@ -455,30 +487,21 @@ def test_cpu_routing_runs_plain_version_and_launches_nothing():
     assert fc._affine_compose is fu._affine_compose
 
 
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    """Both kernels against their plain versions, each against a float64
-    plain version (the check chip_smoke.py runs at full size), at the
-    default widths and at those of -no 8 (F 22) and -hs 128: the kernel's
-    error stays within 1e-4 of each output's largest magnitude, and two
-    launches agree bit for bit."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    cases = []
-    for f, h in ((OBS, 50), (22, 50), (OBS, 128), (32, 128)):
-        actor_in, critic_in = _sum_inputs(100_003, f, h, "cuda")
-        cases += [(fu.actor_grad_sums, um.actor_grad_sums_reference,
-                   (*actor_in, 0.01, 0.001)),
-                  (fu.critic_grad_sums, um.critic_grad_sums_reference,
-                   (*critic_in, 0.01))]
-    for kernel, plain, args in cases:
-        got, again = kernel(*args), kernel(*args)
-        want = plain(*(x.double() if torch.is_tensor(x) else x for x in args))
-        torch.cuda.synchronize()
-        for k, k2, w in zip(got, again, want):
-            assert torch.equal(k, k2)
-            tol = 1e-4 * float(w.abs().max()) + 1e-6
-            assert float((k.double() - w).abs().max()) <= tol
+def test_cpu_route_takes_widths_past_the_kernels():
+    """The plain route takes widths past every kernel's (obs 256 for the
+    affine actor, hidden 300 for the tensor-core kernels) and launches
+    nothing: only the card raises there."""
+    actor_in, critic_in = _sum_inputs(40, OBS, 300)
+    wide_actor = _sum_inputs(40, 256, H)[0]
+    outs = (fu.actor_grad_sums(*wide_actor, 0.01, 0.001),
+            fu.critic_grad_sums(*critic_in, 0.01),
+            fu.actor_grad_uncollapsed_sums(
+                *_uncollapsed_inputs(40, OBS, 300), 0.01, 0.001))
+    assert outs[0][1].shape == (4, 256) and outs[1][1].shape == (300, A * OBS)
+    assert outs[2][1].shape == (300, OBS)
+    assert all(bool(torch.isfinite(x).all()) for out in outs for x in out)
+    assert (fu.actor_grad_sums.launches, fu.critic_grad_sums.launches,
+            fu.actor_grad_uncollapsed_sums.launches) == (0, 0, 0)
 
 
 # ----------------------------------------------------------------------
@@ -517,6 +540,34 @@ def test_uncollapsed_grads_match_staged_kernels_at_wide_width(layout):
     "undilated" JAX actor kernels at F 22 (-no 8) and H 128 (-hs 128), P 4,
     slice by slice: rtol/atol 2e-5, as at the default width."""
     obs, hidden, t, p = 22, 128, 12, 4
+    jc, tc = cfgs(p, t, batch_size=6, obs_size=obs, hidden_size=hidden)
+    jb, tb = rand_buffer(0, t, p, obs=obs)
+    (ja, _), (ta, _) = wide_networks(obs, hidden)
+    actor_k = jax.jit(make_fused_actor_grad(jc, interpret=True, layout=layout),
+                      static_argnums=2)
+    for j_mb, t_mb in zip(jm.minibatch_slices(jb, jc),
+                          tm.minibatch_slices(tb, tc)):
+        lj, gj = actor_k(ja, *stage_actor_minibatch(j_mb, jc, layout=layout))
+        lt, gt = fu.actor_grad_uncollapsed(
+            ta, t_mb, tm.minibatch_advantages(t_mb, tc), tc)
+        assert gt["fc1.weight"].shape == (hidden, obs)
+        np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5, atol=2e-5)
+        assert_grads_close(as_jax_layout(gt), jax_flat(gj), 2e-5, 2e-5,
+                           f"{layout} actor, F {obs} H {hidden}")
+
+
+# -hs 256 (F 12, H 256: two passes of the kernel's tensor-core body) and
+# -no 14 (F 34, H 50).
+UNCOLLAPSED_WIDER = {"hs256-f12-h256": (12, 256), "no14-f34-h50": (34, 50)}
+
+
+@pytest.mark.parametrize("width", sorted(UNCOLLAPSED_WIDER))
+@pytest.mark.parametrize("layout", ["packed", "undilated"])
+def test_uncollapsed_grads_match_staged_kernels_at_wider_widths(layout,
+                                                                width):
+    """As the test above, at the widths of -hs 256 and -no 14."""
+    obs, hidden = UNCOLLAPSED_WIDER[width]
+    t, p = 12, 4
     jc, tc = cfgs(p, t, batch_size=6, obs_size=obs, hidden_size=hidden)
     jb, tb = rand_buffer(0, t, p, obs=obs)
     (ja, _), (ta, _) = wide_networks(obs, hidden)
@@ -580,27 +631,6 @@ def test_uncollapsed_cpu_routing_runs_plain_version_and_launches_nothing():
     with pytest.raises(ValueError, match="unsupported device"):
         fu.actor_grad_uncollapsed_sums(*(x.to("meta") for x in args), 0.01,
                                        0.001)
-
-
-@pytest.mark.cuda
-def test_uncollapsed_kernel_matches_plain_on_card():
-    """The un-collapsed kernel at F 12 / H 50, F 22 / H 128 and F 32 / H 128
-    against a float64 plain version (the check chip_smoke.py runs at full
-    size): within 1e-4 of each output's largest magnitude, and two launches
-    agree bit for bit."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for f, h in ((OBS, 50), (22, 128), (32, 128)):
-        args = (*_uncollapsed_inputs(100_003, f, h, "cuda"), 0.01, 0.001)
-        got = fu.actor_grad_uncollapsed_sums(*args)
-        again = fu.actor_grad_uncollapsed_sums(*args)
-        want = um.actor_grad_sums_uncollapsed_reference(
-            *(x.double() if torch.is_tensor(x) else x for x in args))
-        torch.cuda.synchronize()
-        for k, k2, w in zip(got, again, want):
-            assert torch.equal(k, k2)
-            tol = 1e-4 * float(w.abs().max()) + 1e-6
-            assert float((k.double() - w).abs().max()) <= tol
 
 
 # ----------------------------------------------------------------------

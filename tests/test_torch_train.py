@@ -124,10 +124,14 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port nor chip_smoke.py imports jax, optax, orbax or the
-    JAX package, not even lazily inside a function."""
+    """Neither the port, nor chip_smoke.py and the card tests (tests_cuda/)
+    import jax, optax, orbax or the JAX package, not even lazily inside a
+    function."""
     files = glob.glob(os.path.join(ROOT, "marlnav_tpu_torch", "**", "*.py"),
-                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+                      recursive=True) + glob.glob(
+        os.path.join(ROOT, "tests_cuda", "*.py")) + [
+        os.path.join(ROOT, "chip_smoke.py")]
+    assert any("tests_cuda" in path for path in files)
     assert len(files) > 15
     banned = ("jax", "optax", "orbax", "marlnav_tpu")
     for path in files:
