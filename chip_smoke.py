@@ -31,7 +31,13 @@ bench (``python -m marlnav_tpu_torch.bench --plain`` at 16384 envs x 500
 steps, the rollout kernel's path), trains 2 short repeats with
 ``--fused-updates`` at ``-no 8``, ``-hs 128``, ``-hs 256`` and ``-no 14``
 on both actor routes, runs the card tests (``python -m pytest
-tests_cuda``), and times every kernel.  Each path's launch counts are set
+tests_cuda``), holds the returns kernel against its plain loops bit for
+bit (float32 and float64, discounted and GAE), runs the main path through
+the CLI as CUDA graphs (``--jit-repeats 2``, and with
+``--pipeline-repeats``) and holds it bit for bit against the eager loop,
+times the collect tail and a repeat eager and graphed with the device's
+busy share of a graphed repeat, resumes the main path from a checkpoint
+bit for bit, and times every kernel.  Each path's launch counts are set
 to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
 object, the card's name and power limit, and ``{"ok": true, "device":
@@ -121,6 +127,10 @@ KERNELS = {
     "fused_rollout": dict(
         source="marlnav_tpu_torch/ops/csrc/fused_rollout.cu",
         replaces="marlnav_tpu/ops/fused_rollout.py:312"),
+    "returns": dict(
+        source="marlnav_tpu_torch/ops/csrc/returns.cu",
+        replaces="marlnav_tpu/algo/mappo.py:96 and marlnav_tpu/algo/"
+                 "mappo.py:134 (XLA scans, no Pallas kernel)"),
 }
 # The shape each kernel's path runs it at, reported as its "ms": the
 # default full batch, P=1024 x T=1000, unless given here.  The
@@ -128,6 +138,15 @@ KERNELS = {
 # steps a slice), the rollout's the bench.
 MAIN_SHAPE = {"fused_actor_grad_uncollapsed": (1024, 250),
               "fused_rollout": (16384, 500)}
+# The returns kernel's bound: its bytes, or the carry's chain of dependent
+# operations a step times their latency, whichever is longer.  The chain
+# (ops/csrc/returns.cu): discounted, a multiply, an add and a select; GAE,
+# a multiply and an add (the rest of a step does not wait on the carry).
+# Latency taken as 4 cycles a float32 operation and 8 a float64 one, at
+# the H100 SXM's 1.98 GHz boost clock.
+RETURNS_CHAIN_OPS = {False: 3, True: 2}  # by gae
+RETURNS_OP_CYCLES = {torch.float32: 4, torch.float64: 8}
+SM_CLOCK_HZ = 1.98e9
 # Spill stores (bytes) of the tensor-core instances that spill, by (head,
 # KS, NT), as the CUDA 12.9 toolkit's ptxas reports them for sm_90a: the
 # default un-collapsed actor's (held to 128 registers for two blocks an
@@ -237,6 +256,55 @@ def instance_line(log, mangled):
     return "; ".join(found) if found else f"{mangled}: no ptxas line"
 
 
+def profile_run(label, fn):
+    """Run ``fn()`` once under torch.profiler (its own overhead included)
+    and print the device's busy time against the wall time, the largest
+    kernels and host operations, and the host's kernel launch calls
+    (``cudaLaunchKernel`` and its kin) and graph launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Device-side ranges of host annotations (Adam's "Optimizer.step")
+    # overlap the kernels: count kernels and copies only.
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.key not in host_keys]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    if busy_ms > 0:
+        print(f"{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms"
+              f" = {busy_ms / wall_ms:.1%}; largest kernels:")
+        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6}"
+                  f" {e.key[:70]}")
+    else:
+        print(f"{label}: wall {wall_ms:.3f} ms; the profiler recorded no "
+              "device time: busy share not measured")
+    ours = {e.key.split("(")[0]: (e.count, e.self_device_time_total / 1e3)
+            for e in on_device if "marlnav" in e.key}
+    print("  the port's kernels (count, ms): " + "; ".join(
+        f"{k[:60]} {c}, {t:.3f}" for k, (c, t) in sorted(ours.items())))
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    launches = {e.key: e.count for e in on_host if "LaunchKernel" in e.key
+                or "GraphLaunch" in e.key}
+    print(f"  host launch calls: {launches}")
+    print("  largest host operations (self CPU time):")
+    for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6}"
+              f" {e.key[:70]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_ops": sum(e.count for e in on_device),
+            "launch_calls": launches, "ours": ours}
+
+
 def main(out_dir):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -248,7 +316,7 @@ def main(out_dir):
         sys.exit(f"chip_smoke: marlnav_tpu_torch imported from "
                  f"{marlnav_tpu_torch.__file__}, not from this checkout")
     from marlnav_tpu_torch import bench
-    from marlnav_tpu_torch.__main__ import build_parser
+    from marlnav_tpu_torch.__main__ import build_parser, cli
     from marlnav_tpu_torch.algo import make_mappo
     from marlnav_tpu_torch.algo.mappo import (minibatch_advantages,
                                               minibatch_slices)
@@ -262,8 +330,10 @@ def main(out_dir):
     from marlnav_tpu_torch.ops import fused_rollout as fr
     from marlnav_tpu_torch.ops import fused_update as fu
     from marlnav_tpu_torch.ops import update_math as um
+    from marlnav_tpu_torch.ops import returns as tr
     from marlnav_tpu_torch.ops._build import (BUILD_DIR, find_nvcc,
                                               load_libraries)
+    from marlnav_tpu_torch.ops.graphs import CountedGraph, kernel_wrappers
     from marlnav_tpu_torch.ops.step_math import StepMath
     from marlnav_tpu_torch.train import train
     from marlnav_tpu_torch.utils.seeding import make_generator
@@ -289,7 +359,8 @@ def main(out_dir):
     # phase prints and checks.
     shutil.rmtree(BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    builds = load_libraries(["fused_collect", "fused_rollout", "fused_update"])
+    builds = load_libraries(["fused_collect", "fused_rollout", "fused_update",
+                             "returns"])
     record["build_s"] = time.perf_counter() - t0
     print(f"all {len(builds)} libraries built in parallel: "
           f"{record['build_s']:.1f} s")
@@ -306,6 +377,12 @@ def main(out_dir):
     print(f"actor_grad_kernel (every obs width): {actor_line}")
     assert spills and not any(spills), actor_line
     record["actor_ptxas"] = actor_line
+    # The returns kernel's four instances (float32 / float64, discounted /
+    # GAE) hold their carry and staging in registers and shared memory.
+    returns_lines = record["ptxas"]["returns"]
+    assert len(returns_lines) >= 4 and all(
+        "0 bytes spill stores" in line for line in returns_lines
+        if "spill" in line), returns_lines
     # The products of the critic and the un-collapsed actor on the tensor
     # cores: HMMA instructions in the SASS of every instance of their
     # shared body; its forward holds 3 KS NT a chunk.
@@ -440,11 +517,7 @@ def main(out_dir):
             ["-np", str(p), "-nt", str(repeats * p * t), "-se", "0",
              "--output-root", out_dir] + extra))
 
-    counters = {"fused_collect": fc.fused_collect_rows,
-                "fused_actor_grad": fu.actor_grad_sums,
-                "fused_critic_grad": fu.critic_grad_sums,
-                "fused_actor_grad_uncollapsed": fu.actor_grad_uncollapsed_sums,
-                "fused_rollout": fr.fused_rollout_rows}
+    counters = kernel_wrappers()
     assert set(counters) == set(KERNELS)
     path_launches = {}  # kernel -> launches on its path's run
 
@@ -473,8 +546,9 @@ def main(out_dir):
           f"{launches}; mean_rew {logs['mean_rews']}; actor losses "
           f"{len(logs['actor'])}, critic losses {len(logs['critic'])}")
     assert launches == expect(fused_collect=2, fused_actor_grad=100,
-                              fused_critic_grad=100), launches
-    for name in ("fused_collect", "fused_actor_grad", "fused_critic_grad"):
+                              fused_critic_grad=100, returns=2), launches
+    for name in ("fused_collect", "fused_actor_grad", "fused_critic_grad",
+                 "returns"):
         path_launches[name] = launches[name]
     assert len(logs["mean_rews"]) == 2 and len(logs["actor"]) == 100 \
         and len(logs["critic"]) == 100
@@ -527,46 +601,18 @@ def main(out_dir):
         record["phases_ms"][route] = ph
 
     # Where a fused repeat's time goes, by torch.profiler (its own overhead
-    # included): the device's busy share of the wall time, and the largest
-    # device kernels and host operations.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # included): the device's busy share of the wall time, the largest
+    # device kernels and host operations, and the kernel launch calls.
     mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler)
     ts, es = mappo.init(make_generator(0, dev))
     rows = fc.env_state_to_rows(es)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
+
+    def eager_repeat():
         buf = collect(ts, rows, 101)[1]
         mappo.train_actor(ts, buf)
         mappo.train_critic(ts, buf)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # Device-side ranges of host annotations (Adam's "Optimizer.step")
-    # overlap the kernels: count kernels and copies only.
-    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)
-                 and e.key not in host_keys]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    if busy_ms > 0:
-        print(f"profiled fused repeat: wall {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.1%}; largest kernels:")
-        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6}"
-                  f" {e.key[:70]}")
-    else:
-        print(f"profiled fused repeat: wall {wall_ms:.3f} ms; the profiler "
-              "recorded no device time: busy share not measured")
-    print("largest host operations (self CPU time):")
-    on_host = [e for e in events if e.device_type == DeviceType.CPU]
-    for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:10]:
-        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6}"
-              f" {e.key[:70]}")
-    record["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms}
+
+    record["profile"] = profile_run("profiled fused repeat", eager_repeat)
 
     # One repeat with sliced minibatches (-bs 250: 4 slices, the last one
     # short by the faithful last-step drop).
@@ -579,7 +625,7 @@ def main(out_dir):
     print(f"-bs 250, 1 repeat: {time.perf_counter() - t0:.2f} s; kernel "
           f"launches {sliced}")
     assert sliced == expect(fused_collect=1, fused_actor_grad=200,
-                            fused_critic_grad=200), sliced
+                            fused_critic_grad=200, returns=1), sliced
     assert len(logger_s.logs["actor"]) == 200
     for key in ("mean_rews", "actor", "critic"):
         assert all(math.isfinite(v) for v in logger_s.logs[key]), key
@@ -601,7 +647,8 @@ def main(out_dir):
           f"{time.perf_counter() - t0:.2f} s; kernel launches {packed}; "
           f"mean_rew {logger_u.logs['mean_rews']}")
     assert packed == expect(fused_collect=1, fused_critic_grad=200,
-                            fused_actor_grad_uncollapsed=200), packed
+                            fused_actor_grad_uncollapsed=200,
+                            returns=1), packed
     path_launches["fused_actor_grad_uncollapsed"] = packed[
         "fused_actor_grad_uncollapsed"]
     assert len(logger_u.logs["actor"]) == 200
@@ -1107,7 +1154,7 @@ def main(out_dir):
                   f"losses actor {logs['actor'][-1]:.6f}, critic "
                   f"{logs['critic'][-1]:.6f}")
             assert wide_launches == expect(
-                fused_collect=2 if fused_collect else 0,
+                fused_collect=2 if fused_collect else 0, returns=2,
                 fused_critic_grad=grads, **{actor_kernel: grads}), (
                     label, wide_launches)
             assert len(logs["mean_rews"]) == 2
@@ -1134,6 +1181,198 @@ def main(out_dir):
     assert tests.returncode == 0 and counts.get("passed", 0) > 0 \
         and set(counts) == {"passed"}, summary
     record["tests_cuda"] = counts
+
+    # ------------------------------------------------------------------
+    phase("11. the returns kernel against its plain loops, and its times")
+    # Both perform the same float operations in the same order (-fmad=false),
+    # so every value is asserted equal, float32 and float64, discounted and
+    # GAE, at the default shape, at (16384, 200) and at a ragged P = 7, with
+    # done on the first and the last step.  Each wrapper call counts one
+    # launch.
+    times["returns"], errors["returns"] = {}, 0.0
+    for p, t in ((1024, 1000), (16384, 200), (7, 1000)):
+        gen = make_generator(30 + p, dev)
+        rew = 100.0 * torch.randn((t, p), device=dev, generator=gen)
+        done = torch.rand((t, p), device=dev, generator=gen) < 0.02
+        done[0], done[-1] = True, True
+        values = torch.randn((t, p), device=dev, generator=gen)
+        last = torch.randn(p, device=dev, generator=gen)
+        for gae in (False, True):
+            for dtype in (torch.float32, torch.float64):
+                if gae:
+                    args = (rew, done, 0.9, values, last, 0.95, dtype)
+                    plain, plain_args = tr.gae_advantages_reference, (
+                        rew, done, values, last, 0.9, 0.95, dtype)
+                else:
+                    args = (rew, done, 0.9, None, None, 1.0, dtype)
+                    plain, plain_args = tr.discounted_returns_reference, (
+                        rew, done, 0.9, dtype)
+                before = tr.returns_scan.launches
+                k1, k2 = tr.returns_scan(*args), tr.returns_scan(*args)
+                want = plain(*plain_args)
+                torch.cuda.synchronize()
+                n_launches = tr.returns_scan.launches - before
+                err = (k1 - want).abs().max().item()
+                mode = f"{'gae' if gae else 'discounted'} " \
+                       f"{'f64' if dtype == torch.float64 else 'f32'}"
+                assert n_launches == 2, (mode, n_launches)
+                assert torch.equal(k1, want), f"P={p} T={t} {mode}: {err}"
+                assert torch.equal(k1, k2), f"P={p} T={t} {mode}: launches"
+                errors["returns"] = max(errors["returns"], err)
+                k_ms = cuda_ms(lambda: tr.returns_scan(*args), reps=7,
+                               warmup=2)
+                plain_ms = cuda_ms(lambda: plain(*plain_args))
+                out_bytes = 8 if dtype == torch.float64 else 4
+                nbytes = t * p * (4 + 1 + out_bytes + (4 if gae else 0)) \
+                    + (4 * p if gae else 0)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                chain_ms = (t * RETURNS_CHAIN_OPS[gae]
+                            * RETURNS_OP_CYCLES[dtype] / SM_CLOCK_HZ * 1e3)
+                bound_ms = max(bytes_ms, chain_ms)
+                key = (p, t) if mode == "discounted f32" else \
+                    f"{p}x{t} {mode}"
+                times["returns"][key] = dict(
+                    ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by="bytes" if bytes_ms >= chain_ms
+                    else "operations")
+                print(f"returns P={p} T={t} {mode}: kernel == plain loops "
+                      f"(max abs err {err:.1e}), 2 launches counted; kernel "
+                      f"{k_ms:.4f} ms (median of 7), plain loops "
+                      f"{plain_ms:.1f} ms (1 run), bound "
+                      f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB -> "
+                      f"{bytes_ms * 1e3:.2f} us; chain "
+                      f"{RETURNS_CHAIN_OPS[gae]} ops x "
+                      f"{RETURNS_OP_CYCLES[dtype]} cycles x {t} steps -> "
+                      f"{chain_ms * 1e3:.2f} us), {bound_ms / k_ms:.1%} of "
+                      f"the bound")
+
+    def same_run(a, b, what):
+        """Two training results equal bit for bit: weights, Adam states,
+        env rows and logs."""
+        (ts_a, rows_a, log_a), (ts_b, rows_b, log_b) = a, b
+        for x, y in zip([*ts_a.actor.parameters(), *ts_a.critic.parameters()],
+                        [*ts_b.actor.parameters(), *ts_b.critic.parameters()]):
+            assert torch.equal(x, y), f"{what}: weights differ"
+        for o_a, o_b in ((ts_a.actor_opt, ts_b.actor_opt),
+                         (ts_a.critic_opt, ts_b.critic_opt)):
+            for s_a, s_b in zip(o_a.state.values(), o_b.state.values()):
+                for k in s_a:
+                    assert torch.equal(s_a[k], s_b[k]), \
+                        f"{what}: Adam {k} differs"
+        for x, y in zip(rows_a.fields(), rows_b.fields(), strict=True):
+            assert torch.equal(x, y), f"{what}: env rows differ"
+        assert log_a.logs == log_b.logs, f"{what}: logs differ"
+
+    main_argv = ["-np", "1024", "-se", "0", "--output-root", out_dir,
+                 "--fused-collect", "--fused-updates"]
+
+    # ------------------------------------------------------------------
+    phase("12. the main path as CUDA graphs: cli --jit-repeats 2, and with "
+          "--pipeline-repeats, 4 repeats, against the eager loop")
+    # Blocks of 2: the first eager (it builds and warms everything), the
+    # second captured once and replayed (with --pipeline-repeats: one
+    # repeat captured and replayed twice).  Each is held bit for bit
+    # against 4 single eager repeats; the launch counters count replays.
+    graph_runs = {}
+    for label, extra in (("eager", []),
+                         ("--jit-repeats 2", ["--jit-repeats", "2"]),
+                         ("--jit-repeats 2 --pipeline-repeats",
+                          ["--jit-repeats", "2", "--pipeline-repeats"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli(main_argv + ["-nt", str(4 * 1024 * 1000)] + extra)
+        torch.cuda.synchronize()
+        counts_ = read_counts()
+        print(f"{label}: 4 repeats in {time.perf_counter() - t0:.2f} s; "
+              f"kernel launches {counts_}")
+        assert counts_ == expect(fused_collect=4, fused_actor_grad=200,
+                                 fused_critic_grad=200, returns=4), counts_
+        graph_runs[label] = result
+    for label, result in graph_runs.items():
+        if label != "eager":
+            same_run(graph_runs["eager"], result, label)
+            print(f"{label}: weights, Adam states, env rows and logs equal "
+                  f"the eager run bit for bit")
+    del graph_runs, result
+
+    # ------------------------------------------------------------------
+    phase("13. times, eager against graphed: the collect tail and a fused "
+          "repeat, and the device's busy share of a graphed repeat")
+    # Medians of 5 of the device time (CUDA events), the host's enqueue and
+    # wall time.  The tail is the collect less its kernel.  The busy share
+    # of an unprofiled graphed repeat: the device time of its kernels, as a
+    # profiled replay of the same graph sums them, over the unprofiled
+    # replay's wall time; beside it, its CUDA-event span over that wall.
+    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler)
+    ts, es = mappo.init(make_generator(0, dev))
+    rows = fc.env_state_to_rows(es)
+    seed = torch.tensor(200, dtype=torch.int32, device=dev)
+
+    def repeat_fn():
+        return mappo.train_many(ts, rows, None, 1,
+                                lambda ts_, rows_, _: collect(ts_, rows_,
+                                                              seed))
+
+    work = {"kernel": lambda: collect.run_kernel(ts, rows, seed),
+            "collect": lambda: collect(ts, rows, seed), "repeat": repeat_fn}
+    graphs, graph_times = {}, {}
+    for name, fn in work.items():
+        fn()  # warm
+        graphs[name] = CountedGraph()
+        with graphs[name].capture():
+            fn()
+    eager_times = {name: timed(fn, reps=5) for name, fn in work.items()}
+    graph_times = {name: timed(g.replay, reps=5) for name, g in graphs.items()}
+    record["graphs_ms"] = {}
+    for route, tm_ in (("eager", eager_times), ("graphed", graph_times)):
+        tail = {k: tm_["collect"][k] - tm_["kernel"][k] for k in tm_["kernel"]}
+        rep = tm_["repeat"]
+        print(f"{route}: collect tail device {tail['device']:.3f} ms, host "
+              f"enqueue {tail['enqueue']:.3f} ms, host wall "
+              f"{tail['wall']:.3f} ms; repeat device {rep['device']:.3f} ms, "
+              f"host enqueue {rep['enqueue']:.3f} ms, host wall "
+              f"{rep['wall']:.3f} ms = "
+              f"{1024 * 1000 / rep['wall'] * 1e3:,.0f} env-steps/s (medians "
+              f"of 5)")
+        record["graphs_ms"][route] = {"tail": tail, **tm_}
+    prof_g = profile_run("profiled graphed repeat (one replay)",
+                         graphs["repeat"].replay)
+    wall_g = graph_times["repeat"]["wall"]
+    busy_g = prof_g["device_busy_ms"]
+    # Where the profile of a replay lists no collect kernel (the eager
+    # profile above does), its time is taken from the collect kernel's own
+    # graph, timed by CUDA events.
+    if not any("fused_collect_kernel" in k for k in prof_g["ours"]):
+        busy_g += graph_times["kernel"]["device"]
+        print(f"the replay's profile lists no collect kernel: its graph's "
+              f"{graph_times['kernel']['device']:.3f} ms (CUDA events) "
+              f"added")
+    share = busy_g / wall_g
+    print(f"unprofiled graphed repeat: wall {wall_g:.3f} ms; its kernels "
+          f"{busy_g:.3f} ms = {share:.1%} busy; CUDA-event span "
+          f"{graph_times['repeat']['device']:.3f} ms = "
+          f"{graph_times['repeat']['device'] / wall_g:.1%}")
+    record["graphed_busy"] = {"wall_ms": wall_g, "profile": prof_g,
+                              "busy_ms": busy_g, "share": share}
+    assert all(math.isfinite(v) for v in
+               (prof_g["wall_ms"], wall_g, graph_times["repeat"]["device"]))
+    del graphs
+
+    # ------------------------------------------------------------------
+    phase("14. checkpoint and resume on the card, the main path: 2 repeats "
+          "with --checkpoint-dir, then --resume for a third, against 3")
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    straight = cli(main_argv + ["-nt", str(3 * 1024 * 1000)])
+    cli(main_argv + ["-nt", str(2 * 1024 * 1000), "--checkpoint-dir",
+                     ckpt_dir])
+    resumed = cli(main_argv + ["-nt", str(3 * 1024 * 1000),
+                               "--checkpoint-dir", ckpt_dir, "--resume"])
+    torch.cuda.synchronize()
+    same_run(straight, resumed, "resume")
+    print(f"2 repeats, checkpoints {sorted(os.listdir(ckpt_dir))}, then a "
+          f"resume for the third: weights, Adam states, env rows and logs "
+          f"equal 3 straight repeats bit for bit")
+    del straight, resumed
 
     def shape_key(key):
         """(P, T) as "PxT"; other shapes by their label."""

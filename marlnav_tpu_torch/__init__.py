@@ -10,10 +10,12 @@ Package layout (file names follow ``marlnav_tpu``):
   env/         environment core (dynamics, observations, rewards, auto-reset)
   models/      actor / critic ``nn.Module``s and the Gaussian policy
   algo/        MAPPO: rollout loop, returns, PPO losses, Adam update loops
-  ops/         the fused collect and fused update kernels (CUDA C++ under
-               ops/csrc/) and their plain PyTorch versions
-  utils/       seeding, transforms, stats and weight files
-  train.py     the training loop; __main__.py the CLI
+  ops/         the fused collect, bench rollout, fused update and returns
+               kernels (CUDA C++ under ops/csrc/) and their plain PyTorch
+               versions; CUDA graphs that count their kernels' launches
+  utils/       seeding, transforms, stats and weight files, checkpoints
+  train.py     the training loop (blocks, graphed on the card, checkpoints
+               and resume); __main__.py the CLI
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and raise
 when CUDA is absent unless the caller asked for ``"cpu"``.

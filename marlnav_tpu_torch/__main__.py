@@ -4,14 +4,15 @@ The port's own copy of ``marlnav_tpu/__main__.py``'s ``build_parser``: the
 same flags (short and long names) and defaults, so any invocation of the
 JAX package parses here, plus ``--device`` (default ``cuda``).
 
-This port runs the training mode.  Flags whose features are not ported
-yet raise ``NotImplementedError`` naming ROADMAP.md instead of being
-ignored: ``--num-data``, ``--num-model``, ``--multihost``,
-``--checkpoint-dir``/``--resume``, ``--jit-repeats``,
-``--pipeline-repeats``, ``--bf16-updates``, ``--returns-f64``, ``-re`` and
-``-rc``.  ``--allow-interpret`` has no counterpart (the port has no kernel
-interpreter: ``--device cpu`` runs the kernels' plain PyTorch versions) and
-raises as well.
+This port runs the training mode, with ``--jit-repeats`` and
+``--pipeline-repeats`` (blocks of repeats, CUDA graphs on the card),
+``--checkpoint-dir`` / ``--checkpoint-interval`` / ``--resume`` and
+``--returns-f64``.  Flags whose features are not ported yet raise
+``NotImplementedError`` naming ROADMAP.md instead of being ignored:
+``--num-data``, ``--num-model``, ``--multihost``, ``--bf16-updates``,
+``-re`` and ``-rc``.  ``--allow-interpret`` has no counterpart (the port has
+no kernel interpreter: ``--device cpu`` runs the kernels' plain PyTorch
+versions) and raises as well.
 
 ``--fused-collect`` and ``--fused-updates`` route the rollout and the PPO
 gradients through the port's CUDA kernels (ops/csrc/); on ``--device cpu``
@@ -21,7 +22,6 @@ they run the kernels' plain PyTorch versions.
 from __future__ import annotations
 
 import argparse
-import sys
 
 from marlnav_tpu_torch.config import load_config_json, resolve_run_config
 
@@ -95,16 +95,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--process-id", type=int, default=None,
                         help="this process's index for --multihost")
     parser.add_argument("--checkpoint-dir", type=str, default=None,
-                        help="full-state checkpoints (not ported)")
+                        help="save full-state checkpoints here")
     parser.add_argument("--checkpoint-interval", type=int, default=10)
     parser.add_argument("--resume", action="store_true",
-                        help="resume from --checkpoint-dir (not ported)")
+                        help="resume from the latest checkpoint in "
+                             "--checkpoint-dir")
     parser.add_argument("--output-root", type=str, default=None,
                         help="root for plots/ logs/ weights/ (default: cwd)")
     parser.add_argument("--jit-repeats", type=int, default=1,
-                        help="repeats per device program (not ported)")
+                        help="repeats a block: one read of metrics a block, "
+                             "a CUDA graph a block on the card")
     parser.add_argument("--pipeline-repeats", action="store_true",
-                        help="chained per-repeat dispatches (not ported)")
+                        help="replay one repeat's CUDA graph --jit-repeats "
+                             "times a block instead of a graph of the block")
     parser.add_argument("--save-animation", type=str, default=None,
                         help="write the animation to this file (rendering "
                              "mode)")
@@ -122,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "Adam outside (their plain PyTorch versions "
                              "on --device cpu)")
     parser.add_argument("--returns-f64", action="store_true",
-                        help="float64 returns accumulation (not ported)")
+                        help="float64 returns accumulation")
     parser.add_argument("--bf16-updates", action="store_true",
                         help="bf16 matmul operands in the updates "
                              "(not ported)")
@@ -144,12 +147,7 @@ _UNPORTED = (
     ("--num-data", lambda a: a.num_data is not None),
     ("--num-model", lambda a: a.num_model != 1),
     ("--multihost", lambda a: a.multihost),
-    ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None),
-    ("--resume", lambda a: a.resume),
-    ("--jit-repeats", lambda a: a.jit_repeats != 1),
-    ("--pipeline-repeats", lambda a: a.pipeline_repeats),
     ("--bf16-updates", lambda a: a.bf16_updates),
-    ("--returns-f64", lambda a: a.returns_f64),
     ("-re/--rendering", lambda a: a.rendering),
     ("-rc/--reward_check", lambda a: a.reward_check),
 )
@@ -169,16 +167,22 @@ def reject_unported(args) -> None:
             "plain PyTorch versions")
 
 
-def cli(argv=None) -> None:
+def cli(argv=None):
+    """Parse ``argv`` and train; returns what ``train.train`` returns
+    (the train state, the final env state and the stats logger)."""
     args = build_parser().parse_args(argv)
     reject_unported(args)
     cfg = (load_config_json(args.config) if args.config
            else resolve_run_config(args))
     from marlnav_tpu_torch.train import train
 
-    train(cfg, device=args.device, fused_collect=args.fused_collect,
-          output_root=args.output_root)
+    return train(cfg, device=args.device, fused_collect=args.fused_collect,
+                 checkpoint_dir=args.checkpoint_dir,
+                 checkpoint_interval=args.checkpoint_interval,
+                 resume=args.resume, output_root=args.output_root,
+                 jit_repeats=args.jit_repeats,
+                 pipeline=args.pipeline_repeats)
 
 
 if __name__ == "__main__":
-    sys.exit(cli())
+    cli()

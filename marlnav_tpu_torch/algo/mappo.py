@@ -22,6 +22,10 @@ Faithful-semantics notes (SURVEY.md §2.5), active when ``cfg.faithful``
 
 ``faithful=False`` fixes the pairing and the last-step drop;
 ``use_gae=True`` switches the advantage estimator to bootstrapped GAE.
+The reverse recursions run through the returns kernel on the card
+(``ops/returns.py``), in float64 with ``returns_f64``.  ``train_many``
+runs a block of repeats with nothing read back from the device, which
+``train.py`` captures as one CUDA graph.
 
 ``fused_updates=True`` computes each minibatch's loss and gradients with the
 hand-derived backwards of ``ops/fused_update.py`` (CUDA kernels on the card,
@@ -92,6 +96,7 @@ class MAPPO:
     collect: Callable  # (TrainState, EnvState, generator) -> (EnvState, Buffer, RolloutMetrics)
     train_actor: Callable  # (TrainState, Buffer) -> (TrainState, losses)
     train_critic: Callable  # (TrainState, Buffer) -> (TrainState, losses)
+    train_many: Callable  # (ts, es, generator, n[, collect_fn]) -> (ts, es, metrics, losses)
 
 
 # ----------------------------------------------------------------------
@@ -105,41 +110,41 @@ def _sample_std(x: torch.Tensor) -> torch.Tensor:
 
 
 def discounted_returns(rewards: torch.Tensor, done: torch.Tensor,
-                       gamma: float) -> torch.Tensor:
+                       gamma: float,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Reverse-loop zero-at-done discounted returns
-    (reference models.py:131-148).  rewards/done (T, P) -> returns (T, P)."""
-    rets = torch.empty_like(rewards)
-    curr = torch.zeros_like(rewards[0])
-    for t in range(rewards.shape[0] - 1, -1, -1):
-        curr = torch.where(done[t], 0.0, rewards[t] + gamma * curr)
-        rets[t] = curr
-    return rets
+    (reference models.py:131-148), accumulated in ``dtype``.  rewards/done
+    (T, P) -> returns (T, P).  Through the returns kernel
+    (``ops/returns.py``) on the card, its plain loop on the CPU."""
+    from marlnav_tpu_torch.ops.returns import returns_scan
+
+    return returns_scan(rewards, done, gamma, dtype=dtype)
 
 
 def reference_returns(rewards: torch.Tensor, done: torch.Tensor,
                       cfg: MAPPOConfig):
     """Zero-at-done discounted returns + whole-buffer z-normalization
-    (reference models.py:131-148).  Returns ``(normalized (T, P), mean of
-    unnormalized returns)``."""
-    rets = discounted_returns(rewards, done, cfg.gamma)
+    (reference models.py:131-148).  Returns ``(normalized (T, P) float32,
+    mean of unnormalized returns)``.
+
+    With ``cfg.returns_f64`` the accumulation, mean and std run in float64,
+    the reference's ``dtype=float`` accumulator (reference models.py:133;
+    marlnav_tpu/algo/mappo.py:108-131); ``mean_rew`` stays float64 and the
+    normalized returns are cast back to float32 for the buffer."""
+    dtype = torch.float64 if cfg.returns_f64 else torch.float32
+    rets = discounted_returns(rewards, done, cfg.gamma, dtype)
     mean_rew = torch.mean(rets)
     normed = (rets - mean_rew) / (_sample_std(rets) + 1e-12)
-    return normed, mean_rew
+    return normed.to(torch.float32), mean_rew
 
 
 def gae_advantages(rewards, done, values, last_value, gamma, lam):
     """Bootstrapped GAE(lambda) — the corrected estimator behind
-    ``use_gae``.  rewards/done/values (T, P), last_value (P,)."""
-    adv = torch.empty_like(rewards)
-    gae = torch.zeros_like(last_value)
-    next_value = last_value
-    for t in range(rewards.shape[0] - 1, -1, -1):
-        not_done = 1.0 - done[t].to(rewards.dtype)
-        delta = rewards[t] + gamma * next_value * not_done - values[t]
-        gae = delta + gamma * lam * not_done * gae
-        adv[t] = gae
-        next_value = values[t]
-    return adv
+    ``use_gae``.  rewards/done/values (T, P), last_value (P,).  Through the
+    returns kernel on the card, its plain loop on the CPU."""
+    from marlnav_tpu_torch.ops.returns import returns_scan
+
+    return returns_scan(rewards, done, gamma, values, last_value, lam)
 
 
 # ----------------------------------------------------------------------
@@ -149,9 +154,13 @@ def gae_advantages(rewards, done, values, last_value, gamma, lam):
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jnp.clip`` with its gradient: ``minimum(maximum(x, lo), hi)``.
     At an exact bound autograd splits the tie, passing half the gradient
-    to ``x`` as JAX does; ``torch.clamp`` would pass all of it."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    to ``x`` as JAX does; ``torch.clamp`` would pass all of it.  A number
+    bound becomes a tensor filled on ``x``'s device (no copy from the host,
+    so a CUDA graph can capture it)."""
+    if not torch.is_tensor(lo):
+        lo = x.new_full((), lo)
+    if not torch.is_tensor(hi):
+        hi = x.new_full((), hi)
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
@@ -234,6 +243,19 @@ def minibatch_slices(buffer: Buffer, cfg: MAPPOConfig):
 # The MAPPO bundle
 # ----------------------------------------------------------------------
 
+def make_adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """Adam over ``module``'s parameters at torch's defaults (betas
+    0.9/0.999, eps 1e-8: optax.adam's).  On the card it is capturable (its
+    step count lives on the device, so a CUDA graph can hold its steps) and
+    fused (one kernel a step); eager and graphed runs take the same
+    settings, so they stay bitwise equal.  On the CPU it is torch's default
+    Adam."""
+    if next(module.parameters()).device.type == "cuda":
+        return torch.optim.Adam(module.parameters(), lr=lr, capturable=True,
+                                fused=True)
+    return torch.optim.Adam(module.parameters(), lr=lr)
+
+
 def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
                scaler_cfg: ScalerConfig, uncollapsed_actor: bool = False
                ) -> MAPPO:
@@ -242,12 +264,10 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
     With ``cfg.fused_updates``, the actor's gradient goes through its
     affine operator, or through the network itself where
     ``uncollapsed_actor``."""
-    unported = [name for name in ("returns_f64", "bf16_updates")
-                if getattr(cfg, name)]
-    if unported:
+    if cfg.bf16_updates:
         raise NotImplementedError(
-            f"MAPPOConfig.{', '.join(unported)} is not ported to "
-            "marlnav_tpu_torch yet (see ROADMAP.md)")
+            "MAPPOConfig.bf16_updates is not ported to marlnav_tpu_torch yet "
+            "(see ROADMAP.md)")
     device = env.device
     normalize = make_obs_normalizer(normalizer_cfg, device)
     scale_up = make_action_scaler(scaler_cfg, device)
@@ -262,10 +282,8 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
                       generator=g_cpu).to(device)
         critic = Critic(cfg.obs_size, a, cfg.hidden_size,
                         generator=g_cpu).to(device)
-        # torch Adam defaults (betas 0.9/0.999, eps 1e-8) == optax.adam's.
-        ts = TrainState(actor, critic,
-                        torch.optim.Adam(actor.parameters(), lr=cfg.lr),
-                        torch.optim.Adam(critic.parameters(), lr=cfg.lr))
+        ts = TrainState(actor, critic, make_adam(actor, cfg.lr),
+                        make_adam(critic, cfg.lr))
         return ts, env.init(generator)
 
     @torch.no_grad()
@@ -352,4 +370,33 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
     train_critic = _train_phase(
         critic_loss, critic_step, lambda mb: None, lambda ts: ts.critic,
         lambda ts: ts.critic_opt)
-    return MAPPO(cfg, init, collect, train_actor, train_critic)
+
+    def train_many(ts: TrainState, env_state, generator: torch.Generator,
+                   num_repeats: int, collect_fn: Callable = None):
+        """``num_repeats`` full (collect -> train actor -> train critic)
+        cycles (marlnav_tpu/algo/mappo.py:511 train_many).
+        ``collect_fn(ts, env_state, i)`` collects repeat ``i`` of the block
+        in place of the plain collect with ``generator`` (the fused route
+        passes its kernel's).  Returns ``(ts, env_state, metrics,
+        actor_losses, critic_losses)``, stacked over the repeats: the
+        metrics' fields (n,), the losses (n, epochs * minibatches).  Nothing
+        here reads the device, so a CUDA graph can capture a block."""
+        if collect_fn is None:
+            def collect_fn(ts_, es, _):
+                return collect(ts_, es, generator)
+        per_repeat = []
+        for i in range(num_repeats):
+            env_state, buffer, metrics = collect_fn(ts, env_state, i)
+            ts, actor_losses = train_actor(ts, buffer)
+            ts, critic_losses = train_critic(ts, buffer)
+            per_repeat.append((metrics, actor_losses, critic_losses))
+        metrics, actor_losses, critic_losses = zip(*per_repeat)
+        stats = EpisodeStats(*(
+            torch.stack([getattr(m.stats, f.name) for m in metrics])
+            for f in dataclasses.fields(EpisodeStats)))
+        return (ts, env_state,
+                RolloutMetrics(torch.stack([m.mean_rew for m in metrics]),
+                               stats),
+                torch.stack(actor_losses), torch.stack(critic_losses))
+
+    return MAPPO(cfg, init, collect, train_actor, train_critic, train_many)

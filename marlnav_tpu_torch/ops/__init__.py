@@ -1,6 +1,7 @@
 """Kernels (CUDA C++ under csrc/) and their plain PyTorch versions: the
-fused collect, the fused bench rollout, and the actor- and critic-gradient
-kernels of the fused updates.
+fused collect, the fused bench rollout, the actor- and critic-gradient
+kernels of the fused updates, and the returns kernel (``returns.py``);
+``graphs.py`` holds CUDA graphs that count their kernels' launches.
 
 Importing this package builds nothing; a kernel is compiled with ``nvcc``
 at its first launch (ops/_build.py).

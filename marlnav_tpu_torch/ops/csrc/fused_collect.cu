@@ -17,7 +17,10 @@
 // env_step.cuh's, shared with fused_rollout.cu.
 //
 // Random numbers: Philox4x32-10 keyed on (seed, env index) with counter
-// (step, draw group, 0, 0); each draw group gives 4 uniforms.  Per step
+// (step, draw group, 0, 0); each draw group gives 4 uniforms.  The seed is
+// read from device memory (one int32, taken as its 32 bits), so a CUDA
+// graph that holds a launch draws a new stream when the seed is rewritten
+// between replays.  Per step
 // there are 2A + 2O (+ 3A with noisy_ags) draws: [0, 2A) actions, then
 // obstacle x, obstacle y, then 3 per agent for the noisy reset.  With a
 // `noise` tensor (T, n_draws, P) the kernel reads those uniforms instead.
@@ -63,8 +66,8 @@ constexpr int kLanes = 8;  // lanes an env
 template <int O>
 __global__ void __launch_bounds__(kMaxBlockThreads)
 fused_collect_kernel(Rows in, Rows out, const float* __restrict__ w,
-                     const float* __restrict__ noise, uint32_t seed,
-                     StepParams c, float* __restrict__ obs_out,
+                     const float* __restrict__ noise,
+                     const int32_t* __restrict__ seed, StepParams c, float* __restrict__ obs_out,
                      float* __restrict__ act_out, float* __restrict__ lp_out,
                      float* __restrict__ rew_out, uint8_t* __restrict__ done_out,
                      int32_t* __restrict__ stats_out) {
@@ -93,7 +96,8 @@ fused_collect_kernel(Rows in, Rows out, const float* __restrict__ w,
 
   LaneState<O> e;
   e.load(in, P, p, g.agent, c);
-  const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
+  const uint2 key =
+      make_uint2(static_cast<uint32_t>(*seed), static_cast<uint32_t>(p));
 
   for (int t = 0; t < c.num_steps; ++t) {
     group_uniforms<O, G>(noise, n_draws, P, p, t, key, g, u);
@@ -173,7 +177,8 @@ int marlnav_collect_lanes() { return marlnav::kLanes; }
 // torch.cuda.current_stream()).  Returns cudaGetLastError() after the
 // launch: 0 when it was accepted.
 int marlnav_fused_collect(const marlnav::Rows* in, const marlnav::Rows* out,
-                          const float* w, const float* noise, uint32_t seed,
+                          const float* w, const float* noise,
+                          const int32_t* seed,
                           const marlnav::StepParams* params, float* obs,
                           float* act, float* lp, float* rew, uint8_t* done,
                           int32_t* stats, int blocks, int threads, int device,

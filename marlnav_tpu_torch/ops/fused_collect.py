@@ -10,10 +10,12 @@ the canonical ``Buffer`` layout.  The actor runs in-kernel
 as its precomposed (4, obs) affine operator (``_affine_compose``: the
 reference actor has no hidden activation).
 
-After the kernel, in PyTorch, as in the JAX package (fused_collect.py:
-403-478): the centralized critic's values from the emitted obs as one
-``nn.Linear`` pass, the returns (sequential reverse loop), and for GAE the
-bootstrap value of the final state.
+After the kernel, as in the JAX package (fused_collect.py:403-478): the
+centralized critic's values from the emitted obs as one ``nn.Linear``
+pass, the returns (the returns kernel, ``ops/returns.py``, in the
+sequential order), and for GAE the bootstrap value of the final state.
+Nothing in the collect reads the device back, so a CUDA graph can hold
+it; the kernel's seed lives in device memory for that reason.
 
 Routing, with no fallback: CPU tensors run the plain version
 ``collect_rows_reference`` (uniforms drawn from a generator seeded with
@@ -326,8 +328,7 @@ def _library():
     # Every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and cuts the pointer.
     fn = lib.marlnav_fused_collect
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_uint32]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     for getter in (lib.marlnav_collect_params_size,
@@ -377,24 +378,42 @@ def _check_launch(what: str, sm: StepMath, rows: RowState,
         _check("noise", noise, (num_steps, sm.n_draws, num_envs), f32, device)
 
 
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The collect kernel's seed as the one int32 it reads from device
+    memory: ``seed`` itself where it is such a tensor on ``device``, else a
+    new one holding the low 32 bits of the int ``seed``."""
+    if torch.is_tensor(seed):
+        if seed.device != device or seed.dtype != torch.int32 \
+                or seed.numel() != 1:
+            raise ValueError(f"seed: expected one int32 on {device}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return seed
+    low = int(seed) & 0xFFFFFFFF
+    # Filled on the device: no copy from the host, which would wait for it.
+    return torch.full((), low - (1 << 32) if low >= 1 << 31 else low,
+                      dtype=torch.int32, device=device)
+
+
 def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
-                       c_comp: torch.Tensor, seed: int, num_steps: int,
+                       c_comp: torch.Tensor, seed, num_steps: int,
                        noise: Optional[torch.Tensor] = None
                        ) -> CollectOutput:
     """Run ``num_steps`` collect steps from ``rows``.
 
-    On CUDA tensors this launches the kernel (random numbers from its
-    Philox stream keyed on ``seed``, or from ``noise`` (T, n_draws, P) when
-    given) and raises on anything it cannot launch.  On CPU tensors it runs
-    the plain version on ``noise``, or on uniforms drawn from a generator
-    seeded with ``seed``.  ``fused_collect_rows.launches`` counts kernel
-    launches."""
+    ``seed`` is an int or one int32 on the rows' device.  On CUDA tensors
+    this launches the kernel (random numbers from its Philox stream keyed
+    on the seed, which the kernel reads from device memory, or from
+    ``noise`` (T, n_draws, P) when given) and raises on anything it cannot
+    launch.  On CPU tensors it runs the plain version on ``noise``, or on
+    uniforms drawn from a generator seeded with ``seed``.
+    ``fused_collect_rows.launches`` counts kernel launches."""
     device = rows.px.device
     a, num_envs = sm.a, rows.px.shape[-1]
     if device.type == "cpu":
         if noise is None:
             noise = torch.rand((num_steps, sm.n_draws, num_envs),
-                               generator=make_generator(seed, "cpu"))
+                               generator=make_generator(int(seed), "cpu"))
         return collect_rows_reference(sm, rows, a_comp, c_comp, noise)
     if device.type != "cuda":
         raise ValueError(f"fused collect: unsupported device {device}")
@@ -402,6 +421,7 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     lib, _ = _library()
     _check_launch("fused collect", sm, rows, a_comp, c_comp, num_steps, noise,
                   lib.marlnav_collect_max_obstacles())
+    seed = seed_tensor(seed, device)
     f32 = torch.float32
     weights = torch.cat([a_comp.reshape(-1), c_comp])
     out_rows = RowState(*(torch.empty_like(x) for x in rows.fields()))
@@ -421,8 +441,8 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     blocks, threads = launch_geometry(num_envs, COLLECT_LANES)
     err = lib.marlnav_fused_collect(
         ctypes.byref(ptrs_in), ctypes.byref(ptrs_out), weights.data_ptr(),
-        None if noise is None else noise.data_ptr(),
-        ctypes.c_uint32(seed & 0xFFFFFFFF), ctypes.byref(params),
+        None if noise is None else noise.data_ptr(), seed.data_ptr(),
+        ctypes.byref(params),
         out.obs.data_ptr(), out.actions.data_ptr(), out.log_probs.data_ptr(),
         out.rewards.data_ptr(), out.done.data_ptr(), out.stats.data_ptr(),
         blocks, threads, device.index if device.index is not None
@@ -445,8 +465,9 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
                        normalizer_cfg, scaler_cfg):
     """Build ``collect(ts, rows, seed, noise=None) -> (rows', Buffer,
     RolloutMetrics)``, the fused counterpart of ``MAPPO.collect`` on the
-    RowState layout.  ``seed`` is an int (the kernel's Philox key); ``noise``
-    optionally injects the uniforms (T, n_draws, P)."""
+    RowState layout.  ``seed`` is the kernel's Philox key, an int or one
+    int32 on the rows' device (``seed_tensor``); ``noise`` optionally
+    injects the uniforms (T, n_draws, P)."""
     if not isinstance(init_cfg, TriangleInitConfig):
         raise NotImplementedError(
             "the fused collect covers the triangle scenario family; use "
@@ -454,23 +475,30 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
     sm = StepMath(env_params, init_cfg, normalizer_cfg, scaler_cfg)
     num_steps, a, f = cfg.buffer_len, sm.a, sm.obs_size
 
-    def run_kernel(ts, rows: RowState, seed: int, noise=None):
+    def run_kernel(ts, rows: RowState, seed, noise=None):
         """The kernel alone (no critic / returns tail)."""
         a_comp, c_comp = _affine_compose(ts.actor)
         return fused_collect_rows(sm, rows, a_comp, c_comp, seed, num_steps,
                                   noise)
+
+    # device -> (others' indices, obs normalizer), built at a device's
+    # first collect: no copy from the host in a later (captured) one.
+    obs_consts = {}
 
     def final_obs(rows: RowState):
         """(P, A, obs) normalized observations of the final state, for the
         GAE bootstrap value."""
         states, obstacles, target, _, _ = rows_to_env_arrays(rows)
         device = rows.px.device
-        obs = compute_observations(states, obstacles, target, sm.p,
-                                   geometry.others_indices(a, device))
-        return make_obs_normalizer(normalizer_cfg, device)(obs)
+        if device not in obs_consts:
+            obs_consts[device] = (geometry.others_indices(a, device),
+                                  make_obs_normalizer(normalizer_cfg, device))
+        others, normalize = obs_consts[device]
+        return normalize(compute_observations(states, obstacles, target,
+                                              sm.p, others))
 
     @torch.no_grad()
-    def collect(ts, rows: RowState, seed: int, noise=None):
+    def collect(ts, rows: RowState, seed, noise=None):
         out = run_kernel(ts, rows, seed, noise)
         num_envs = rows.px.shape[-1]
         # Centralized critic on the emitted obs: one pass over (T*P) rows.

@@ -88,6 +88,17 @@ class StatsLogger:
             (-actor_losses.detach().cpu().numpy()).tolist())
         self.logs["critic"].extend(critic_losses.detach().cpu().numpy().tolist())
 
+    # -- checkpoint round trip (for resume) ---------------------------------
+
+    def state_dict(self) -> dict:
+        """The host state a checkpoint keeps (marlnav_tpu/utils/stats.py:
+        150-155): the run's timestamp and every log so far."""
+        return {"time": self.time, "logs": self.logs}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.time = state["time"]
+        self.logs = state["logs"]
+
     # -- persistence -------------------------------------------------------
 
     def save_weights(self, train_state) -> None:
