@@ -37,8 +37,14 @@ the CLI as CUDA graphs (``--jit-repeats 2``, and with
 ``--pipeline-repeats``) and holds it bit for bit against the eager loop,
 times the collect tail and a repeat eager and graphed with the device's
 busy share of a graphed repeat, resumes the main path from a checkpoint
-bit for bit, and times every kernel.  Each path's launch counts are set
-to 0 just before it and read just after.  Every phase prints as it goes;
+bit for bit, then drives ``--bf16-updates`` (phase 15): holds each bf16 kernel
+variant against its plain version in bf16 mode (within a quarter of the
+bf16 - float32 gap, output by output, with its error against float64
+products of the same rounded operands printed), trains the main path
+with it (graphed equal to eager bit for bit), at -bs 250, packed, -hs 256
+and -no 14, and times each bf16 kernel and a graphed bf16 repeat beside
+their float32 counterparts; and times every kernel.  Each path's launch
+counts are set to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
 object, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  It exits non-zero, printing no result, where CUDA is
@@ -105,6 +111,7 @@ def uncollapsed_ops_per_row(f, h):
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 without tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 # Kernels whose products fit the tensor cores (TPU rows 3, 4, 6 and 7):
 # their bound takes the TF32 rate, with the 67 TFLOP/s share beside it.
 TENSOR_CORE_WORK = {"fused_critic_grad", "fused_actor_grad_uncollapsed"}
@@ -209,15 +216,16 @@ def timed(fn, reps=3):
             "wall": statistics.median(wall_ms)}
 
 
-def hmma_counts(sass):
+def hmma_counts(sass, bf16=False):
     """{(head, KS, NT): HMMA instructions} of each instance of
-    tc_grad_kernel<CriticHead<NT> or ActorHead<NT>, KS> in ``cuobjdump
-    -sass`` output."""
+    tc_grad_kernel<CriticHead<NT> or ActorHead<NT>, KS> (with ``bf16``,
+    CriticHeadBf16 or ActorHeadBf16) in ``cuobjdump -sass`` output."""
     counts, key = {}, None
+    head = "HeadBf16" if bf16 else "Head"
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"tc_grad_kernelI\w*?(Critic|Actor)HeadILi(\d+)E"
-                          r"EELi(\d+)E", line)
+            m = re.search(r"tc_grad_kernelI\w*?(Critic|Actor)" + head +
+                          r"ILi(\d+)EEELi(\d+)E", line)
             key = ((m.group(1).lower(), int(m.group(3)), int(m.group(2)))
                    if m else None)
             if key:
@@ -370,13 +378,18 @@ def main(out_dir):
         record["ptxas"][name] = ptxas_summary(build["log"])
         print("\n".join(record["ptxas"][name]))
     # The affine actor kernel: one instance for every obs width, whose
-    # registers do not grow with F; it must not spill.
-    actor_line = instance_line(builds["fused_update"][1]["log"],
-                               "actor_grad_kernelE")
-    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", actor_line)]
-    print(f"actor_grad_kernel (every obs width): {actor_line}")
-    assert spills and not any(spills), actor_line
-    record["actor_ptxas"] = actor_line
+    # registers do not grow with F, for each rounding (float32, and the
+    # bf16 roundings of the JAX package's tiled and staged routes); none
+    # may spill.
+    record["actor_ptxas"] = {}
+    for mode, label in enumerate(("float32", "bf16 tiled", "bf16 staged")):
+        actor_line = instance_line(builds["fused_update"][1]["log"],
+                                   f"actor_grad_kernelILi{mode}E")
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                             actor_line)]
+        print(f"actor_grad_kernel<{label}> (every obs width): {actor_line}")
+        assert spills and not any(spills), actor_line
+        record["actor_ptxas"][label] = actor_line
     # The returns kernel's four instances (float32 / float64, discounted /
     # GAE) hold their carry and staging in registers and shared memory.
     returns_lines = record["ptxas"]["returns"]
@@ -389,9 +402,10 @@ def main(out_dir):
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(os.path.realpath(find_nvcc())), "cuobjdump")
     if os.path.exists(cuobjdump):
-        hmma = hmma_counts(subprocess.run(
+        sass = subprocess.run(
             [cuobjdump, "-sass", builds["fused_update"][1]["path"]],
-            capture_output=True, text=True, check=True).stdout)
+            capture_output=True, text=True, check=True).stdout
+        hmma = hmma_counts(sass)
         spilled = {}
         for (head, ks, nt), count in sorted(hmma.items()):
             line = instance_line(builds["fused_update"][1]["log"],
@@ -411,6 +425,22 @@ def main(out_dir):
                  if v > SPILL_STORES_TODAY.get(k, 0)}
         assert not worse, f"tc_grad_kernel spill stores grew: {worse}"
         record["tc_hmma"] = {f"{k}": c for k, c in hmma.items()}
+        # The bf16 instances (--bf16-updates): one m16n8k16 product a
+        # k-step of 16, so a chunk's forward holds ceil(KS / 2) NT of them;
+        # none may spill.
+        hmma16 = hmma_counts(sass, bf16=True)
+        for (head, ks, nt), count in sorted(hmma16.items()):
+            line = instance_line(builds["fused_update"][1]["log"],
+                                 f"{head.capitalize()}HeadBf16ILi{nt}EEELi"
+                                 f"{ks}E")
+            print(f"tc_grad_kernel<{head.capitalize()}HeadBf16<NT={nt}>, "
+                  f"KS={ks}>: {count} HMMA in its SASS (forward: "
+                  f"{(ks + 1) // 2 * nt}); " + line)
+            stores = re.findall(r"(\d+) bytes spill stores", line)
+            assert stores and int(stores[0]) == 0, line
+        assert {h for h, _, _ in hmma16} == {"critic", "actor"}, hmma16
+        assert all(c > 0 for c in hmma16.values()), hmma16
+        record["tc_hmma_bf16"] = {f"{k}": c for k, c in hmma16.items()}
     else:
         print("cuobjdump not found: HMMA count not measured")
 
@@ -789,7 +819,7 @@ def main(out_dir):
                                f"(plain float32 {ep})")
         errors[name] = max(errors.get(name, 0.0), err_k)
 
-    def work(name, n, mcfg, widths=None):
+    def update_work(name, n, mcfg, widths=None):
         """The bytes and float operations of ``name`` on ``n`` rows, at the
         widths (F, H, In) of ``mcfg`` unless given."""
         f, h, n_in = widths or (mcfg.obs_size, mcfg.hidden_size,
@@ -813,7 +843,7 @@ def main(out_dir):
         for name, args in inputs.items():
             kernel, plain = fns[name]
             n = args[rows_arg[name]].shape[0]
-            nbytes, ops = work(name, n, mcfg, widths)
+            nbytes, ops = update_work(name, n, mcfg, widths)
             k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -867,6 +897,7 @@ def main(out_dir):
             check(name, f"P={p} T={t} full batch", args)
         slice_inputs = None
         if (p, t) == (1024, 1000):
+            main_inputs = inputs  # phase 15 holds the bf16 kernels on them
             sliced_cfg = dataclasses.replace(mcfg, batch_size=250)
             for i, smb in enumerate(minibatch_slices(buf, sliced_cfg)):
                 if i in (0, sliced_cfg.num_minibatches - 1):
@@ -897,7 +928,7 @@ def main(out_dir):
         if (p, t) == (1024, 1000):
             # A yardstick for the affine actor kernel, which bytes bound:
             # what one torch.sum reaches reading as many bytes.
-            nbytes = work("fused_actor_grad",
+            nbytes = update_work("fused_actor_grad",
                           inputs["fused_actor_grad"][4].shape[0], mcfg)[0]
             flat = torch.ones(nbytes // 4, device=dev)
             sum_ms = cuda_ms(lambda: flat.sum(), reps=7, warmup=2)
@@ -915,6 +946,7 @@ def main(out_dir):
             # The -bs 250 slices' shape: the un-collapsed kernel's path.
             time_kernels((p, 250), f"P={p} -bs 250 slice 0", slice_inputs,
                          mcfg)
+            main_slice_inputs, main_mcfg = slice_inputs, mcfg
 
     # Other widths, on 200,003 random rows through freshly initialised
     # networks: a narrow critic (2 agents, hidden 32: In 20), the widths of
@@ -948,45 +980,51 @@ def main(out_dir):
             "fused_actor_grad": [(1, 22, 50), (1, 32, 50), (1, 34, 50),
                                  (1, 13, 50),
                                  (1, lib.marlnav_actor_max_obs(), 50)]}
+
+    def wide_case(name, agents, f, h):
+        """(label, args) of ``name`` on n random rows at these widths."""
+        gen = make_generator(20 + f + h, dev)
+        net_gen = torch.Generator().manual_seed(h)
+        x = torch.randn((n, agents * f), device=dev, generator=gen)
+        if name == "fused_critic_grad":
+            critic = Critic(f, agents, h, generator=net_gen).to(dev)
+            # Hidden biases of +-2 against pre-activations of spread at
+            # most 1 (x ~ N(0, 1), orthogonal W1): no unit sits at the
+            # ReLU's kink, where the kernel's and float64's roundings
+            # may take different sides and a row's whole term of dW1
+            # and db1 jumps.
+            with torch.no_grad():
+                critic.fc1.bias.copy_(2.0 * torch.sign(torch.randn(
+                    h, device=dev, generator=gen)))
+                v = critic(x)[:, 0]
+            label = f"In {agents * f}, H {h}"
+            args = (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
+                    critic.fc2.weight.detach(), critic.fc2.bias.detach(),
+                    x, v + margins(gen),
+                    torch.randn(n, device=dev, generator=gen), 0.2)
+        else:
+            actor = Actor(f, h, generator=net_gen).to(dev)
+            label = f"F {f}" + (f", H {h}" if name != "fused_actor_grad"
+                                else "")
+            act = torch.rand((n, 2), device=dev, generator=gen) * 2 - 1
+            with torch.no_grad():
+                hid = actor.fc1(x)
+                var = torch.nn.functional.softplus(actor.fc_var(hid))
+                lp = -0.5 * (2.0 * math.log(2.0 * math.pi)
+                             + torch.log(var).sum(1)
+                             + ((act - torch.tanh(actor.fc_mu(hid))) ** 2
+                                / var).sum(1))
+            rows = (x, act, lp + margins(gen),
+                    torch.randn(n, device=dev, generator=gen), 0.2, 0.001)
+            weights = (fc._affine_compose(actor) if name ==
+                       "fused_actor_grad" else
+                       tuple(p_.detach() for p_ in actor.parameters()))
+            args = (*weights, *rows)
+        return label, args
+
     for name, cases in wide.items():
         for agents, f, h in cases:
-            gen = make_generator(20 + f + h, dev)
-            net_gen = torch.Generator().manual_seed(h)
-            x = torch.randn((n, agents * f), device=dev, generator=gen)
-            if name == "fused_critic_grad":
-                critic = Critic(f, agents, h, generator=net_gen).to(dev)
-                # Hidden biases of +-2 against pre-activations of spread at
-                # most 1 (x ~ N(0, 1), orthogonal W1): no unit sits at the
-                # ReLU's kink, where the kernel's and float64's roundings
-                # may take different sides and a row's whole term of dW1
-                # and db1 jumps.
-                with torch.no_grad():
-                    critic.fc1.bias.copy_(2.0 * torch.sign(torch.randn(
-                        h, device=dev, generator=gen)))
-                    v = critic(x)[:, 0]
-                label = f"In {agents * f}, H {h}"
-                args = (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
-                        critic.fc2.weight.detach(), critic.fc2.bias.detach(),
-                        x, v + margins(gen),
-                        torch.randn(n, device=dev, generator=gen), 0.2)
-            else:
-                actor = Actor(f, h, generator=net_gen).to(dev)
-                label = f"F {f}" + (f", H {h}" if name != "fused_actor_grad"
-                                    else "")
-                act = torch.rand((n, 2), device=dev, generator=gen) * 2 - 1
-                with torch.no_grad():
-                    hid = actor.fc1(x)
-                    var = torch.nn.functional.softplus(actor.fc_var(hid))
-                    lp = -0.5 * (2.0 * math.log(2.0 * math.pi)
-                                 + torch.log(var).sum(1)
-                                 + ((act - torch.tanh(actor.fc_mu(hid))) ** 2
-                                    / var).sum(1))
-                rows = (x, act, lp + margins(gen),
-                        torch.randn(n, device=dev, generator=gen), 0.2, 0.001)
-                weights = (fc._affine_compose(actor) if name ==
-                           "fused_actor_grad" else
-                           tuple(p_.detach() for p_ in actor.parameters()))
-                args = (*weights, *rows)
+            label, args = wide_case(name, agents, f, h)
             check(name, label, args)
             time_kernels(label, label, {name: args}, None,
                          (f, h, agents * f))
@@ -1374,6 +1412,217 @@ def main(out_dir):
           f"equal 3 straight repeats bit for bit")
     del straight, resumed
 
+    # ------------------------------------------------------------------
+    phase("15. --bf16-updates on the card: the bf16 kernels against their "
+          "plain versions, the main path trained (graphed, sliced, packed, "
+          "wide), and times beside float32")
+    # Each bf16 kernel (--bf16-updates: the affine actor's tiled and
+    # staged roundings, the critic, the un-collapsed actor) against its
+    # plain version in bf16 mode on the same inputs, output by output:
+    # |kernel - plain_bf16| <= 1/4 |plain_bf16 - plain_f32| (max norms);
+    # an output the rounding does not reach (the tiled actor's loss: its
+    # forward is unrounded) within 1e-4 of its magnitude (+1e-7).  Beside
+    # it, each output's error against float64 products of the same
+    # bf16-rounded operands (acc=float64): for the tensor-core kernels,
+    # their float32 accumulation alone.  Two launches bitwise equal.  On
+    # phase 6's inputs (the default widths: the full batch of a real
+    # collect and -bs 250 slice 0) and at H 256 and In 102 (phase 6's
+    # random rows).
+    bf16_modes = {"fused_actor_grad": ("tiled", "staged"),
+                  "fused_critic_grad": (True,),
+                  "fused_actor_grad_uncollapsed": (True,)}
+    record["bf16"] = {"errors": {}}
+
+    def check16(name, mode, label, args):
+        kernel, plain = fns[name]
+        k1, k2 = kernel(*args, mode), kernel(*args, mode)
+        p16, p32 = plain(*args, mode), plain(*args)
+        p64 = plain(*args, mode, torch.float64)
+        torch.cuda.synchronize()
+        tag = f"{name} bf16{'' if mode is True else ' ' + mode} {label}"
+        assert all(torch.equal(a, b) for a, b in zip(k1, k2)), \
+            f"{tag}: two launches differ"
+        per = {}
+        for o, k, b, f32, w in zip(outputs[name], k1, p16, p32, p64):
+            err = (k - b).abs().max().item()
+            gap = (b - f32).abs().max().item()
+            e64 = (k.double() - w).abs().max().item()
+            scale = w.abs().max().item()
+            per[o] = dict(err=err, gap=gap, err64=e64,
+                          rel64=e64 / scale if scale else 0.0)
+            if gap > 0.0:
+                assert err <= 0.25 * gap, (f"{tag} {o}: |kernel - plain "
+                                           f"bf16| {err} > 1/4 of {gap}")
+            else:
+                assert err <= 1e-4 * scale + 1e-7, f"{tag} {o}: {err}"
+        print(f"{tag}: per output, |kernel - plain bf16| / bf16 - f32 gap; "
+              f"against float64 of the rounded operands (share of max): "
+              + ", ".join(f"{o} {v['err']:.2e} / {v['gap']:.2e}; "
+                          f"{v['err64']:.2e} ({v['rel64']:.1e})"
+                          for o, v in per.items()))
+        record["bf16"]["errors"][tag] = per
+
+    for name, modes in bf16_modes.items():
+        for mode in modes:
+            check16(name, mode, "P=1024 T=1000 full batch", main_inputs[name])
+            check16(name, mode, "-bs 250 slice 0", main_slice_inputs[name])
+    for name, agents, f, h in (("fused_critic_grad", 3, 12, 256),
+                               ("fused_critic_grad", 3, 34, 50),
+                               ("fused_actor_grad_uncollapsed", 1, 12, 256),
+                               ("fused_actor_grad_uncollapsed", 1, 34, 50),
+                               ("fused_actor_grad", 1, 34, 50)):
+        label, args = wide_case(name, agents, f, h)
+        for mode in bf16_modes[name]:
+            check16(name, mode, label, args)
+
+    # The main path at full width with --bf16-updates: 2 repeats through
+    # the CLI (launch counts 2 / 100 / 100 / 0 / 0 / 2), then 4 eager
+    # repeats against 4 with --jit-repeats 2 (an eager block, then a graphed
+    # one), bit for bit; -bs 250 (the staged rounding) and
+    # MARLNAV_ACTOR_LAYOUT=packed at -bs 250 (the un-collapsed kernel) for
+    # a repeat each; -hs 256 and -no 14 for 2 short repeats on both actor
+    # routes, as phase 9.
+    bf16_argv = main_argv + ["--bf16-updates"]
+
+    def bf16_run(repeats, extra, want, label):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli(bf16_argv + ["-nt", str(repeats * 1024 * 1000)] + extra)
+        torch.cuda.synchronize()
+        counts_ = read_counts()
+        logs_ = result[2].logs
+        print(f"bf16 {label}: {repeats} repeat(s) in "
+              f"{time.perf_counter() - t0:.2f} s; kernel launches {counts_}; "
+              f"mean_rew {logs_['mean_rews']}; last losses actor "
+              f"{logs_['actor'][-1]:.6f}, critic {logs_['critic'][-1]:.6f}")
+        assert counts_ == want, (label, counts_)
+        assert len(logs_["mean_rews"]) == repeats
+        for key in ("mean_rews", "actor", "critic"):
+            assert all(math.isfinite(v) for v in logs_[key]), (label, key)
+        return result, counts_
+
+    _, record["bf16"]["launches"] = bf16_run(
+        2, [], expect(fused_collect=2, fused_actor_grad=100,
+                      fused_critic_grad=100, returns=2), "main path")
+    runs16 = {label: bf16_run(4, extra, expect(
+                  fused_collect=4, fused_actor_grad=200, fused_critic_grad=200,
+                  returns=4), label)[0]
+              for label, extra in (("eager", []),
+                                   ("--jit-repeats 2",
+                                    ["--jit-repeats", "2"]))}
+    same_run(runs16["eager"], runs16["--jit-repeats 2"], "bf16 graphed")
+    print("bf16 --jit-repeats 2: weights, Adam states, env rows and logs "
+          "equal the eager run bit for bit")
+    del runs16
+    bf16_run(1, ["-bs", "250"], expect(
+        fused_collect=1, fused_actor_grad=200, fused_critic_grad=200,
+        returns=1), "-bs 250 (staged rounding)")
+    os.environ["MARLNAV_ACTOR_LAYOUT"] = "packed"
+    try:
+        bf16_run(1, ["-bs", "250"], expect(
+            fused_collect=1, fused_critic_grad=200,
+            fused_actor_grad_uncollapsed=200, returns=1),
+            "-bs 250, MARLNAV_ACTOR_LAYOUT=packed")
+    finally:
+        del os.environ["MARLNAV_ACTOR_LAYOUT"]
+    for extra in (["-hs", "256"], ["-no", "14"]):
+        fused_collect = int(extra[1]) <= max_o if extra[0] == "-no" else True
+        for layout, bs in ((None, wt), ("packed", wt // 2)):
+            wcfg = resolve_run_config(build_parser().parse_args(
+                ["-np", str(wp), "-bl", str(wt), "-bs", str(bs), "-ne",
+                 str(epochs), "-nt", str(2 * wp * wt), "-se", "0",
+                 "--output-root", out_dir, "--fused-updates",
+                 "--bf16-updates"] + extra))
+            if layout:
+                os.environ["MARLNAV_ACTOR_LAYOUT"] = layout
+            try:
+                reset_counts()
+                _, _, wlog = train(wcfg, device="cuda",
+                                   fused_collect=fused_collect,
+                                   output_root=out_dir, verbose=False)
+                torch.cuda.synchronize()
+                wide_launches = read_counts()
+            finally:
+                os.environ.pop("MARLNAV_ACTOR_LAYOUT", None)
+            grads = 2 * epochs * (wt // bs)
+            actor_kernel = ("fused_actor_grad_uncollapsed" if layout
+                            else "fused_actor_grad")
+            label = (f"bf16 {' '.join(extra)}, "
+                     f"{'un-collapsed' if layout else 'affine'} actor, -bs "
+                     f"{bs}" + ("" if fused_collect else ", plain collect"))
+            print(f"{label}: kernel launches {wide_launches}; mean_rew "
+                  f"{wlog.logs['mean_rews']}")
+            assert wide_launches == expect(
+                fused_collect=2 if fused_collect else 0, returns=2,
+                fused_critic_grad=grads, **{actor_kernel: grads}), (
+                    label, wide_launches)
+            for key in ("mean_rews", "actor", "critic"):
+                assert all(math.isfinite(v) for v in wlog.logs[key]), (
+                    label, key)
+
+    # Times: each bf16 kernel beside its float32 instance on the same
+    # inputs (medians of 7 after 2 warm-ups, float32 first), at its path's
+    # shapes; the bound takes the same bytes and operations, the
+    # tensor-core kernels' at the bf16 rate.  Then one graphed bf16 repeat
+    # beside a float32 one (medians of 5, as phase 13).
+    for name, mode, key, args in (
+            ("fused_actor_grad", "tiled", (1024, 1000),
+             main_inputs["fused_actor_grad"]),
+            ("fused_actor_grad", "staged", (1024, 250),
+             main_slice_inputs["fused_actor_grad"]),
+            ("fused_critic_grad", True, (1024, 1000),
+             main_inputs["fused_critic_grad"]),
+            ("fused_critic_grad", True, (1024, 250),
+             main_slice_inputs["fused_critic_grad"]),
+            ("fused_actor_grad_uncollapsed", True, (1024, 250),
+             main_slice_inputs["fused_actor_grad_uncollapsed"])):
+        kernel, plain = fns[name]
+        n = args[rows_arg[name]].shape[0]
+        f32_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
+        k_ms = cuda_ms(lambda: kernel(*args, mode), reps=7, warmup=2)
+        plain_ms = cuda_ms(lambda: plain(*args, mode), reps=3, warmup=1)
+        nbytes, ops = update_work(name, n, main_mcfg)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / (BF16_OPS_PER_S if name in TENSOR_CORE_WORK
+                        else FP32_OPS_PER_S) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        tag = f"bf16{'' if mode is True else ' ' + mode} {key[0]}x{key[1]}"
+        times[name][tag] = dict(
+            ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, f32_ms=f32_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"{name} {tag}: {n:,} rows, bf16 kernel {k_ms:.4f} ms, "
+              f"float32 kernel {f32_ms:.4f} ms (medians of 7; "
+              f"{f32_ms / k_ms:.2f}x), plain bf16 version {plain_ms:.3f} ms "
+              f"(median of 3), bound {bound_ms * 1e3:.1f} us "
+              f"({nbytes / 1e6:.1f} MB -> {bytes_ms * 1e3:.1f} us; "
+              f"{ops / 1e9:.2f} GFLOP -> {ops_ms * 1e3:.1f} us in "
+              f"{'bf16' if name in TENSOR_CORE_WORK else 'float32'}), "
+              f"{bound_ms / k_ms:.1%} of the bound")
+    seed16 = torch.tensor(300, dtype=torch.int32, device=dev)
+    record["bf16"]["graphed_repeat_ms"] = {}
+    for label, bf16 in (("float32", False), ("bf16", True)):
+        mappo = make_mappo(dataclasses.replace(cfg.model, bf16_updates=bf16),
+                           env, cfg.normalizer, cfg.scaler, False, True)
+        ts, es = mappo.init(make_generator(0, dev))
+        rows = fc.env_state_to_rows(es)
+
+        def repeat16():
+            return mappo.train_many(ts, rows, None, 1,
+                                    lambda ts_, rows_, _: collect(ts_, rows_,
+                                                                  seed16))
+        repeat16()  # warm
+        graph16 = CountedGraph()
+        with graph16.capture():
+            repeat16()
+        tm16 = timed(graph16.replay, reps=5)
+        record["bf16"]["graphed_repeat_ms"][label] = tm16
+        print(f"graphed {label} repeat: device {tm16['device']:.3f} ms, host "
+              f"wall {tm16['wall']:.3f} ms = "
+              f"{1024 * 1000 / tm16['wall'] * 1e3:,.0f} env-steps/s (medians "
+              f"of 5)")
+        assert math.isfinite(tm16["wall"])
+        del graph16
+
     def shape_key(key):
         """(P, T) as "PxT"; other shapes by their label."""
         return f"{key[0]}x{key[1]}" if isinstance(key, tuple) else key
@@ -1393,9 +1642,11 @@ def main(out_dir):
                 "ms": main_["ms"], "plain_ms": main_["plain_ms"],
                 "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
                 "library_ms": None,
+                "bf16_launches": record["bf16"]["launches"].get(name, 0),
                 "by_shape": {shape_key(key): {k: v[k] for k in
                                               ("ms", "plain_ms", "bound_ms",
-                                               "fp32_bound_ms") if k in v}
+                                               "fp32_bound_ms", "f32_ms")
+                                              if k in v}
                              for key, v in times[name].items()}}
 
     print(json.dumps({"kernels": [entry(name) for name in KERNELS]}))

@@ -6,11 +6,11 @@ JAX package parses here, plus ``--device`` (default ``cuda``).
 
 This port runs the training mode, with ``--jit-repeats`` and
 ``--pipeline-repeats`` (blocks of repeats, CUDA graphs on the card),
-``--checkpoint-dir`` / ``--checkpoint-interval`` / ``--resume`` and
-``--returns-f64``.  Flags whose features are not ported yet raise
-``NotImplementedError`` naming ROADMAP.md instead of being ignored:
-``--num-data``, ``--num-model``, ``--multihost``, ``--bf16-updates``,
-``-re`` and ``-rc``.  ``--allow-interpret`` has no counterpart (the port has
+``--checkpoint-dir`` / ``--checkpoint-interval`` / ``--resume``,
+``--returns-f64`` and ``--bf16-updates``.  Flags whose features are not
+ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of being
+ignored: ``--num-data``, ``--num-model``, ``--multihost``, ``-re`` and
+``-rc``.  ``--allow-interpret`` has no counterpart (the port has
 no kernel interpreter: ``--device cpu`` runs the kernels' plain PyTorch
 versions) and raises as well.
 
@@ -127,8 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--returns-f64", action="store_true",
                         help="float64 returns accumulation")
     parser.add_argument("--bf16-updates", action="store_true",
-                        help="bf16 matmul operands in the updates "
-                             "(not ported)")
+                        help="bf16 matmul operands (float32 sums) in the "
+                             "PPO updates, rounded where the JAX package's "
+                             "route rounds them")
     parser.add_argument("--allow-interpret", action="store_true",
                         help="JAX-package flag with no counterpart here "
                              "(raises)")
@@ -147,7 +148,6 @@ _UNPORTED = (
     ("--num-data", lambda a: a.num_data is not None),
     ("--num-model", lambda a: a.num_model != 1),
     ("--multihost", lambda a: a.multihost),
-    ("--bf16-updates", lambda a: a.bf16_updates),
     ("-re/--rendering", lambda a: a.rendering),
     ("-rc/--reward_check", lambda a: a.reward_check),
 )

@@ -35,6 +35,13 @@ goes through its affine operator, or, with ``uncollapsed_actor``, through
 the network itself (the JAX package's "packed" and "undilated" kernels;
 ``train.py`` decides when).
 
+``bf16_updates`` rounds the update products' operands to bf16 (float32
+sums) on every route, where the JAX route it stands for rounds them: the
+losses through ``Actor`` / ``Critic`` with ``compute_dtype``, the fused
+gradients through the kernels' bf16 variants; the affine actor rounds as
+the JAX package's tiled kernel where ``tiled_actor`` (``train.py``
+decides), else as its staged one.  The rollout stays float32.
+
 Clip edges follow JAX's gradient rule: ``clip`` below is
 ``minimum(maximum(x, lo), hi)``, whose gradient at an exact bound is 1/2
 (an autograd tie split), where ``torch.clamp`` passes the full gradient.
@@ -195,11 +202,17 @@ def minibatch_advantages(mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
     return _pair_per_agent(returns, cfg) - _pair_per_agent(values, cfg)
 
 
+def _compute_dtype(cfg: MAPPOConfig):
+    """The update losses' matmul operand dtype (marlnav_tpu/algo/
+    mappo.py:246, 266)."""
+    return torch.bfloat16 if cfg.bf16_updates else None
+
+
 def actor_loss(actor: Actor, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
     """Negated PPO-clip + entropy objective (the reference *maximizes* it,
     reference models.py:71-72, 270-299)."""
     obs, actions, old_log_probs, _, _ = _flatten_minibatch(mb, cfg)
-    mean, var = actor(obs)
+    mean, var = actor(obs, _compute_dtype(cfg))
     dist = DiagGaussian(mean, var)
     new_log_probs = dist.log_prob(actions)
     entropies = dist.entropy()
@@ -215,7 +228,7 @@ def actor_loss(actor: Actor, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
 def critic_loss(critic: Critic, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
     """Clipped-value loss (reference models.py:301-316)."""
     obs, _, _, values, returns = _flatten_minibatch(mb, cfg)
-    new_values = critic(obs)[:, 0]
+    new_values = critic(obs, _compute_dtype(cfg))[:, 0]
     diff = (new_values - returns) ** 2
     clamped = clip(new_values, values - cfg.epsilon, values + cfg.epsilon)
     clamped_diff = (clamped - returns) ** 2
@@ -257,17 +270,15 @@ def make_adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
 
 
 def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
-               scaler_cfg: ScalerConfig, uncollapsed_actor: bool = False
-               ) -> MAPPO:
+               scaler_cfg: ScalerConfig, uncollapsed_actor: bool = False,
+               tiled_actor: bool = False) -> MAPPO:
     """Build the MAPPO function bundle on ``env.device``.  The train
     functions update the networks and optimizers of ``ts`` in place.
     With ``cfg.fused_updates``, the actor's gradient goes through its
     affine operator, or through the network itself where
-    ``uncollapsed_actor``."""
-    if cfg.bf16_updates:
-        raise NotImplementedError(
-            "MAPPOConfig.bf16_updates is not ported to marlnav_tpu_torch yet "
-            "(see ROADMAP.md)")
+    ``uncollapsed_actor``; with ``cfg.bf16_updates`` too, the affine one
+    rounds as the JAX package's tiled kernel where ``tiled_actor``, else
+    as its staged one."""
     device = env.device
     normalize = make_obs_normalizer(normalizer_cfg, device)
     scale_up = make_action_scaler(scaler_cfg, device)
@@ -329,9 +340,12 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         from marlnav_tpu_torch.ops.fused_update import (
             actor_grad, actor_grad_uncollapsed, critic_grad)
 
-        grad = actor_grad_uncollapsed if uncollapsed_actor else actor_grad
         # (module, minibatch, staged) -> (loss, grads by parameter name)
-        actor_step = lambda m, mb, adv: grad(m, mb, adv, cfg)  # noqa: E731
+        def actor_step(m, mb, adv):
+            if uncollapsed_actor:
+                return actor_grad_uncollapsed(m, mb, adv, cfg)
+            return actor_grad(m, mb, adv, cfg, tiled_actor)
+
         critic_step = lambda m, mb, _: critic_grad(m, mb, cfg)  # noqa: E731
     else:
         actor_step = critic_step = None

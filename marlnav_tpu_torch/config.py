@@ -300,8 +300,8 @@ class MAPPOConfig:
     use_gae: bool = False
     gae_lambda: float = 0.95
     # The next three fields keep the JSON format of the JAX package's
-    # MAPPOConfig.  algo.mappo.make_mappo raises when bf16_updates is set
-    # (not ported yet, ROADMAP.md); fused_updates runs the gradient kernels
+    # MAPPOConfig.  bf16_updates rounds the update products' operands on
+    # every route (algo/mappo.py); fused_updates runs the gradient kernels
     # of ops/fused_update.py.
     # float64 return accumulation (the reference's accumulator dtype).
     returns_f64: bool = False

@@ -52,9 +52,31 @@ def _dense(in_size: int, out_size: int, generator: torch.Generator):
     return layer
 
 
+def _rounded(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x`` rounded to ``compute_dtype`` and back (itself for None)."""
+    return x if compute_dtype is None else x.to(compute_dtype).to(x.dtype)
+
+
+def _linear(x, layer: nn.Linear, compute_dtype):
+    """``layer(x)``; with ``compute_dtype``, both operands of the product
+    rounded to it, the products summed in float32 and the float32 bias
+    added: the JAX package's ``Dense.cast(compute_dtype)``.  Each call
+    rounds its own copy of ``x``, so the backward rounds each use's
+    gradient to ``compute_dtype`` once and sums the uses in float32, as
+    JAX's transposed bf16 operands do on the CPU (the sum of a hidden
+    activation's two uses is not rounded)."""
+    return F.linear(_rounded(x, compute_dtype),
+                    _rounded(layer.weight, compute_dtype), layer.bias)
+
+
 class Actor(nn.Module):
     """obs (..., A, obs_size) -> (mean, var), each (...*A, action_size);
-    ``var`` is the covariance diagonal (see distributions.py)."""
+    ``var`` is the covariance diagonal (see distributions.py).
+
+    ``compute_dtype=torch.bfloat16`` (``--bf16-updates``) runs as the JAX
+    package's ``actor_apply(..., compute_dtype)``: the products' operands
+    rounded to bf16, the products summed in float32 (TF32 stays off), the
+    bias float32, the hidden activations rounded to bf16."""
 
     def __init__(self, obs_size: int, hidden_size: int, action_size: int = 2,
                  generator: Optional[torch.Generator] = None):
@@ -64,15 +86,18 @@ class Actor(nn.Module):
         self.fc_mu = _dense(hidden_size, action_size, g)
         self.fc_var = _dense(hidden_size, action_size, g)
 
-    def forward(self, obs: torch.Tensor):
+    def forward(self, obs: torch.Tensor, compute_dtype=None):
         x = obs.reshape(-1, obs.shape[-1])
-        h = self.fc1(x)  # NB: no activation (reference models.py:29)
-        return torch.tanh(self.fc_mu(h)), F.softplus(self.fc_var(h))
+        # NB: no activation (reference models.py:29)
+        h = _linear(x, self.fc1, compute_dtype)
+        return (torch.tanh(_linear(h, self.fc_mu, compute_dtype)),
+                F.softplus(_linear(h, self.fc_var, compute_dtype)))
 
 
 class Critic(nn.Module):
     """obs (N, A, obs_size) -> values (N, 1): agents fold into the feature
-    axis — the centralized critic (reference models.py:44, 51-55)."""
+    axis — the centralized critic (reference models.py:44, 51-55).
+    ``compute_dtype`` as in ``Actor``."""
 
     def __init__(self, obs_size: int, num_agents: int, hidden_size: int,
                  generator: Optional[torch.Generator] = None):
@@ -81,9 +106,10 @@ class Critic(nn.Module):
         self.fc1 = _dense(obs_size * num_agents, hidden_size, g)
         self.fc2 = _dense(hidden_size, 1, g)
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         x = obs.reshape(obs.shape[0], -1)
-        return self.fc2(torch.relu(self.fc1(x)))
+        h = torch.relu(_linear(x, self.fc1, compute_dtype))
+        return _linear(h, self.fc2, compute_dtype)
 
 
 # ----------------------------------------------------------------------

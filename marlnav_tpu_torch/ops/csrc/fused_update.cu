@@ -93,16 +93,34 @@
 // Widths are template instances on padded sizes (critic In <= 103, H <=
 // 256; un-collapsed actor F <= 39, H <= 256; critic_instance and
 // actor_instance).  mma.sync, not wgmma: see mma_tf32.cuh.
+// --bf16-updates (bf16 variants, rounding where the JAX route rounds; the
+// plain versions in ops/update_math.py round at the same points):
+//   - actor_grad_kernel<kTiled | kStaged>: the operands of the products
+//     rounded by __float2bfloat16_rn (round to nearest even, as JAX's astype)
+//     on the CUDA cores; a product of two bf16 values is exact in float32,
+//     so the __fmaf_rn chains stay.  kTiled rounds g_z and x in the sums and
+//     feeds the ones column the rounded g_z; kStaged also rounds a_comp and x
+//     in the forward and feeds the ones column the float32 g_z.
+//   - tc_grad_kernel<CriticHeadBf16 | ActorHeadBf16>: each product one
+//     mma.sync.m16n8k16 bf16 pass (mma_bf16.cuh) in place of three m16n8k8
+//     TF32 ones, the operands rounded at fragment load from the float32
+//     staging.  The bias leaves the product: the forward's accumulators start
+//     from the float32 b1 (K = In, padded to 16), and db1 sums the float32
+//     g_pre / g_h in the warp's tile by columns (the ones row of [x | 1]^T
+//     would sum them rounded).  The heads round their CUDA-core products'
+//     operands too.  Instances only for the widths training reaches.
 // Built with -fmad=false like the collect kernel (one flag set for the
 // port's libraries): every multiply and add rounds separately, as PyTorch's
 // elementwise operations do, in the per-row chains.  The flag does not
 // touch the tensor cores' mma instructions, nor the affine actor's explicit
 // fused multiply-adds (__fmaf_rn) in z = a_comp x + c_comp and its sums,
 // which its plain version takes by matrix products.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace marlnav {
@@ -146,6 +164,19 @@ struct PpoConsts {
   float lo, hi;           // 1 - eps, 1 + eps
   float ent_c, ent_half;  // ent_const, ent_const * 0.5
 };
+
+// The affine actor's roundings (--bf16-updates), by the JAX route each
+// stands for (ops/update_math.py actor_grad_sums_reference): kF32 none;
+// kTiled (fused_update_tiled.py:199-204) g_z and x in the sums g_z x^T,
+// the ones column fed the rounded g_z (so dzs sums it), the forward
+// unrounded; kStaged (fused_update.py:734-741) a_comp and x in the forward
+// too, the ones column fed the float32 g_z.
+enum ActorMode { kF32 = 0, kTiled = 1, kStaged = 2 };
+
+// x rounded to the nearest bf16 (ties to even), as a float.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 struct ActorArgs {
   const float* obs;     // (N, F)
@@ -285,9 +316,14 @@ __device__ __forceinline__ void copy_edges(const Span& s, int t) {
 // g_z load for 16 fused multiply-adds) over a fixed subset of the rows, so
 // its registers do not grow with F.  Each block writes one
 // partial (its row subsets summed in order), and the last block to finish
-// sums the partials in block order, in double.
+// sums the partials in block order, in double.  kMode (ActorMode): with
+// bf16 rounding each product's operands are bf16, so its product is exact
+// in float32 and the __fmaf_rn chains stay as they are.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
     actor_grad_kernel(const ActorArgs a) {
+  constexpr bool kRound = kMode != kF32;
+  auto rx = [](float v) { return kRound ? round_bf16(v) : v; };
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float s_loss[kWarps];
@@ -302,7 +338,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   float4* s_gz = smem4 + f + 1;  // (R) g_z
   float* s_ring = smem + 4 * (f + 1 + rt);
   for (int i = tid; i < 4 * f; i += kThreads)
-    smem[4 * (i % f) + i / f] = a.a_comp[i];
+    smem[4 * (i % f) + i / f] =
+        kMode == kStaged ? round_bf16(a.a_comp[i]) : a.a_comp[i];
   if (tid < 4) smem[4 * f + tid] = a.c_comp[tid];
   if (tid == 0)
     for (int i = 0; i < kStages; ++i) mma::mbar_init(&s_full[i], 1);
@@ -378,6 +415,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float* xr = smem + x0 + row * f;
       float z[4] = {0.f, 0.f, 0.f, 0.f};
       auto column = [&](float xv, float4 w) {
+        if (kMode == kStaged) xv = round_bf16(xv);
         z[0] = __fmaf_rn(w.x, xv, z[0]);
         z[1] = __fmaf_rn(w.y, xv, z[1]);
         z[2] = __fmaf_rn(w.z, xv, z[2]);
@@ -416,13 +454,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     __syncthreads();  // the tile's g_z
     if (summing) {
-      auto add = [&](const float4 g, const float (&xv)[4]) {
+      // Column i of the group takes g_z rounded where kRound, but the
+      // ones column (c0 + i == F) the float32 g_z in kStaged.
+      auto add = [&](const float4 g32, const float (&xv)[4]) {
+        const float4 g = make_float4(rx(g32.x), rx(g32.y), rx(g32.z),
+                                     rx(g32.w));
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc[i][0] = __fmaf_rn(g.x, xv[i], acc[i][0]);
-          acc[i][1] = __fmaf_rn(g.y, xv[i], acc[i][1]);
-          acc[i][2] = __fmaf_rn(g.z, xv[i], acc[i][2]);
-          acc[i][3] = __fmaf_rn(g.w, xv[i], acc[i][3]);
+          const float4 gi = kMode == kStaged && c0 + i == f ? g32 : g;
+          const float xi = rx(xv[i]);
+          acc[i][0] = __fmaf_rn(gi.x, xi, acc[i][0]);
+          acc[i][1] = __fmaf_rn(gi.y, xi, acc[i][1]);
+          acc[i][2] = __fmaf_rn(gi.z, xi, acc[i][2]);
+          acc[i][3] = __fmaf_rn(gi.w, xi, acc[i][3]);
         }
       };
       const float* xc = smem + x0 + c0;
@@ -562,26 +606,42 @@ struct PassTiles {
   static_assert(NT % kNtg == 0, "whole passes");
 };
 
-template <int NT>
-struct CriticHead : PassTiles<NT> {
+//
+// BF (--bf16-updates): the products' operands are bf16 (rounded at the
+// points of ops/update_math.py critic_grad_sums_reference): the tensor-core
+// products on bf16 fragments (mma_bf16.cuh), and here w2 (in shared
+// memory) and h for v, w2 and g_v for g_h, g_v and h for dW2.  The ReLU's
+// mask reads the float32 h.  db1 sums the float32 g_pre (tc_grad_kernel's
+// column sums), not as the ones row of [x | 1]^T g_pre, which would sum
+// the rounded g_pre.
+template <int NT, bool BF>
+struct CriticHeadT : PassTiles<NT> {
   static constexpr int kNtg = PassTiles<NT>::kNtg;
+  static constexpr bool kBf16 = BF;
   static constexpr int kAux = 2;    // floats a row: old value, return
   static constexpr int kThird = 0;  // dW2 stays in registers
   static constexpr int kParamFloats = NT * 8;  // w2, zero-padded
   static constexpr int kSums = 2;   // a lane's share of v, rows g and g + 8
-  static constexpr int kSmallMax = NT * 8 + 2;
+  static constexpr int kSmallMax = NT * 8 + 2 + (BF ? NT * 8 : 0);
   static __host__ __device__ int n_out(int in, int hid) {
     return 1 + hid * in + 2 * hid + 1;
   }
-  // Per-warp sums besides the tiles: loss, dW2 (H), db2.
-  static __host__ __device__ int n_small(int hid) { return hid + 2; }
-  static __device__ int small_index(int k, int in, int hid) {
-    return k == 0 ? 0 : 1 + hid * in + hid + (k - 1);
+  // Per-warp sums besides the tiles: loss, dW2 (H), db2, and with BF db1
+  // (H).
+  static __host__ __device__ int n_small(int hid) {
+    return hid + 2 + (BF ? hid : 0);
   }
+  static __device__ int small_index(int k, int in, int hid) {
+    return k == 0         ? 0
+           : k <= hid + 1 ? 1 + hid * in + hid + (k - 1)
+                          : 1 + hid * in + (k - hid - 2);
+  }
+  // The small index of db1 (j = 0) with BF.
+  static __device__ int db1_small(int hid) { return hid + 2; }
   // Output of element (m, j) of the backward product: dW1 (j, m), db1 (j)
-  // in row In; -1 in the padding.
+  // in row In (not with BF); -1 in the padding.
   static __device__ int tile_index(int m, int j, int in, int hid, int) {
-    if (j >= hid || m > in) return -1;
+    if (j >= hid || m > in || (BF && m == in)) return -1;
     return m < in ? 1 + j * in + m : 1 + hid * in + j;
   }
 
@@ -589,10 +649,12 @@ struct CriticHead : PassTiles<NT> {
   float acc_loss, acc_b2;  // lanes t == 0: rows g and g + 8
   float b2, eps;
 
+  static __device__ float r(float x) { return BF ? round_bf16(x) : x; }
+
   __device__ void init(const GradArgs& a, float* s_par, int tid,
                        int threads) {
     for (int j = tid; j < NT * 8; j += threads)
-      s_par[j] = j < a.hidden ? a.head[0][j] : 0.f;
+      s_par[j] = j < a.hidden ? r(a.head[0][j]) : 0.f;
     b2 = a.head[1][0];
     eps = a.eps;
     acc_loss = acc_b2 = 0.f;
@@ -626,8 +688,8 @@ struct CriticHead : PassTiles<NT> {
       for (int i = 0; i < 4; ++i) c[nt][i] = fmaxf(c[nt][i], 0.f);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        p[h] = p[h] + w.x * c[nt][2 * h];
-        p[h] = p[h] + w.y * c[nt][2 * h + 1];
+        p[h] = p[h] + w.x * r(c[nt][2 * h]);
+        p[h] = p[h] + w.y * r(c[nt][2 * h + 1]);
       }
     }
   }
@@ -664,11 +726,13 @@ struct CriticHead : PassTiles<NT> {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float h0 = c[nt][2 * h], h1 = c[nt][2 * h + 1];
+        const float gvh = r(gv[h]);
+        const float2 gp = make_float2((w.x * gvh) * flag(h0 > 0.f),
+                                      (w.y * gvh) * flag(h1 > 0.f));
         *reinterpret_cast<float2*>(s_g + (g + 8 * h) * LDG + nt * 8 + 2 * t) =
-            make_float2((w.x * gv[h]) * flag(h0 > 0.f),
-                        (w.y * gv[h]) * flag(h1 > 0.f));
-        acc_w2[nt][0] += gv[h] * h0;
-        acc_w2[nt][1] += gv[h] * h1;
+            gp;
+        acc_w2[nt][0] += gvh * r(h0);
+        acc_w2[nt][1] += gvh * r(h1);
       }
     }
   }
@@ -726,9 +790,16 @@ struct CriticHead : PassTiles<NT> {
 //   head: wmu (2, H), bmu (2,), wvar (2, H), bvar (2,);
 //   out:  loss_sum, dW1 (H, F), db1 (H), dWmu (2, H), dbmu (2), dWvar
 //         (2, H), dbvar (2).
-template <int NT>
-struct ActorHead : PassTiles<NT> {
+//
+// BF (--bf16-updates): the products' operands are bf16 (ops/update_math.py
+// actor_grad_sums_uncollapsed_reference): the tensor-core products on bf16
+// fragments, and here [Wmu; Wvar] (in shared memory) and h for z, [Wmu;
+// Wvar] and g_z for g_h; db1 sums the float32 g_h (tc_grad_kernel's column
+// sums).
+template <int NT, bool BF>
+struct ActorHeadT : PassTiles<NT> {
   static constexpr int kNtg = PassTiles<NT>::kNtg;
+  static constexpr bool kBf16 = BF;
   static constexpr int kAux = 4;    // floats a row: action (2), lp, adv
   static constexpr int kThird = 1;  // dWmu, dWvar = g_z^T h, one m-tile
   // [Wmu; Wvar] (4, 8 NT), zero-padded, then [bmu; bvar].
@@ -736,24 +807,32 @@ struct ActorHead : PassTiles<NT> {
   // A lane's share of z = [Wmu; Wvar] h: p[2 o + h], output o, rows g and
   // g + 8.
   static constexpr int kSums = 8;
-  static constexpr int kSmallMax = 5;
+  static constexpr int kSmallMax = 5 + (BF ? NT * 8 : 0);
   static __host__ __device__ int n_out(int in, int hid) {
     return 1 + hid * in + 5 * hid + 4;
   }
-  // Per-warp sums besides the tiles: loss, dbmu (2), dbvar (2).
-  static __host__ __device__ int n_small(int) { return 5; }
+  // Per-warp sums besides the tiles: loss, dbmu (2), dbvar (2), and with BF
+  // db1 (H).
+  static __host__ __device__ int n_small(int hid) {
+    return 5 + (BF ? hid : 0);
+  }
   static __device__ int small_index(int k, int in, int hid) {
     const int o_bmu = 1 + hid * in + 3 * hid;
-    return k == 0 ? 0 : k < 3 ? o_bmu + k - 1 : o_bmu + 2 * hid + k - 1;
+    return k == 0  ? 0
+           : k < 3 ? o_bmu + k - 1
+           : k < 5 ? o_bmu + 2 * hid + k - 1
+                   : 1 + hid * in + (k - 5);
   }
+  // The small index of db1 (j = 0) with BF.
+  static __device__ int db1_small(int) { return 5; }
   // Output of element (m, j) of the backward products: rows m < extra0 are
-  // [x | 1]^T g_h (dW1 (j, m), db1 (j) in row In), rows extra0 + c (c < 4)
-  // are g_z^T h (dWmu, then dWvar); -1 in the padding.
+  // [x | 1]^T g_h (dW1 (j, m), db1 (j) in row In, not with BF), rows
+  // extra0 + c (c < 4) are g_z^T h (dWmu, then dWvar); -1 in the padding.
   static __device__ int tile_index(int m, int j, int in, int hid,
                                    int extra0) {
     if (j >= hid) return -1;
     if (m < extra0) {
-      if (m > in) return -1;
+      if (m > in || (BF && m == in)) return -1;
       return m < in ? 1 + j * in + m : 1 + hid * in + j;
     }
     const int c = m - extra0, o_wmu = 1 + hid * in + hid;
@@ -765,14 +844,16 @@ struct ActorHead : PassTiles<NT> {
   float acc_loss, acc_bh[4];  // lanes t == 0: rows g and g + 8
   PpoConsts k;
 
+  static __device__ float r(float x) { return BF ? round_bf16(x) : x; }
+
   __device__ void init(const GradArgs& a, float* s_par, int tid,
                        int threads) {
     const int hid = a.hidden;
     for (int i = tid; i < 4 * NT * 8; i += threads) {
       const int c = i / (NT * 8), j = i - c * NT * 8;
       s_par[i] = j >= hid ? 0.f
-                 : c < 2  ? a.head[0][c * hid + j]
-                          : a.head[2][(c - 2) * hid + j];
+                 : c < 2  ? r(a.head[0][c * hid + j])
+                          : r(a.head[2][(c - 2) * hid + j]);
     }
     if (tid < 4)
       s_par[4 * NT * 8 + tid] = tid < 2 ? a.head[1][tid] : a.head[3][tid - 2];
@@ -808,8 +889,8 @@ struct ActorHead : PassTiles<NT> {
             s_par + o * NT * 8 + col0 + nt * 8 + 2 * t);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          p[2 * o + h] = p[2 * o + h] + w.x * c[nt][2 * h];
-          p[2 * o + h] = p[2 * o + h] + w.y * c[nt][2 * h + 1];
+          p[2 * o + h] = p[2 * o + h] + w.x * r(c[nt][2 * h]);
+          p[2 * o + h] = p[2 * o + h] + w.y * r(c[nt][2 * h + 1]);
         }
       }
   }
@@ -845,8 +926,8 @@ struct ActorHead : PassTiles<NT> {
     for (int o = 0; o < 4; ++o) {
       g_row[o] = valid ? g_row[o] : 0.f;
       const float other = __shfl_xor_sync(0xffffffffu, g_row[o], 2);
-      gz[0][o] = mh ? other : g_row[o];
-      gz[1][o] = mh ? g_row[o] : other;
+      gz[0][o] = r(mh ? other : g_row[o]);  // g_z as g_h's operand
+      gz[1][o] = r(mh ? g_row[o] : other);
     }
     if (valid && (t & 1) == 0 && first) {
       acc_loss += loss;
@@ -884,7 +965,7 @@ struct ActorHead : PassTiles<NT> {
   }
 
   // This warp's loss, dbmu and dbvar sums into dst where `scalars` (see
-  // CriticHead).
+  // CriticHeadT).
   __device__ void store_small(float* dst, bool full, int in, int hid, int,
                               int, int lane, int = 0, bool scalars = true) {
     if (!scalars) return;
@@ -903,6 +984,17 @@ struct ActorHead : PassTiles<NT> {
     }
   }
 };
+
+// The heads' float32 instances (3xTF32) and bf16 ones (--bf16-updates),
+// each its own type, so that a kernel instance's name says which it is.
+template <int NT>
+struct CriticHead : CriticHeadT<NT, false> {};
+template <int NT>
+struct CriticHeadBf16 : CriticHeadT<NT, true> {};
+template <int NT>
+struct ActorHead : ActorHeadT<NT, false> {};
+template <int NT>
+struct ActorHeadBf16 : ActorHeadT<NT, true> {};
 
 // The backward's cost to a warp, a k-step of 8 rows, where a grid of
 // (warps / wn) x wn warps shares (mt, nt) output tiles: 3 mma a tile
@@ -954,11 +1046,17 @@ struct TcShape {
   // bias sums, the critic's dW2) in a row of its own across them.
   static constexpr int kSmall = kGroups > 1 ? Head::kSmallMax : 0;
   // W1's fragments split into TF32 halves once a block where that fits
-  // beside 8 warps, else as floats split at each load.
+  // beside 8 warps, else as floats split at each load.  bf16 (Head::kBf16):
+  // W1's m16n8k16 B fragments over kMt k-steps of 16 (K = In, the bias not
+  // in the product), two packed registers a lane, then b1 (8 NT floats),
+  // from which the forward's accumulators start.
+  static constexpr bool kBf16 = Head::kBf16;
   static constexpr bool kPreSplit =
       KS * kNt * 32 * 4 + Head::kParamFloats + 8 * (kWarpFloats + kSmall) <=
       kSmemFloats;
-  static constexpr int kFragFloats = KS * kNt * 32 * (kPreSplit ? 4 : 2);
+  static constexpr int kB1Off = kMt * kNt * 32 * 2;
+  static constexpr int kFragFloats =
+      kBf16 ? kB1Off + kNt * 8 : KS * kNt * 32 * (kPreSplit ? 4 : 2);
   static constexpr int kFit = (kSmemFloats - kFragFloats -
                                Head::kParamFloats) / (kWarpFloats + kSmall);
   static constexpr int kWarps = kFit < 8 ? kFit : 8;
@@ -973,8 +1071,9 @@ struct TcShape {
   // held to 128 registers a thread, whose chain leaves the tensor cores
   // idle between chunks; one of every other (the critic's default keeps
   // 211 registers).
+  // bf16 instances take one (the full register file a thread).
   static constexpr int kBlocks =
-      Head::kThird && kGroups == 1 && kMtAll * kNtg <= 14 ? 2 : 1;
+      !kBf16 && Head::kThird && kGroups == 1 && kMtAll * kNtg <= 14 ? 2 : 1;
   static constexpr int kNtw = (kNtg + kWn - 1) / kWn;
   static_assert(kWarps >= 1 && kMainFloats <= kSmemFloats,
                 "an instance fits the block's shared memory");
@@ -1052,6 +1151,38 @@ __device__ __forceinline__ void tc_forward(float (&c)[NTG][4], const float* x,
   }
 }
 
+// The same in bf16: pre = b1 + x W1^T, the accumulators started from b1
+// (float32, unrounded), one m16n8k16 product a k-step of 16 on x rounded at
+// its fragment load and W1's pre-rounded fragments; the ones column of
+// [x | 1] meets zeros there.
+template <class Sh, int NTG, int LDX>
+__device__ __forceinline__ void tc_forward_bf16(float (&c)[NTG][4],
+                                                const float* x,
+                                                const float4* smem4, int nt0,
+                                                int lane) {
+  constexpr int NT = Sh::kNt;
+  const uint2* frag = reinterpret_cast<const uint2*>(smem4);
+  const float* b1 = reinterpret_cast<const float*>(smem4) + Sh::kB1Off;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NTG; ++nt) {
+    const float2 b = *reinterpret_cast<const float2*>(
+        b1 + (nt0 + nt) * 8 + 2 * t);
+    c[nt][0] = c[nt][2] = b.x;
+    c[nt][1] = c[nt][3] = b.y;
+  }
+#pragma unroll
+  for (int k16 = 0; k16 < Sh::kMt; ++k16) {
+    uint32_t a[4];
+    mma::load_a_rows_bf16(x + k16 * 16, LDX, lane, a);
+#pragma unroll
+    for (int nt = 0; nt < NTG; ++nt) {
+      const uint2 w = frag[(k16 * NT + nt0 + nt) * 32 + lane];
+      mma::mma_bf16(c[nt], a, w.x, w.y);
+    }
+  }
+}
+
 // Past 16 n-tiles (128 hidden units) the kernel runs kGroups passes over
 // its rows, pass q for the hidden units of n-tiles 16 q .. 16 q + 15: the
 // head needs every unit before a row's chain, so each pass takes the whole
@@ -1083,6 +1214,22 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
   float* s_small = s_warps + W * Sh::kWarpFloats;
   float* mine = s_warps + warp * Sh::kWarpFloats;
 
+  if constexpr (Sh::kBf16) {
+    // B fragment (k16, nt) of W1^T for lane l: W1 (n, k), (n, k + 1) and
+    // (n, k + 8), (n, k + 9), n = 8 nt + l / 4, k = 16 k16 + 2 (l % 4).
+    for (int i = tid; i < MT * NT * 32; i += W * 32) {
+      const int l = i & 31, nt = (i >> 5) % NT, k16 = (i >> 5) / NT;
+      const int n = nt * 8 + (l >> 2), k = k16 * 16 + 2 * (l & 3);
+      auto w = [&](int kk) {
+        return n < hid && kk < in ? args.w1[n * in + kk] : 0.f;
+      };
+      reinterpret_cast<uint2*>(smem)[i] =
+          make_uint2(mma::pack_bf16(w(k), w(k + 1)),
+                     mma::pack_bf16(w(k + 8), w(k + 9)));
+    }
+    for (int j = tid; j < NT * 8; j += W * 32)
+      smem[Sh::kB1Off + j] = j < hid ? args.b1[j] : 0.f;
+  } else {
   for (int i = tid; i < KS * NT * 32; i += W * 32) {
     const int l = i & 31, nt = (i >> 5) % NT, ks = (i >> 5) / NT;
     const int n = nt * 8 + (l >> 2), k = ks * 8 + (l & 3);
@@ -1105,6 +1252,7 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
       reinterpret_cast<float2*>(smem)[i] = make_float2(b[0], b[1]);
     }
   }
+  }
   Head head;
   head.init(args, s_par, tid, W * 32);
   // Zero the warp's region (rows past n_rows stay finite), then the ones
@@ -1117,6 +1265,21 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
   // Backward accumulators of this warp's output tiles of a pass (m-tile
   // wm + WM i, n-tile wn + WN j of the pass's kNtg).
   float bacc[MTW][NTW][4];
+  // bf16: this lane's db1 sums of the pass's columns lane, lane + 32, ...
+  // (float32, unrounded; the ones row of the backward would sum the
+  // rounded operand).
+  constexpr int kDb1 = Sh::kBf16 ? (NTG * 8 + 31) / 32 : 1;
+  float db1[kDb1];
+  // db1's sums of the pass's columns into dst: at small index k, or at
+  // their output index where `full`.
+  auto store_db1 = [&](float* dst, bool full, int col0) {
+#pragma unroll
+    for (int i = 0; i < kDb1; ++i) {
+      const int j = col0 + lane + 32 * i, k = Head::db1_small(hid) + j;
+      if (lane + 32 * i < NTG * 8 && j < hid)
+        dst[full ? Head::small_index(k, in, hid) : k] = db1[i];
+    }
+  };
   const int own = warp % S, wq0 = warp - own;  // the group's first warp
   const int wm = own / WN, wn = own % WN;
   const long long n = args.n_rows, n_chunks = (n + 15) / 16;
@@ -1136,6 +1299,8 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
 #pragma unroll
         for (int e = 0; e < 4; ++e) bacc[i][j][e] = 0.f;
     head.clear();
+#pragma unroll
+    for (int i = 0; i < kDb1; ++i) db1[i] = 0.f;
 
     // Each round the group of S warps takes S chunks, one a warp.
     long long base = static_cast<long long>(blockIdx.x) * W + wq0;
@@ -1154,11 +1319,18 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
 
       // Forward: pre = [x | 1] [W1^T ; b1] over the warp's 16 rows, and
       // the lane's share p of the head's sums.
+      auto forward = [&](float (&o)[NTG][4], const float* xr, const float4* s4,
+                         int nt0, int ln) {
+        if constexpr (Sh::kBf16)
+          tc_forward_bf16<Sh, NTG, LDX>(o, xr, s4, nt0, ln);
+        else
+          tc_forward<Sh, KS, NTG, LDX>(o, xr, s4, nt0, ln);
+      };
       float c[NTG][4], p[P];
 #pragma unroll
       for (int i = 0; i < P; ++i) p[i] = 0.f;
       if constexpr (G == 1) {
-        tc_forward<Sh, KS, NTG, LDX>(c, x, smem4, 0, lane);
+        forward(c, x, smem4, 0, lane);
         Head::sums(c, s_par, 0, t, p);
       } else {
         float pg[G][P];
@@ -1168,13 +1340,13 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
           for (int i = 0; i < P; ++i) pg[gi][i] = 0.f;
           if (gi == grp) continue;
           float o[NTG][4];
-          tc_forward<Sh, KS, NTG, LDX>(o, x, smem4, gi * NTG, lane);
+          forward(o, x, smem4, gi * NTG, lane);
           Head::sums(o, s_par, gi * 8 * NTG, t, pg[gi]);
         }
         float po[P];
 #pragma unroll
         for (int i = 0; i < P; ++i) po[i] = 0.f;
-        tc_forward<Sh, KS, NTG, LDX>(c, x, smem4, grp * NTG, lane);
+        forward(c, x, smem4, grp * NTG, lane);
         Head::sums(c, s_par, col0, t, po);
 #pragma unroll
         for (int gi = 0; gi < G; ++gi)
@@ -1187,53 +1359,106 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
                                    mine + Sh::kOffG, mine + Sh::kOffH,
                                    mine + Sh::kOffZ);
       group_sync<S>();
+      if constexpr (Sh::kBf16) {
+        // db1 += the chunk's float32 g_pre (critic) or g_h (actor): lane l
+        // sums columns l, l + 32, ... of the warp's tile over its 16 rows.
+        const float* sg = mine + Sh::kOffG;
+#pragma unroll
+        for (int i = 0; i < kDb1; ++i) {
+          const int col = lane + 32 * i;
+          if (col < NTG * 8) {
+            float sum = 0.f;
+#pragma unroll
+            for (int r = 0; r < 16; ++r) sum += sg[r * LDG + col];
+            db1[i] += sum;
+          }
+        }
+      }
 
       // Backward over the group's S chunks, K = 16 rows each in two steps
-      // of 8: [x | 1]^T g_pre, and g_z^T h for the actor.
+      // of 8: [x | 1]^T g_pre, and g_z^T h for the actor.  bf16: one step
+      // of 16, each operand rounded at its fragment load.
 #pragma unroll 1
       for (int q = 0; q < S; ++q) {
         const float* rq = s_warps + (wq0 + q) * Sh::kWarpFloats;
         const float* xq = rq + buf * 16 * LDX;
-#pragma unroll
-        for (int kr = 0; kr < 2; ++kr) {
-          uint32_t a_big[MTW][4], a_small[MTW][4];
+        if constexpr (Sh::kBf16) {
+          uint32_t a[MTW][4];
 #pragma unroll
           for (int i = 0; i < MTW; ++i) {
             const int mt = wm + WM * i;
-            float a[4] = {0.f, 0.f, 0.f, 0.f};
+            a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0u;
             if (mt < MT) {
-              mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
+              mma::load_a_cols_bf16(xq + mt * 16, LDX, lane, a[i]);
             } else if (Head::kThird && mt == MT && g < 4) {
               // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
-              const float* z = rq + Sh::kOffZ + kr * 8 * 4;
-              a[0] = z[t * 4 + g];
-              a[2] = z[(t + 4) * 4 + g];
+              const float* z = rq + Sh::kOffZ;
+              a[i][0] = mma::pack_bf16(z[2 * t * 4 + g],
+                                       z[(2 * t + 1) * 4 + g]);
+              a[i][2] = mma::pack_bf16(z[(2 * t + 8) * 4 + g],
+                                       z[(2 * t + 9) * 4 + g]);
             }
-            mma::split(a, a_big[i], a_small[i]);
           }
 #pragma unroll
           for (int j = 0; j < NTW; ++j) {
             const int nt = wn + WN * j;
             if (nt >= NTG) continue;
-            float b[2];
-            uint32_t b_big[2], b_small[2];
-            mma::load_b_rows(rq + Sh::kOffG + kr * 8 * LDG + nt * 8, LDG,
-                             lane, b);
-            mma::split(b, b_big, b_small);
+            uint32_t b[2];
+            mma::load_b_rows_bf16(rq + Sh::kOffG + nt * 8, LDG, lane, b);
 #pragma unroll
             for (int i = 0; i < MTW; ++i) {
               const int mt = wm + WM * i;
               if (mt < MT) {
-                mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], b_big,
-                                b_small);
+                mma::mma_bf16(bacc[i][j], a[i], b[0], b[1]);
               } else if (Head::kThird && mt == MT) {
-                float hb[2];
-                uint32_t h_big[2], h_small[2];
-                mma::load_b_rows(rq + Sh::kOffH + kr * 8 * LDG + nt * 8, LDG,
-                                 lane, hb);
-                mma::split(hb, h_big, h_small);
-                mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], h_big,
-                                h_small);
+                uint32_t hb[2];
+                mma::load_b_rows_bf16(rq + Sh::kOffH + nt * 8, LDG, lane, hb);
+                mma::mma_bf16(bacc[i][j], a[i], hb[0], hb[1]);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int kr = 0; kr < 2; ++kr) {
+            uint32_t a_big[MTW][4], a_small[MTW][4];
+#pragma unroll
+            for (int i = 0; i < MTW; ++i) {
+              const int mt = wm + WM * i;
+              float a[4] = {0.f, 0.f, 0.f, 0.f};
+              if (mt < MT) {
+                mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
+              } else if (Head::kThird && mt == MT && g < 4) {
+                // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
+                const float* z = rq + Sh::kOffZ + kr * 8 * 4;
+                a[0] = z[t * 4 + g];
+                a[2] = z[(t + 4) * 4 + g];
+              }
+              mma::split(a, a_big[i], a_small[i]);
+            }
+#pragma unroll
+            for (int j = 0; j < NTW; ++j) {
+              const int nt = wn + WN * j;
+              if (nt >= NTG) continue;
+              float b[2];
+              uint32_t b_big[2], b_small[2];
+              mma::load_b_rows(rq + Sh::kOffG + kr * 8 * LDG + nt * 8, LDG,
+                               lane, b);
+              mma::split(b, b_big, b_small);
+#pragma unroll
+              for (int i = 0; i < MTW; ++i) {
+                const int mt = wm + WM * i;
+                if (mt < MT) {
+                  mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], b_big,
+                                  b_small);
+                } else if (Head::kThird && mt == MT) {
+                  float hb[2];
+                  uint32_t h_big[2], h_small[2];
+                  mma::load_b_rows(rq + Sh::kOffH + kr * 8 * LDG + nt * 8, LDG,
+                                   lane, hb);
+                  mma::split(hb, h_big, h_small);
+                  mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], h_big,
+                                  h_small);
+                }
               }
             }
           }
@@ -1261,6 +1486,8 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
                 in, hid, 16 * MT);
             if (o >= 0) out[o] = bacc[i][j][e];
           }
+      if constexpr (Sh::kBf16) store_db1(s_small + warp * Sh::kSmall, false,
+                                         col0);
       head.store_small(s_small + warp * Sh::kSmall, false, in, hid, g, t,
                        lane, col0, grp == G - 1);
     }
@@ -1301,6 +1528,7 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
             out[o] = bacc[i][j][e];
         }
     head.store_small(my_red, S == 1, in, hid, g, t, lane);
+    if constexpr (Sh::kBf16) store_db1(my_red, S == 1, 0);
     __syncthreads();
     for (int k = tid; k < n_red; k += W * 32) {
       float s = 0.f;
@@ -1386,11 +1614,21 @@ inline int hidden_nt(int hid) {
   MARLNAV_TC(HEAD, KS_, 8) MARLNAV_TC(HEAD, KS_, 16)                  \
   MARLNAV_TC(HEAD, KS_, 32)
 
-inline int critic_instance(int in, int hid, int* per_sm = nullptr,
+// bf16 (--bf16-updates) instances: the widths training reaches, the
+// default (critic In 36, actor F 12; hidden 50), -no 8 (In 66, F 22), -no
+// 14 (In 102, F 34), -hs 128 and -hs 256; past them a bf16 launch raises
+// (In 102 with hidden 256, whose bf16 instance spilled, among them).
+inline int critic_instance(int in, int hid, bool bf16, int* per_sm = nullptr,
                            const GradArgs* args = nullptr, int blocks = 0,
                            cudaStream_t s = nullptr,
                            cudaError_t* err = nullptr) {
   const int ks = critic_ks(in), nt = hidden_nt(hid);
+  if (bf16) {
+    MARLNAV_TC(CriticHeadBf16, 5, 7) MARLNAV_TC(CriticHeadBf16, 9, 7)
+    MARLNAV_TC(CriticHeadBf16, 13, 7) MARLNAV_TC(CriticHeadBf16, 5, 16)
+    MARLNAV_TC(CriticHeadBf16, 5, 32)
+    return 0;
+  }
   MARLNAV_TC_NT(CriticHead, 3)
   MARLNAV_TC_NT(CriticHead, 5)
   MARLNAV_TC_NT(CriticHead, 9)
@@ -1398,11 +1636,17 @@ inline int critic_instance(int in, int hid, int* per_sm = nullptr,
   return 0;
 }
 
-inline int actor_instance(int f, int hid, int* per_sm = nullptr,
+inline int actor_instance(int f, int hid, bool bf16, int* per_sm = nullptr,
                           const GradArgs* args = nullptr, int blocks = 0,
                           cudaStream_t s = nullptr,
                           cudaError_t* err = nullptr) {
   const int ks = actor_ks(f), nt = hidden_nt(hid);
+  if (bf16) {
+    MARLNAV_TC(ActorHeadBf16, 2, 7) MARLNAV_TC(ActorHeadBf16, 3, 7)
+    MARLNAV_TC(ActorHeadBf16, 5, 7) MARLNAV_TC(ActorHeadBf16, 2, 16)
+    MARLNAV_TC(ActorHeadBf16, 2, 32)
+    return 0;
+  }
   MARLNAV_TC_NT(ActorHead, 2)
   MARLNAV_TC_NT(ActorHead, 3)
   MARLNAV_TC_NT(ActorHead, 5)
@@ -1415,15 +1659,29 @@ inline bool aligned16(const float* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
-// Let the affine actor's blocks take the shared memory of its widest tile
-// (F 255 at 32 rows) on `device`, the current device; once a device.
+// The affine actor kernel of a rounding mode (nullptr outside them).
+inline const void* actor_kernel(int mode) {
+  return mode == kF32      ? reinterpret_cast<const void*>(
+                                 actor_grad_kernel<kF32>)
+         : mode == kTiled  ? reinterpret_cast<const void*>(
+                                 actor_grad_kernel<kTiled>)
+         : mode == kStaged ? reinterpret_cast<const void*>(
+                                 actor_grad_kernel<kStaged>)
+                           : nullptr;
+}
+
+// Let the affine actor's blocks (each mode's) take the shared memory of its
+// widest tile (F 255 at 32 rows) on `device`, the current device; once a
+// device.
 inline cudaError_t actor_allow_smem(int device) {
   static bool allowed[64] = {};
   const bool known = device >= 0 && device < 64;
   if (known && allowed[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      actor_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      4 * actor_smem_floats(kActorMaxObs, 32));
+  cudaError_t err = cudaSuccess;
+  for (int mode = kF32; mode <= kStaged && err == cudaSuccess; ++mode)
+    err = cudaFuncSetAttribute(actor_kernel(mode),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               4 * actor_smem_floats(kActorMaxObs, 32));
   if (known && err == cudaSuccess) allowed[device] = true;
   return err;
 }
@@ -1437,18 +1695,18 @@ int marlnav_actor_max_obs() { return marlnav::update::kActorMaxObs; }
 int marlnav_actor_tile_rows(int obs_size) {
   return marlnav::update::actor_tile_rows(obs_size);
 }
-// Blocks of the affine actor kernel resident on the card at once (the
-// most its grid takes) at this obs width: 0 outside the widths it takes,
-// -1 on a CUDA error.
-int marlnav_actor_resident_blocks(int obs_size, int device) {
+// Blocks of the affine actor kernel of rounding `mode` (ActorMode)
+// resident on the card at once (the most its grid takes) at this obs
+// width: 0 outside the widths and modes it takes, -1 on a CUDA error.
+int marlnav_actor_resident_blocks(int obs_size, int device, int mode) {
   using namespace marlnav::update;
   const int rows = actor_tile_rows(obs_size);
-  if (!rows) return 0;
+  if (!rows || !actor_kernel(mode)) return 0;
   int per_sm = 0, sms = 0;
   if (cudaSetDevice(device) != cudaSuccess ||
       actor_allow_smem(device) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, actor_grad_kernel, kThreads,
+          &per_sm, actor_kernel(mode), kThreads,
           4 * actor_smem_floats(obs_size, rows)) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
           cudaSuccess)
@@ -1461,18 +1719,19 @@ int marlnav_uncollapsed_max_obs() {
 }
 int marlnav_max_hidden() { return marlnav::update::kMaxHidden; }
 
-// Warps a block of the tensor-core kernel's instance for these widths, 16
-// rows a warp at a time (0 outside the widths built), and, for the actor,
-// its blocks an SM, which size the persistent grid (the critic's: 1).
-int marlnav_critic_warps(int in_size, int hidden) {
-  return marlnav::update::critic_instance(in_size, hidden);
+// Warps a block of the tensor-core kernel's instance for these widths (its
+// bf16 one where bf16 != 0), 16 rows a warp at a time (0 outside the
+// instances built), and, for the actor, its blocks an SM, which size the
+// persistent grid (the critic's: 1).
+int marlnav_critic_warps(int in_size, int hidden, int bf16) {
+  return marlnav::update::critic_instance(in_size, hidden, bf16 != 0);
 }
-int marlnav_uncollapsed_warps(int obs_size, int hidden) {
-  return marlnav::update::actor_instance(obs_size, hidden);
+int marlnav_uncollapsed_warps(int obs_size, int hidden, int bf16) {
+  return marlnav::update::actor_instance(obs_size, hidden, bf16 != 0);
 }
-int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden) {
+int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden, int bf16) {
   int per_sm = 0;
-  marlnav::update::actor_instance(obs_size, hidden, &per_sm);
+  marlnav::update::actor_instance(obs_size, hidden, bf16 != 0, &per_sm);
   return per_sm;
 }
 
@@ -1480,8 +1739,9 @@ int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden) {
 // torch.cuda.current_stream()) and returns cudaGetLastError(): 0 when its
 // launches were accepted.
 
-// The affine actor on at most `capacity` blocks (its resident blocks) and
-// at most a block a tile; partials (capacity, 4F + 5).  out: loss_sum, dz
+// The affine actor of rounding `mode` (ActorMode) on at most `capacity`
+// blocks (its resident blocks) and at most a block a tile; partials
+// (capacity, 4F + 5).  out: loss_sum, dz
 // (4, F), dzs (4), summed by the kernel's last block.  done: one word of
 // the caller's, zeroed here on `stream` before the launch, where the
 // blocks count themselves done: the launch owns it, so launches on other
@@ -1491,11 +1751,12 @@ int marlnav_actor_grad_sums(const float* obs, const float* act,
                             const float* a_comp, const float* c_comp,
                             long long n_rows, int obs_size, float lo,
                             float hi, float ent_c, float ent_half,
-                            int capacity, float* partials, float* out,
-                            unsigned int* done, int device, void* stream) {
+                            int mode, int capacity, float* partials,
+                            float* out, unsigned int* done, int device,
+                            void* stream) {
   using namespace marlnav::update;
   const int rows = actor_tile_rows(obs_size);
-  if (!rows || n_rows < 1 || capacity < 1)
+  if (!rows || !actor_kernel(mode) || n_rows < 1 || capacity < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = actor_allow_smem(device);
@@ -1509,24 +1770,30 @@ int marlnav_actor_grad_sums(const float* obs, const float* act,
                        a_comp,   c_comp, n_rows, obs_size,
                        rows,     {lo, hi, ent_c, ent_half},
                        partials, out,  done};
-  actor_grad_kernel<<<blocks, kThreads,
-                      4 * actor_smem_floats(obs_size, rows), s>>>(args);
+  const int smem = 4 * actor_smem_floats(obs_size, rows);
+  if (mode == kTiled)
+    actor_grad_kernel<kTiled><<<blocks, kThreads, smem, s>>>(args);
+  else if (mode == kStaged)
+    actor_grad_kernel<kStaged><<<blocks, kThreads, smem, s>>>(args);
+  else
+    actor_grad_kernel<kF32><<<blocks, kThreads, smem, s>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core kernels on `blocks` blocks, then the fixed-order
-// reduction of their partials into `out`.
+// The tensor-core kernels (their bf16 instances where bf16 != 0) on
+// `blocks` blocks, then the fixed-order reduction of their partials into
+// `out`.
 
 // out: loss_sum, dW1 (H, In), db1 (H), dW2 (H), db2.
 int marlnav_critic_grad_sums(const float* obs, const float* vold,
                              const float* ret, const float* w1,
                              const float* b1, const float* w2,
                              const float* b2, long long n_rows, int in_size,
-                             int hidden, float eps, int blocks,
+                             int hidden, float eps, int bf16, int blocks,
                              float* partials, float* out, int device,
                              void* stream) {
   using namespace marlnav::update;
-  if (!critic_instance(in_size, hidden))
+  if (!critic_instance(in_size, hidden, bf16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1536,7 +1803,8 @@ int marlnav_critic_grad_sums(const float* obs, const float* vold,
                       n_rows, in_size, hidden,
                       in_size % 4 == 0 && aligned16(obs),
                       eps,    {},      partials};
-  critic_instance(in_size, hidden, nullptr, &args, blocks, s, &err);
+  critic_instance(in_size, hidden, bf16 != 0, nullptr, &args, blocks, s,
+                  &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(
       partials, blocks, CriticHead<4>::n_out(in_size, hidden), out, s));
@@ -1548,10 +1816,10 @@ int marlnav_actor_grad_uncollapsed_sums(
     const float* obs, const float* act, const float* lp, const float* adv,
     const float* w1, const float* b1, const float* wmu, const float* bmu,
     const float* wvar, const float* bvar, long long n_rows, int obs_size,
-    int hidden, float lo, float hi, float ent_c, float ent_half, int blocks,
-    float* partials, float* out, int device, void* stream) {
+    int hidden, float lo, float hi, float ent_c, float ent_half, int bf16,
+    int blocks, float* partials, float* out, int device, void* stream) {
   using namespace marlnav::update;
-  if (!actor_instance(obs_size, hidden))
+  if (!actor_instance(obs_size, hidden, bf16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1562,7 +1830,8 @@ int marlnav_actor_grad_uncollapsed_sums(
                       obs_size % 4 == 0 && aligned16(obs),
                       0.f,    {lo, hi, ent_c, ent_half},
                       partials};
-  actor_instance(obs_size, hidden, nullptr, &args, blocks, s, &err);
+  actor_instance(obs_size, hidden, bf16 != 0, nullptr, &args, blocks, s,
+                 &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(
       partials, blocks, ActorHead<4>::n_out(obs_size, hidden), out, s));

@@ -34,9 +34,16 @@ The TPU needed two layouts of each (tiled and staged); here the Buffer's
 time slice is already a contiguous block of rows, so one kernel serves the
 full batch and every minibatch slice, in faithful, fixed and GAE modes.
 
+``--bf16-updates`` (each wrapper's ``bf16``) rounds the products'
+operands to bf16 where the JAX kernel of the route does
+(``ops/update_math.py``); the affine actor takes the route's rounding
+("tiled" or "staged"), the tensor-core kernels one bf16 ``mma.sync`` pass
+a product in place of the three TF32 ones.
+
 Routing, with no fallback: CPU tensors run the plain versions of
-``ops/update_math.py``; CUDA tensors launch the kernel or raise.  Each
-wrapper counts its launches in ``.launches``.
+``ops/update_math.py``; CUDA tensors launch the kernel or raise (in bf16
+mode, the kernel's bf16 variant).  Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 
 from marlnav_tpu_torch.ops.fused_collect import _affine_compose, _check
 from marlnav_tpu_torch.ops.update_math import (
+    AFFINE_BF16,
     actor_grad_sums_reference,
     actor_grad_sums_uncollapsed_reference,
     affine_recompose,
@@ -67,34 +75,36 @@ def _library():
     ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     lib.marlnav_actor_grad_sums.argtypes = (
         [ptr] * 6 + [ctypes.c_longlong, i32] + [f32] * 4
-        + [i32, ptr, ptr, ptr, i32, ptr])
+        + [i32, i32, ptr, ptr, ptr, i32, ptr])
     lib.marlnav_critic_grad_sums.argtypes = (
-        [ptr] * 7 + [ctypes.c_longlong, i32, i32, f32, i32, ptr, ptr, i32,
-                     ptr])
+        [ptr] * 7 + [ctypes.c_longlong, i32, i32, f32, i32, i32, ptr, ptr,
+                     i32, ptr])
     lib.marlnav_actor_grad_uncollapsed_sums.argtypes = (
         [ptr] * 10 + [ctypes.c_longlong, i32, i32] + [f32] * 4
-        + [i32, ptr, ptr, i32, ptr])
+        + [i32, i32, ptr, ptr, i32, ptr])
     for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums,
                lib.marlnav_actor_grad_uncollapsed_sums):
         fn.restype = i32
     for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
+    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps,
+                  lib.marlnav_uncollapsed_blocks_per_sm):
+        shape.argtypes, shape.restype = [i32, i32, i32], i32
     lib.marlnav_actor_tile_rows.argtypes = [i32]
     lib.marlnav_actor_tile_rows.restype = i32
-    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps,
-                  lib.marlnav_uncollapsed_blocks_per_sm,
-                  lib.marlnav_actor_resident_blocks):
-        shape.argtypes, shape.restype = [i32, i32], i32
+    lib.marlnav_actor_resident_blocks.argtypes = [i32, i32, i32]
+    lib.marlnav_actor_resident_blocks.restype = i32
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _actor_resident_blocks(index: int, obs_size: int) -> int:
-    """The affine actor kernel's grid at most: its blocks resident on card
+def _actor_resident_blocks(index: int, obs_size: int, mode: int) -> int:
+    """The affine actor kernel's grid at most: the blocks of its rounding
+    ``mode`` (0 float32, 1 + ``AFFINE_BF16.index``) resident on card
     ``index`` at once at this obs width (the occupancy of its tile)."""
     lib = _library()
-    blocks = lib.marlnav_actor_resident_blocks(obs_size, index)
+    blocks = lib.marlnav_actor_resident_blocks(obs_size, index, mode)
     if blocks == 0:
         raise ValueError(f"actor grad kernel takes obs widths "
                          f"1..{lib.marlnav_actor_max_obs()}, got {obs_size}")
@@ -130,6 +140,13 @@ def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
     return blocks, index, torch.cuda.current_stream(device).cuda_stream
 
 
+# The tensor-core kernels' bf16 instances cover the widths training
+# reaches (fused_update.cu critic_instance / actor_instance); past them,
+# a bf16 call raises with this note.
+_BF16_WIDTHS = (" (bf16: the instances of the widths training reaches, the "
+                "default, -no 8, -no 14, -hs 128 and -hs 256)")
+
+
 def _check_rows(device, n_rows, named):
     if device.type != "cuda":
         raise ValueError(f"fused update: unsupported device {device}")
@@ -140,20 +157,25 @@ def _check_rows(device, n_rows, named):
 
 
 def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
-                    eps: float, ent_c: float):
+                    eps: float, ent_c: float, bf16=None):
     """``(loss_sum (), Σ g_z xᵀ (4, F), Σ g_z (4,))`` of the PPO actor
     objective over all rows (``update_math.actor_grad_sums_reference``).
-    obs (N, F), actions (N, 2), log_probs and adv (N,)."""
+    obs (N, F), actions (N, 2), log_probs and adv (N,).  ``bf16``: None,
+    or the route's rounding, "tiled" or "staged"."""
+    if bf16 not in (None, *AFFINE_BF16):
+        raise ValueError(f"affine actor: bf16 rounding {bf16!r} not in "
+                         f"{AFFINE_BF16}")
     if obs.device.type == "cpu":
         return actor_grad_sums_reference(a_comp, c_comp, obs, actions,
-                                         log_probs, adv, eps, ent_c)
+                                         log_probs, adv, eps, ent_c, bf16)
     n, f = obs.shape
     _check_rows(obs.device, n, (
         ("a_comp", a_comp, (4, f)), ("c_comp", c_comp, (4,)),
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
     index = _device_index(obs.device)
-    capacity = _actor_resident_blocks(index, f)
+    mode = 0 if bf16 is None else 1 + AFFINE_BF16.index(bf16)
+    capacity = _actor_resident_blocks(index, f, mode)
     n_out = 1 + 4 * f + 4
     # out, the blocks' partials (capacity, n_out) and the word where this
     # launch's blocks count themselves done, in one allocation.
@@ -163,7 +185,8 @@ def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
     err = _library().marlnav_actor_grad_sums(
         obs.data_ptr(), actions.data_ptr(), log_probs.data_ptr(),
         adv.data_ptr(), a_comp.data_ptr(), c_comp.data_ptr(), n, f,
-        1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5, capacity, out + 4 * n_out,
+        1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5, mode, capacity,
+        out + 4 * n_out,
         out, out + 4 * (capacity + 1) * n_out, index,
         torch.cuda.current_stream(obs.device).cuda_stream)
     if err != 0:
@@ -175,13 +198,15 @@ def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
 actor_grad_sums.launches = 0
 
 
-def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
+def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
+                     bf16: bool = False):
     """``(loss_sum (), dW1 (H, In), db1 (H,), dW2 (1, H), db2 (1,))`` of
     the clipped-value loss over all rows
     (``update_math.critic_grad_sums_reference``).  obs (N, In), vold and
     ret (N,); weights in ``nn.Linear`` layout."""
     if obs.device.type == "cpu":
-        return critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps)
+        return critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps,
+                                          bf16)
     n, n_in = obs.shape
     h = w1.shape[0]
     _check_rows(obs.device, n, (
@@ -189,12 +214,13 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
         ("b2", b2, (1,)), ("obs", obs, (n, n_in)), ("vold", vold, (n,)),
         ("ret", ret, (n,))))
     lib = _library()
-    warps = lib.marlnav_critic_warps(n_in, h)  # 16 rows a warp at a time
+    # 16 rows a warp at a time
+    warps = lib.marlnav_critic_warps(n_in, h, int(bf16))
     if not warps:
-        raise ValueError(f"critic grad kernel takes hidden "
-                         f"1..{lib.marlnav_max_hidden()} and input "
-                         f"1..{lib.marlnav_critic_max_in()}, got {h} and "
-                         f"{n_in}")
+        raise ValueError(f"critic grad kernel{_BF16_WIDTHS if bf16 else ''} "
+                         f"takes hidden 1..{lib.marlnav_max_hidden()} and "
+                         f"input 1..{lib.marlnav_critic_max_in()}, got {h} "
+                         f"and {n_in}")
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
     n_out = 1 + h * n_in + 2 * h + 1
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -202,8 +228,8 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float):
     out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
     err = lib.marlnav_critic_grad_sums(
         obs.data_ptr(), vold.data_ptr(), ret.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), n, n_in, h, eps, blocks,
-        partials.data_ptr(), out.data_ptr(), index, stream)
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), n, n_in, h, eps,
+        int(bf16), blocks, partials.data_ptr(), out.data_ptr(), index, stream)
     if err != 0:
         raise RuntimeError(f"critic grad kernel launch failed: CUDA error "
                            f"{err}")
@@ -215,7 +241,8 @@ critic_grad_sums.launches = 0
 
 
 def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
-                                log_probs, adv, eps: float, ent_c: float):
+                                log_probs, adv, eps: float, ent_c: float,
+                                bf16: bool = False):
     """``(loss_sum, dW1 (H, F), db1 (H,), dWmu (2, H), dbmu (2,), dWvar
     (2, H), dbvar (2,))`` of the PPO actor objective through the network
     itself over all rows
@@ -225,7 +252,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
     if obs.device.type == "cpu":
         return actor_grad_sums_uncollapsed_reference(
             w1, b1, wmu, bmu, wvar, bvar, obs, actions, log_probs, adv, eps,
-            ent_c)
+            ent_c, bf16)
     n, f = obs.shape
     h = w1.shape[0]
     _check_rows(obs.device, n, (
@@ -234,14 +261,17 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
     lib = _library()
-    warps = lib.marlnav_uncollapsed_warps(f, h)  # 16 rows a warp at a time
+    # 16 rows a warp at a time
+    warps = lib.marlnav_uncollapsed_warps(f, h, int(bf16))
     if not warps:
-        raise ValueError(f"un-collapsed actor grad kernel takes hidden "
+        raise ValueError(f"un-collapsed actor grad kernel"
+                         f"{_BF16_WIDTHS if bf16 else ''} takes hidden "
                          f"1..{lib.marlnav_max_hidden()} and obs "
                          f"1..{lib.marlnav_uncollapsed_max_obs()}, got {h} "
                          f"and {f}")
     blocks, index, stream = _launch_setup(
-        obs.device, n, 16 * warps, lib.marlnav_uncollapsed_blocks_per_sm(f, h))
+        obs.device, n, 16 * warps,
+        lib.marlnav_uncollapsed_blocks_per_sm(f, h, int(bf16)))
     n_out = 1 + h * f + 5 * h + 4
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
@@ -250,8 +280,8 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         obs.data_ptr(), actions.data_ptr(), log_probs.data_ptr(),
         adv.data_ptr(), w1.data_ptr(), b1.data_ptr(), wmu.data_ptr(),
         bmu.data_ptr(), wvar.data_ptr(), bvar.data_ptr(), n, f, h, 1.0 - eps,
-        1.0 + eps, ent_c, ent_c * 0.5, blocks, partials.data_ptr(),
-        out.data_ptr(), index, stream)
+        1.0 + eps, ent_c, ent_c * 0.5, int(bf16), blocks,
+        partials.data_ptr(), out.data_ptr(), index, stream)
     if err != 0:
         raise RuntimeError(f"un-collapsed actor grad kernel launch failed: "
                            f"CUDA error {err}")
@@ -267,17 +297,20 @@ actor_grad_uncollapsed_sums.launches = 0
 # ----------------------------------------------------------------------
 
 @torch.no_grad()
-def actor_grad(actor, mb, adv: torch.Tensor,
-               cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def actor_grad(actor, mb, adv: torch.Tensor, cfg, tiled: bool = False
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mean actor loss of a ``Buffer`` slice ``mb`` and its gradients
     keyed as ``actor.named_parameters()``; ``adv`` (N,) holds the slice's
     per-agent advantages in its (t, p, a) row order
-    (``algo.mappo.minibatch_advantages``)."""
+    (``algo.mappo.minibatch_advantages``).  With ``cfg.bf16_updates`` the
+    sums round as the JAX package's tiled kernel where ``tiled`` (its
+    full-batch route with the fused collect), else as its staged one."""
     n = adv.shape[0]
     a_comp, c_comp = _affine_compose(actor)
+    bf16 = ("tiled" if tiled else "staged") if cfg.bf16_updates else None
     loss, dz, dzs = actor_grad_sums(
         a_comp, c_comp, mb.obs.reshape(n, -1), mb.actions.reshape(n, -1),
-        mb.log_probs.reshape(n), adv, cfg.epsilon, cfg.ent_const)
+        mb.log_probs.reshape(n), adv, cfg.epsilon, cfg.ent_const, bf16)
     grads = affine_recompose(actor, dz, dzs)
     inv_n = 1.0 / n
     return loss * inv_n, {k: g * inv_n for k, g in grads.items()}
@@ -295,7 +328,7 @@ def actor_grad_uncollapsed(actor, mb, adv: torch.Tensor,
     loss, *grads = actor_grad_uncollapsed_sums(
         *(p.detach() for p in actor.parameters()), mb.obs.reshape(n, -1),
         mb.actions.reshape(n, -1), mb.log_probs.reshape(n), adv, cfg.epsilon,
-        cfg.ent_const)
+        cfg.ent_const, cfg.bf16_updates)
     inv_n = 1.0 / n
     return loss * inv_n, {name: g * inv_n for (name, _), g in
                           zip(actor.named_parameters(), grads)}
@@ -310,7 +343,7 @@ def critic_grad(critic, mb, cfg) -> Tuple[torch.Tensor,
     loss, dw1, db1, dw2, db2 = critic_grad_sums(
         critic.fc1.weight, critic.fc1.bias, critic.fc2.weight,
         critic.fc2.bias, mb.obs.reshape(n, -1), mb.values.reshape(n),
-        mb.returns.reshape(n), cfg.epsilon)
+        mb.returns.reshape(n), cfg.epsilon, cfg.bf16_updates)
     inv_n = 1.0 / n
     grads = {"fc1.weight": dw1, "fc1.bias": db1, "fc2.weight": dw2,
              "fc2.bias": db2}

@@ -16,6 +16,20 @@ the 12 -> 50 -> 2+2 network itself) and ``critic_grad_sums_reference``
 return sums over all rows; the caller divides by the row count.  They run in the dtype of their inputs, so a
 float64 call gives the reference that sum-order noise is measured against.
 
+``--bf16-updates`` (``bf16``): each round the operands of its products to
+bf16 (round to nearest, ties to even) where the JAX kernel it stands for
+does (``_dot(..., dtype)``, marlnav_tpu/ops/fused_update.py:429), products
+summed in float32; biases, bias sums and the chains stay float32.  The
+JAX package rounds differently on each route, so the affine actor takes
+the route: ``"tiled"`` (``make_tiled_actor_grad``,
+fused_update_tiled.py:199-204: the forward unrounded, ``g_z`` and ``x``
+rounded in ``Σ g_z xᵀ``, ``Σ g_z`` of the rounded ``g_z``) or
+``"staged"`` (``_make_actor_grad_affine``, fused_update.py:734-741: ``a_comp``
+and ``x`` rounded in the forward too, ``Σ g_z`` of the float32 ``g_z``).
+``acc`` (default: the inputs' dtype) is the dtype the products and the
+row sums are taken in: float64 with bf16 on gives the kernels' products of
+the same rounded operands without their float32 accumulation.
+
 Rows: an actor row is one (step, env, agent), in the ``Buffer``'s flat
 (t, p, a) order (``obs.reshape(-1, F)``, ``log_probs.reshape(-1)``); a
 critic row is one (step, env) with the agents' observations side by side
@@ -106,22 +120,52 @@ def critic_chain(v, vold, ret, eps: float):
     return loss_rows, g_v
 
 
+# The affine actor's bf16 roundings, by the JAX route each stands for.
+AFFINE_BF16 = ("tiled", "staged")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even), kept in ``x``'s
+    dtype: JAX's ``astype(jnp.bfloat16)`` of a matmul operand."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _mm(a, b, bf16: bool, acc):
+    """``a @ b``, its operands rounded to bf16 where ``bf16``, its products
+    summed in ``acc`` (default: the operands' dtype)."""
+    if bf16:
+        a, b = round_bf16(a), round_bf16(b)
+    return a @ b if acc is None else a.to(acc) @ b.to(acc)
+
+
+def _row_sum(x, acc):
+    """``x`` summed over its rows (dim 0), in ``acc``."""
+    return x.sum(0) if acc is None else x.to(acc).sum(0)
+
+
 def actor_grad_sums_reference(a_comp, c_comp, obs, actions, log_probs, adv,
-                              eps: float, ent_c: float):
+                              eps: float, ent_c: float, bf16=None, acc=None):
     """The actor kernel's function: over all rows, ``(loss_sum, Σ g_z xᵀ
     (4, F), Σ g_z (4,))`` through the affine operator ``z = a_comp x +
     c_comp`` (rows 0-1 of z are the mean pre-activations, 2-3 the
-    variance ones).  obs (N, F), actions (N, 2), log_probs and adv (N,)."""
-    z = obs @ a_comp.T + c_comp
+    variance ones).  obs (N, F), actions (N, 2), log_probs and adv (N,).
+    ``bf16``: None, or the route's rounding, "tiled" or "staged"."""
+    if bf16 not in (None, *AFFINE_BF16):
+        raise ValueError(f"affine actor: bf16 rounding {bf16!r} not in "
+                         f"{AFFINE_BF16}")
+    z = _mm(obs, a_comp.T, bf16 == "staged", acc).to(obs.dtype) + c_comp
     loss_rows, g_u, g_s = ppo_chain(z[:, :2], z[:, 2:], actions, log_probs,
                                     adv, eps, ent_c)
     g_z = torch.cat([g_u, g_s], dim=1)  # (N, 4)
-    return loss_rows.sum(), g_z.T @ obs, g_z.sum(0)
+    g_sum = round_bf16(g_z) if bf16 == "tiled" else g_z
+    return (_row_sum(loss_rows, acc), _mm(g_z.T, obs, bf16 is not None, acc),
+            _row_sum(g_sum, acc))
 
 
 def actor_grad_sums_uncollapsed_reference(w1, b1, wmu, bmu, wvar, bvar, obs,
                                           actions, log_probs, adv,
-                                          eps: float, ent_c: float):
+                                          eps: float, ent_c: float,
+                                          bf16: bool = False, acc=None):
     """The un-collapsed actor kernel's function: over all rows, the PPO
     actor objective through the network itself, ``h = W1 x + b1`` (no
     hidden activation), ``u = Wmu h + bmu``, ``s = Wvar h + bvar``
@@ -129,28 +173,41 @@ def actor_grad_sums_uncollapsed_reference(w1, b1, wmu, bmu, wvar, bvar, obs,
     ``g_h = Wmuᵀ g_u + Wvarᵀ g_s``.  Weights in ``nn.Linear`` layout (w1
     (H, F), wmu and wvar (2, H)).  Returns ``(loss_sum, Σ g_h xᵀ (H, F),
     Σ g_h (H,), Σ g_u hᵀ (2, H), Σ g_u (2,), Σ g_s hᵀ (2, H), Σ g_s (2,))``:
-    the five parameters' gradient sums, shaped as the parameters."""
-    h = obs @ w1.T + b1
-    u = h @ wmu.T + bmu
-    s = h @ wvar.T + bvar
+    the five parameters' gradient sums, shaped as the parameters.  With
+    ``bf16`` every product rounds its operands (marlnav_tpu/ops/
+    fused_update.py:473-490, 575-600), ``h`` (float32, bias added) as an
+    operand of the heads and of ``Σ g_u hᵀ``."""
+    dt = obs.dtype
+    h = _mm(obs, w1.T, bf16, acc).to(dt) + b1
+    u = _mm(h, wmu.T, bf16, acc).to(dt) + bmu
+    s = _mm(h, wvar.T, bf16, acc).to(dt) + bvar
     loss_rows, g_u, g_s = ppo_chain(u, s, actions, log_probs, adv, eps, ent_c)
-    g_h = g_u @ wmu + g_s @ wvar
-    return (loss_rows.sum(), g_h.T @ obs, g_h.sum(0), g_u.T @ h, g_u.sum(0),
-            g_s.T @ h, g_s.sum(0))
+    g_h = _mm(g_u, wmu, bf16, acc).to(dt) + _mm(g_s, wvar, bf16, acc).to(dt)
+    return (_row_sum(loss_rows, acc), _mm(g_h.T, obs, bf16, acc),
+            _row_sum(g_h, acc), _mm(g_u.T, h, bf16, acc), _row_sum(g_u, acc),
+            _mm(g_s.T, h, bf16, acc), _row_sum(g_s, acc))
 
 
-def critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps: float):
+def critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps: float,
+                               bf16: bool = False, acc=None):
     """The critic kernel's function: over all rows of the critic
     ``In -> H ReLU -> 1`` (weights in ``nn.Linear`` layout: w1 (H, In), b1
     (H,), w2 (1, H), b2 (1,)), ``(loss_sum, dW1, db1, dW2, db2)`` shaped
-    as the parameters.  obs (N, In), vold and ret (N,)."""
-    h = torch.relu(obs @ w1.T + b1)
-    v = h @ w2[0] + b2[0]
+    as the parameters.  obs (N, In), vold and ret (N,).  With ``bf16``
+    the five products round their operands (marlnav_tpu/ops/
+    fused_update.py:810-824): ``W1`` and ``x``, ``w2`` and ``h``, ``w2``
+    and ``g_v`` (``g_h``), ``g_v`` and ``h`` (dW2), ``g_pre`` and ``x``
+    (dW1); ``db1`` and ``db2`` sum the float32 ``g_pre`` and ``g_v``."""
+    dt = obs.dtype
+    rnd = round_bf16 if bf16 else (lambda x: x)
+    h = torch.relu(_mm(obs, w1.T, bf16, acc).to(dt) + b1)
+    v = _mm(h, w2[0], bf16, acc).to(dt) + b2[0]
     loss_rows, g_v = critic_chain(v, vold, ret, eps)
-    g_h = g_v[:, None] * w2
+    g_h = rnd(g_v)[:, None] * rnd(w2)  # one product a term: exact in bf16
     g_pre = g_h * (h > 0.0).to(h.dtype)  # relu'(0) = 0
-    return (loss_rows.sum(), g_pre.T @ obs, g_pre.sum(0),
-            (g_v @ h)[None, :], g_v.sum()[None])
+    return (_row_sum(loss_rows, acc), _mm(g_pre.T, obs, bf16, acc),
+            _row_sum(g_pre, acc), _mm(g_v, h, bf16, acc)[None, :],
+            _row_sum(g_v, acc)[None])
 
 
 @torch.no_grad()

@@ -9,7 +9,9 @@ The rollout runs either as the plain T-step loop over ``env.step``
 kernel (``ops.fused_collect``).  ``cfg.model.fused_updates`` takes the PPO
 gradients from the fused update kernels (``ops.fused_update``), for the full
 batch and for sliced minibatches alike; ``MARLNAV_ACTOR_LAYOUT`` picks the
-actor's kernel off the JAX package's tiled route (``uncollapsed_actor``).
+actor's kernel off the JAX package's tiled route (``uncollapsed_actor``),
+and ``cfg.model.bf16_updates`` rounds the affine actor's sums as the route
+the JAX package takes (``tiled_route``).
 
 Blocks (marlnav_tpu/train.py:238-339): repeats run in full blocks of
 ``jit_repeats``, and a partial tail one repeat at a time.  A block's
@@ -31,7 +33,11 @@ Checkpoints (``utils.checkpoint``) hold both networks and Adam states, the
 env state in the canonical ``EnvState`` layout even under
 ``fused_collect`` (so a resume works across a flip of that flag), the
 generator's state, the repeat index and the logger's host state; ``resume``
-continues from the latest bit for bit.
+continues from the latest bit for bit.  A checkpoint written on one
+device type resumes on the other, as the JAX package restores onto any
+device: the running Adam keeps its own settings (``restore_adam``), and a
+generator state of the other device's kind seeds the running generator
+(``restore_generator``).
 
 The reference's save-every-rollout weights quirk (its best-reward gate
 never updates, reference models.py:93, 127-129) is kept: weights are
@@ -40,6 +46,7 @@ never updates, reference models.py:93, 127-129) is kept: weights are
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
 from typing import Optional
@@ -58,19 +65,25 @@ _ENV_FIELDS = ("states", "obstacles", "target", "step_num", "terminates",
                "reset_states", "virgin")
 
 
+def tiled_route(cfg: MAPPOConfig, fused_collect: bool) -> bool:
+    """Whether the JAX package runs its tiled update kernels here:
+    ``--fused-updates`` with ``--fused-collect`` at full batch, and
+    ``MARLNAV_TILED_UPDATES`` not 0/false/off/empty
+    (marlnav_tpu/train.py:118-124); elsewhere its staged ones."""
+    return (cfg.fused_updates and fused_collect
+            and cfg.batch_size == cfg.buffer_len
+            and os.environ.get("MARLNAV_TILED_UPDATES", "1").lower()
+            not in ("0", "false", "off", ""))
+
+
 def uncollapsed_actor(cfg: MAPPOConfig, fused_collect: bool) -> bool:
     """Whether a ``--fused-updates`` run takes the actor's gradient through
     the network itself, as the JAX package decides it.  Its tiled route
-    (``--fused-collect``, full batch, ``MARLNAV_TILED_UPDATES`` not
-    0/false/off/empty; marlnav_tpu/train.py:118-124) is always affine;
-    elsewhere it runs the staged kernel of ``MARLNAV_ACTOR_LAYOUT``
-    (default "affine"; marlnav_tpu/ops/fused_update.py:141, 454-461), and
-    any other value there is its "packed" or "undilated" kernel, both
-    un-collapsed."""
-    tiled = (fused_collect and cfg.batch_size == cfg.buffer_len
-             and os.environ.get("MARLNAV_TILED_UPDATES", "1").lower()
-             not in ("0", "false", "off", ""))
-    return (cfg.fused_updates and not tiled
+    (``tiled_route``) is always affine; elsewhere it runs the staged kernel
+    of ``MARLNAV_ACTOR_LAYOUT`` (default "affine";
+    marlnav_tpu/ops/fused_update.py:141, 454-461), and any other value
+    there is its "packed" or "undilated" kernel, both un-collapsed."""
+    return (cfg.fused_updates and not tiled_route(cfg, fused_collect)
             and os.environ.get("MARLNAV_ACTOR_LAYOUT", "affine") != "affine")
 
 
@@ -118,6 +131,47 @@ def checkpoint_tree(ts, env_state: EnvState) -> dict:
         "generator": env_state.generator.get_state()}
 
 
+# Adam's settings that follow the device it runs on (algo.mappo.make_adam),
+# not the checkpoint it resumes from.
+_ADAM_DEVICE_SETTINGS = ("capturable", "fused", "foreach")
+
+
+def restore_adam(opt: torch.optim.Optimizer, state: dict) -> None:
+    """Load an Adam ``state`` dict into ``opt`` in place, keeping ``opt``'s
+    own device settings (capturable, fused, foreach): a state written on
+    the CPU (neither) resumes on the card as its capturable, fused Adam,
+    and the other way round.  Each ``step`` count goes where those
+    settings keep it: beside its parameter where capturable or fused, else
+    on the CPU."""
+    kept = [{k: group[k] for k in _ADAM_DEVICE_SETTINGS if k in group}
+            for group in opt.param_groups]
+    opt.load_state_dict(state)
+    for group, settings in zip(opt.param_groups, kept):
+        group.update(settings)
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(
+                    device=p.device if on_device else "cpu",
+                    dtype=torch.float32)
+
+
+def restore_generator(generator: torch.Generator,
+                      state: torch.Tensor) -> None:
+    """Set ``generator`` to a checkpoint's generator ``state``.  A state of
+    the other device's kind (the CPU's Mersenne Twister against the card's
+    Philox: another size) cannot continue its stream here; it seeds the
+    generator from a hash of its bytes instead, so the resume stays
+    deterministic, though its draws are not the ones the writing device
+    would have made."""
+    if state.numel() == generator.get_state().numel():
+        generator.set_state(state)
+        return
+    digest = hashlib.sha256(state.cpu().numpy().tobytes()).digest()
+    generator.manual_seed(int.from_bytes(digest[:8], "little") >> 2)
+
+
 def restore_tree(tree: dict, ts, generator: torch.Generator,
                  device: torch.device) -> EnvState:
     """Load a checkpoint's networks, Adam states and generator state into
@@ -125,9 +179,9 @@ def restore_tree(tree: dict, ts, generator: torch.Generator,
     ``device``."""
     ts.actor.load_state_dict(tree["actor"])
     ts.critic.load_state_dict(tree["critic"])
-    ts.actor_opt.load_state_dict(tree["actor_opt"])
-    ts.critic_opt.load_state_dict(tree["critic_opt"])
-    generator.set_state(tree["generator"])
+    restore_adam(ts.actor_opt, tree["actor_opt"])
+    restore_adam(ts.critic_opt, tree["critic_opt"])
+    restore_generator(generator, tree["generator"])
     env = {k: v.to(device) if torch.is_tensor(v) else v
            for k, v in tree["env"].items()}
     return EnvState(stats=EpisodeStats(*(x.to(device) for x in
@@ -245,7 +299,8 @@ def train(
     dev = resolve_device(device)
     env = make_env(cfg.env, cfg.init, dev)
     mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler,
-                       uncollapsed_actor(cfg.model, fused_collect))
+                       uncollapsed_actor(cfg.model, fused_collect),
+                       tiled_route(cfg.model, fused_collect))
     generator = make_generator(cfg.seed, dev)
     ts, state = mappo.init(generator)
     # The fused route's kernel seeds of a block, in device memory.

@@ -253,3 +253,66 @@ def test_ported_flags_through_the_cli(tmp_path, monkeypatch, capsys, flags):
     if "--resume" in flags:
         assert "resumed from checkpoint at repeat 1" in out
         assert "repeat 3/3" in out and "repeat 2/3" not in out
+
+
+@pytest.mark.parametrize("written", ["plain", "capturable"])
+def test_restore_adam_keeps_the_running_settings(written):
+    """An Adam state dict written with other device settings (the CPU's
+    plain Adam, or the card's capturable one) loads into the running Adam
+    with its own settings kept, its moments and step counts intact, and
+    each step count where those settings keep it (on the CPU here)."""
+    from marlnav_tpu_torch.models import Actor
+    from marlnav_tpu_torch.train import restore_adam
+
+    nets = [Actor(12, 16, generator=torch.Generator().manual_seed(1))
+            for _ in range(2)]
+    settings = {"plain": {}, "capturable": {"capturable": True}}
+    writer = torch.optim.Adam(nets[0].parameters(), lr=1e-3,
+                              **settings[written])
+    for p in nets[0].parameters():
+        p.grad = torch.ones_like(p)
+    if written == "plain":
+        writer.step()
+        writer.step()
+    other = "capturable" if written == "plain" else "plain"
+    runner = torch.optim.Adam(nets[1].parameters(), lr=1e-3,
+                              **settings[other])
+    state = writer.state_dict()
+    if written == "capturable":  # a card's state: steps beside the params
+        for p in nets[0].parameters():
+            writer.state[p] = {"step": torch.tensor(2.0),
+                               "exp_avg": torch.full_like(p, 0.5),
+                               "exp_avg_sq": torch.full_like(p, 0.25)}
+        state = writer.state_dict()
+    restore_adam(runner, state)
+    assert runner.param_groups[0]["capturable"] == (other == "capturable")
+    assert writer.param_groups[0]["capturable"] == (written == "capturable")
+    for p_w, p_r in zip(nets[0].parameters(), nets[1].parameters()):
+        st_w, st_r = writer.state[p_w], runner.state[p_r]
+        assert float(st_r["step"]) == 2.0
+        assert st_r["step"].dtype == torch.float32
+        assert st_r["step"].device.type == "cpu"
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st_r[key], st_w[key])
+
+
+def test_restore_generator_from_the_other_device_kind():
+    """A generator state of this kind continues its stream; one of the
+    other device's kind (another size, as the card's Philox state is to
+    the CPU's) seeds the generator from its bytes: the same state, the
+    same draws; another state, other draws."""
+    from marlnav_tpu_torch.train import restore_generator
+
+    g = torch.Generator().manual_seed(3)
+    state = g.get_state()
+    want = torch.rand(4, generator=g)
+    restore_generator(g, state)
+    assert torch.equal(torch.rand(4, generator=g), want)
+    foreign = [torch.tensor([i, 0, 0, 0, 7, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8],
+                            dtype=torch.uint8) for i in (1, 2)]
+    draws = []
+    for state in (foreign[0], foreign[0], foreign[1]):
+        restore_generator(g, state)
+        draws.append(torch.rand(4, generator=g))
+    assert torch.equal(draws[0], draws[1])
+    assert not torch.equal(draws[0], draws[2])

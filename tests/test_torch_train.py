@@ -84,7 +84,7 @@ def test_cli_fused_updates(tmp_path, monkeypatch, bs):
 
 @pytest.mark.parametrize("flag", [
     ["--num-data", "2"], ["--num-model", "2"], ["--multihost"],
-    ["--bf16-updates"], ["-re"], ["-rc"], ["--allow-interpret"]])
+    ["--num-data", "1"], ["-re"], ["-rc"], ["--allow-interpret"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         cli(TINY + flag)

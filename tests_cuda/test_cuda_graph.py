@@ -133,17 +133,19 @@ def _tiny(repeats, extra=()):
 @pytest.mark.parametrize("pipeline", [False, True],
                          ids=["jit-repeats", "pipeline-repeats"])
 @pytest.mark.parametrize("route", ["fused", "fused-gae", "fused-f64",
-                                   "plain"])
+                                   "fused-bf16", "plain", "plain-bf16"])
 def test_graphed_blocks_equal_the_eager_loop(cuda, tmp_path, route,
                                              pipeline):
     """The fused route with the fused updates (also with GAE, whose
-    bootstrap value reads the final state's observations, and with
-    --returns-f64), and the plain route with autograd updates."""
+    bootstrap value reads the final state's observations, with
+    --returns-f64 and with --bf16-updates), and the plain route with
+    autograd updates (also with --bf16-updates)."""
     fused = route.startswith("fused")
     extra = {"fused": ["--fused-updates"],
              "fused-gae": ["--fused-updates", "--use-gae"],
              "fused-f64": ["--fused-updates", "--returns-f64"],
-             "plain": []}[route]
+             "fused-bf16": ["--fused-updates", "--bf16-updates"],
+             "plain": [], "plain-bf16": ["--bf16-updates"]}[route]
     wrappers = kernel_wrappers()
     runs = []
     for jit in (1, 2):
@@ -202,3 +204,34 @@ def test_card_adam_matches_cpu_adam(cuda):
     for a, b in zip(cpu.parameters(), card.parameters()):
         torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-6,
                                    atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cpu_checkpoint_resumes_on_the_card_as_graphs(cuda, tmp_path):
+    """A checkpoint written on the CPU (its Adam neither capturable nor
+    fused) resumes on the card under --jit-repeats 2: the card's Adam keeps
+    its capturable, fused settings with its step counts on the card, and
+    the graphed block after the first runs (its replays counted)."""
+    extra = ["--fused-updates"]
+    ck = str(tmp_path / "ck")
+    train(_tiny(2, extra), device="cpu", fused_collect=True, verbose=False,
+          output_root=str(tmp_path / "cpu"), checkpoint_dir=ck)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    ts, _, log = train(_tiny(6, extra), device="cuda", fused_collect=True,
+                       verbose=False, output_root=str(tmp_path / "card"),
+                       checkpoint_dir=ck, resume=True, jit_repeats=2)
+    torch.cuda.synchronize()
+    for opt in (ts.actor_opt, ts.critic_opt):
+        group = opt.param_groups[0]
+        assert group["capturable"] and group["fused"]
+        for st in opt.state.values():
+            assert st["step"].device.type == "cuda"
+            assert float(st["step"]) == 6 * 2  # 6 repeats x 2 epochs
+    assert len(log.logs["mean_rews"]) == 6
+    assert all(torch.isfinite(torch.tensor(log.logs[k])).all()
+               for k in ("mean_rews", "actor", "critic"))
+    # Repeats 2-3 an eager block, 4-5 a replayed graph: 4 collects.
+    assert wrappers["fused_collect"].launches == 4
+    assert wrappers["fused_actor_grad"].launches == 4 * 2
