@@ -21,16 +21,19 @@ sliced minibatches and one more with ``MARLNAV_ACTOR_LAYOUT=packed`` (the
 un-collapsed actor gradient's path), holds the gradient kernels against
 float64 also at ragged row counts and at the wide widths the JAX package
 trains (-no 8, -no 14, -hs 128, -hs 256, 4 agents with 8 obstacles, an
-odd obs width and the widest each kernel takes) with each output's error
+odd obs width, the widest of each kernel's template instances, and past
+them the run-time-width route: -no 17, -hs 512 and more) with each output's error
 printed, times one ``torch.sum`` over the affine actor's bytes beside that
 kernel, counts the tensor-core (HMMA) instructions in the SASS of every
 instance of the critic's and the un-collapsed actor's shared kernel body,
 holds the rollout kernel against its plain version (at every timed
 shape, the bench's included) and against the collect kernel, runs the
 bench (``python -m marlnav_tpu_torch.bench --plain`` at 16384 envs x 500
-steps, the rollout kernel's path), trains 2 short repeats with
-``--fused-updates`` at ``-no 8``, ``-hs 128``, ``-hs 256`` and ``-no 14``
-on both actor routes, runs the card tests (``python -m pytest
+steps, the rollout kernel's path), holds the collect and rollout kernels'
+run-time instance (9, 17 and 32 obstacles) against their plain versions
+bit for bit and times it, trains 2 short repeats with
+``--fused-updates`` at ``-no 8``, ``-hs 128``, ``-hs 256``, ``-no 14``,
+``-no 17`` and ``-hs 512`` on both actor routes, runs the card tests (``python -m pytest
 tests_cuda``), holds the returns kernel against its plain loops bit for
 bit (float32 and float64, discounted and GAE), runs the main path through
 the CLI as CUDA graphs (``--jit-repeats 2``, and with
@@ -41,9 +44,13 @@ bit for bit, then drives ``--bf16-updates`` (phase 15): holds each bf16 kernel
 variant against its plain version in bf16 mode (within a quarter of the
 bf16 - float32 gap, output by output, with its error against float64
 products of the same rounded operands printed), trains the main path
-with it (graphed equal to eager bit for bit), at -bs 250, packed, -hs 256
-and -no 14, and times each bf16 kernel and a graphed bf16 repeat beside
-their float32 counterparts; and times every kernel.  Each path's launch
+with it (graphed equal to eager bit for bit), at -bs 250, packed, -hs 256,
+-no 14, -hs 32, -no 14 -hs 256 and -no 17, and times each bf16 kernel and
+a graphed bf16 repeat beside their float32 counterparts; runs the
+diagnostics on the card (phase 16: -rc against the goldens and the CPU,
+the trained actor's trajectory and its env-steps/s, -re
+--save-animation or its error without matplotlib); and times every
+kernel.  Each path's launch
 counts are set to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
 object, the card's name and power limit, and ``{"ok": true, "device":
@@ -75,16 +82,28 @@ import torch
 # the 8-term acos polynomial and the feature scaling) = 792; 3 agents x
 # 159 (the 4 x 12 affine actor, tanh x2, softplus x2, Box-Muller, action
 # and log-prob) = 477; dynamics 3 x 48 = 144; rewards and done 332; reset
-# blend 83; step counter 2.  Philox's integer work is not counted.
-OPS_PER_ENV_STEP = 1830
+# blend 83; step counter 2.  Philox's integer work is not counted.  With O
+# obstacles (F = 6 + 2 O): 3 (3 + O) geom calls; the actor 3 (8F + 63);
+# rewards 242 + 30 O (each obstacle's distance and two flags, 10 an agent);
+# the reset blend 47 + 12 O.
+def collect_ops_per_env_step(o):
+    f = 6 + 2 * o
+    return (3 * (3 + o) * 44 + 3 * (8 * f + 63) + 144 + (242 + 30 * o)
+            + (47 + 12 * o) + 2)
+
+
 # The rollout kernel (ops/csrc/fused_rollout.cu) takes the collect's step
 # without the log-probs (3 agents x 9: two logs, two squares, four adds and
 # the scale) and without the done flag and counters (4): 1,799 sampled.
 # With the policy mean it also skips, per agent, the operator's two
-# variance rows (48), two softplus (12), Box-Muller (36) and the sample
-# (6): 1,493.  Indexed by deterministic_actions.
-ROLLOUT_OPS_PER_ENV_STEP = {False: OPS_PER_ENV_STEP - 3 * 9 - 4,
-                            True: OPS_PER_ENV_STEP - 3 * 9 - 4 - 3 * 102}
+# variance rows (4F: 48), two softplus (12), Box-Muller (36) and the
+# sample (6): 1,493.
+def rollout_ops_per_env_step(o, deterministic):
+    f = 6 + 2 * o
+    return (collect_ops_per_env_step(o) - 3 * 9 - 4
+            - (3 * (4 * f + 54) if deterministic else 0))
+
+
 # Float operations of one actor row of ops/csrc/fused_update.cu, counted
 # the same way: z = A x + c, 8F + 4; the PPO chain (ppo_row), 91; the sums
 # g_z x^T and g_z, 8F + 4; the loss sum, 1.  At F = 12: 292.
@@ -390,6 +409,23 @@ def main(out_dir):
         print(f"actor_grad_kernel<{label}> (every obs width): {actor_line}")
         assert spills and not any(spills), actor_line
         record["actor_ptxas"][label] = actor_line
+    # The run-time instances past the templated widths: the step kernels'
+    # past 8 obstacles, the gradient route past the tensor-core instances
+    # (forward and backward, critic and un-collapsed actor, float32 and
+    # bf16).  None may spill.
+    record["runtime_ptxas"] = {}
+    for lib_name, mangled in (
+            ("fused_collect", "fused_collect_rt_kernel"),
+            ("fused_rollout", "fused_rollout_rt_kernelILb0E"),
+            ("fused_rollout", "fused_rollout_rt_kernelILb1E"),
+            *(("fused_update", f"rt_{part}_kernelILb{actor}ELb{bf16}E")
+              for part in ("forward", "backward") for actor in (0, 1)
+              for bf16 in (0, 1))):
+        line = instance_line(builds[lib_name][1]["log"], mangled)
+        print(f"{mangled}: {line}")
+        stores = re.findall(r"(\d+) bytes spill stores", line)
+        assert stores and not any(int(v) for v in stores), line
+        record["runtime_ptxas"][mangled] = line
     # The returns kernel's four instances (float32 / float64, discounted /
     # GAE) hold their carry and staging in registers and shared memory.
     returns_lines = record["ptxas"]["returns"]
@@ -444,10 +480,13 @@ def main(out_dir):
     else:
         print("cuobjdump not found: HMMA count not measured")
 
-    def setup(p, t, episode_len=200, noisy=False, tame=False, seed=0):
-        """Step math, start rows and the actor operator for one case."""
-        ep = EnvParams(num_parallel=p, episode_len=episode_len)
-        ic = TriangleInitConfig(num_parallel=p, noisy_ags=noisy)
+    def setup(p, t, episode_len=200, noisy=False, tame=False, seed=0, o=3):
+        """Step math, start rows and the actor operator for one case, with
+        o obstacles."""
+        ep = EnvParams(num_parallel=p, episode_len=episode_len,
+                       num_obstacles=o)
+        ic = TriangleInitConfig(num_parallel=p, noisy_ags=noisy,
+                                num_obstacles=o)
         env = make_env(ep, ic, dev)
         rows = fc.env_state_to_rows(env.init(make_generator(seed, dev)))
         actor = Actor(ep.obs_size, 50,
@@ -458,7 +497,8 @@ def main(out_dir):
                 actor.fc_mu.bias.mul_(1e-3)
                 actor.fc_var.bias.sub_(20.0)
         a_comp, c_comp = fc._affine_compose(actor)
-        return StepMath(ep, ic, norm, scal), rows, a_comp, c_comp
+        return (StepMath(ep, ic, NormalizerConfig(num_obstacles=o), scal),
+                rows, a_comp, c_comp)
 
     # ------------------------------------------------------------------
     phase("2. kernel against its plain version, same uniforms")
@@ -586,6 +626,7 @@ def main(out_dir):
         assert all(math.isfinite(v) for v in logs[key]), key
     assert all(x.shape[-1] == p and bool(torch.isfinite(x).all())
                for x in rows_out.fields())
+    trained_actor = ts.actor  # phase 16 rolls a trajectory out with it
 
     # Per-phase times of one more repeat through the same functions, on the
     # fused and on the autograd update route, and at -bs 250 (4 minibatch
@@ -688,6 +729,18 @@ def main(out_dir):
     # ------------------------------------------------------------------
     phase("5. collect kernel: times, and against its plain version at these "
           "shapes")
+    def collect_bound(sm, rows, p, t):
+        """(bound ms, what bounds it, bytes, operations) of a collect."""
+        n_rows = sum(x.shape[0] for x in rows.fields())
+        a, f = sm.a, sm.obs_size
+        nbytes = (t * p * (4 * (a * f + 2 * a + a + 1) + 1)
+                  + 2 * n_rows * p * 4 + 4 * (4 * f + 4) + 3 * 4)
+        ops = collect_ops_per_env_step(sm.o) * t * p
+        bytes_ms, ops_ms = (nbytes / HBM_BYTES_PER_S * 1e3,
+                            ops / FP32_OPS_PER_S * 1e3)
+        return (max(bytes_ms, ops_ms),
+                "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
     shapes = {}
     for p, t in ((1024, 1000), (16384, 200), (16384, 500)):
         sm, rows, a_comp, c_comp = setup(p, t)
@@ -711,25 +764,58 @@ def main(out_dir):
         assert torch.equal(k.done, out["r"].done)
         assert torch.equal(k.stats, out["r"].stats)
         max_err = max(max_err, *errs.values())
-        n_rows = sum(x.shape[0] for x in rows.fields())
-        a, f = sm.a, sm.obs_size
-        nbytes = (t * p * (4 * (a * f + 2 * a + a + 1) + 1)  # buffer out
-                  + 2 * n_rows * p * 4 + 4 * (4 * f + 4) + 3 * 4)
-        ops = OPS_PER_ENV_STEP * t * p
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
+        bound_ms, bound_by, nbytes, ops = collect_bound(sm, rows, p, t)
         shapes[(p, t)] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by="bytes" if bytes_ms >= ops_ms
-                              else "operations", us_per_step=k_ms * 1e3 / t)
+                              bound_by=bound_by, us_per_step=k_ms * 1e3 / t)
         print(f"fused_collect P={p} T={t}: kernel {k_ms:.4f} ms (median of "
               f"7), {k_ms * 1e3 / t:.3f} us a step, plain version "
               f"{plain_ms:.1f} ms (1 run), bound "
               f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB -> "
-              f"{bytes_ms * 1e3:.1f} us; {ops / 1e9:.2f} GFLOP -> "
-              f"{ops_ms * 1e3:.1f} us), {bound_ms / k_ms:.1%} of the bound; "
+              f"{nbytes / HBM_BYTES_PER_S * 1e6:.1f} us; {ops / 1e9:.2f} "
+              f"GFLOP -> {ops / FP32_OPS_PER_S * 1e6:.1f} us), "
+              f"{bound_ms / k_ms:.1%} of the bound; "
               f"{p * t / k_ms * 1e3:,.0f} env-steps/s")
     print("fused_collect_kernel<O=3>: " + instance_line(
         builds["fused_collect"][1]["log"], "fused_collect_kernelILi3E"))
+
+    # Past 8 obstacles the run-time instance (fused_collect_rt_kernel): at
+    # O 9, 17 and 32, every field equal to the plain version through
+    # resets (episode_len 10, noisy_ags, ragged P 1000, T 32, both timed
+    # there), and the kernel timed at the main path's (1024, 1000).
+    for o in (9, 17, 32):
+        sm, rows, a_comp, c_comp = setup(1000, 32, episode_len=10, noisy=True,
+                                         o=o)
+        uniforms = torch.rand((32, sm.n_draws, 1000), device=dev,
+                              generator=make_generator(8, dev))
+        k_ms = cuda_ms(lambda: fc.fused_collect_rows(
+            sm, rows, a_comp, c_comp, 3, 32, uniforms), reps=7, warmup=2)
+        plain_ms = cuda_ms(lambda: out.update(
+            r=fc.collect_rows_reference(sm, rows, a_comp, c_comp, uniforms)))
+        k = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 3, 32, uniforms)
+        torch.cuda.synchronize()
+        errs = collect_errors(k, out["r"])
+        print(f"O={o} P=1000 T=32 resets, same uniforms: max abs err "
+              + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+              + f"; done frac {k.done.float().mean().item():.4f}")
+        assert all(e == 0.0 for e in errs.values()), (o, errs)
+        assert torch.equal(k.done, out["r"].done) and k.done.any()
+        assert torch.equal(k.stats, out["r"].stats)
+        bound_ms, by, _, _ = collect_bound(sm, rows, 1000, 32)
+        shapes[f"O={o} 1000x32"] = dict(ms=k_ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=by)
+        sm, rows, a_comp, c_comp = setup(1024, 1000, o=o)
+        main_ms = cuda_ms(lambda: fc.fused_collect_rows(
+            sm, rows, a_comp, c_comp, 3, 1000), reps=7, warmup=2)
+        bound_ms, by, nbytes, ops = collect_bound(sm, rows, 1024, 1000)
+        shapes[f"O={o} 1024x1000"] = dict(ms=main_ms, bound_ms=bound_ms,
+                                          bound_by=by)
+        print(f"fused_collect O={o}: P=1000 T=32 kernel {k_ms:.4f} ms, "
+              f"plain version {plain_ms:.1f} ms (1 run); P=1024 T=1000 "
+              f"kernel {main_ms:.4f} ms (medians of 7), "
+              f"{main_ms * 1e3 / 1000:.3f} us a step, bound "
+              f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB; "
+              f"{ops / 1e9:.2f} GFLOP), {bound_ms / main_ms:.1%} of it; "
+              f"{1024 * 1000 / main_ms * 1e3:,.0f} env-steps/s")
     times = {"fused_collect": shapes}
     errors = {"fused_collect": max_err}
 
@@ -952,9 +1038,13 @@ def main(out_dir):
     # networks: a narrow critic (2 agents, hidden 32: In 20), the widths of
     # -no 8 (obs 22: critic In 66), -no 14 (obs 34: In 102), -hs 128, -hs
     # 256 (two passes of the tensor-core body), 4 agents with 8 obstacles
-    # (In 96), an odd obs width (13) and the widest each kernel takes
-    # (critic In 103 = 1 x 103; In 66, 102 and 103 load their rows 4 bytes
-    # a copy; affine actor obs 255).  Old values 0.05 or 0.4 from the
+    # (In 96), an odd obs width (13) and the widest of each tensor-core
+    # body's instances (critic In 103 = 1 x 103; In 66, 102 and 103 load
+    # their rows 4 bytes a copy) and of the affine actor's narrow tiles
+    # (obs 255).  Past the instances, the run-time-width route: critic In
+    # 120 (-no 17), 210, 36 at H 512 (-hs 512) and 103 at H 257;
+    # un-collapsed F 40 (-no 17), 70 at H 128 and 12 at H 512; and the
+    # affine actor at obs 256 and 300.  Old values 0.05 or 0.4 from the
     # critic's own values, and behaviour log-probs as far from the actor's
     # own, either side: the values and the ratios lie inside and outside
     # the clip band of eps 0.2 but never on its edge, where float32 and
@@ -972,14 +1062,16 @@ def main(out_dir):
     wide = {"fused_critic_grad": [
                 (2, EnvParams(num_agents=2).obs_size, 32), (3, 22, 50),
                 (3, 12, 128), (4, 24, 128), (1, 103, 128), (3, 12, 256),
-                (3, 34, 256), (1, lib.marlnav_critic_max_in(), max_h)],
+                (3, 34, 256), (1, lib.marlnav_critic_max_in(), max_h),
+                (3, 40, 50), (1, 210, 64), (3, 12, 512), (1, 103, 257)],
             "fused_actor_grad_uncollapsed": [
                 (1, 22, 50), (1, 22, 128), (1, 32, 128), (1, 39, 128),
                 (1, 12, 256), (1, 34, 256),
-                (1, lib.marlnav_uncollapsed_max_obs(), max_h)],
+                (1, lib.marlnav_uncollapsed_max_obs(), max_h),
+                (1, 40, 50), (1, 70, 128), (1, 12, 512)],
             "fused_actor_grad": [(1, 22, 50), (1, 32, 50), (1, 34, 50),
-                                 (1, 13, 50),
-                                 (1, lib.marlnav_actor_max_obs(), 50)]}
+                                 (1, 13, 50), (1, 255, 50), (1, 256, 50),
+                                 (1, 300, 50)]}
 
     def wide_case(name, agents, f, h):
         """(label, args) of ``name`` on n random rows at these widths."""
@@ -1022,9 +1114,19 @@ def main(out_dir):
             args = (*weights, *rows)
         return label, args
 
+    def runtime_route(name, agents, f, h):
+        """Whether these widths take the run-time-width route."""
+        if name == "fused_critic_grad":
+            return not lib.marlnav_critic_warps(agents * f, h, 0)
+        if name == "fused_actor_grad_uncollapsed":
+            return not lib.marlnav_uncollapsed_warps(f, h, 0)
+        return False
+
     for name, cases in wide.items():
         for agents, f, h in cases:
             label, args = wide_case(name, agents, f, h)
+            if runtime_route(name, agents, f, h):
+                label += " (run-time route)"
             check(name, label, args)
             time_kernels(label, label, {name: args}, None,
                          (f, h, agents * f))
@@ -1077,6 +1179,17 @@ def main(out_dir):
     # sampled kernel is also held against the plain version's timed run on
     # the same uniforms: the untamed initial actor, resets included, bit
     # for bit.
+    def rollout_bound(sm, rows, p, t):
+        """(bound ms, what bounds it, bytes, operations) of a sampled
+        rollout."""
+        n_rows = sum(x.shape[0] for x in rows.fields())
+        nbytes = t * p * 4 + 2 * n_rows * p * 4 + 4 * (4 * sm.obs_size + 4)
+        ops = rollout_ops_per_env_step(sm.o, False) * t * p
+        bytes_ms, ops_ms = (nbytes / HBM_BYTES_PER_S * 1e3,
+                            ops / FP32_OPS_PER_S * 1e3)
+        return (max(bytes_ms, ops_ms),
+                "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
     times["fused_rollout"] = {}
     for p, t in ((1024, 1000), (16384, 200), (16384, 500)):
         sm, rows, a_comp, c_comp = setup(p, t)
@@ -1099,15 +1212,11 @@ def main(out_dir):
               f"just reset {resets}")
         assert err == 0.0, f"rollout P={p} T={t}: kernel != plain ({err})"
         assert math.isfinite(k[1].mean().item())
-        n_rows = sum(x.shape[0] for x in rows.fields())
-        nbytes = t * p * 4 + 2 * n_rows * p * 4 + 4 * (4 * sm.obs_size + 4)
-        ops = ROLLOUT_OPS_PER_ENV_STEP[False] * t * p
+        bound_ms, bound_by, nbytes, ops = rollout_bound(sm, rows, p, t)
         bytes_ms, ops_ms = (nbytes / HBM_BYTES_PER_S * 1e3,
                             ops / FP32_OPS_PER_S * 1e3)
-        bound_ms = max(bytes_ms, ops_ms)
         times["fused_rollout"][(p, t)] = dict(
-            ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             policy_mean_ms=det_ms, us_per_step=k_ms * 1e3 / t)
         print(f"fused_rollout P={p} T={t}: kernel {k_ms:.4f} ms sampled "
               f"({k_ms * 1e3 / t:.3f} us a step), {det_ms:.4f} ms policy "
@@ -1122,6 +1231,55 @@ def main(out_dir):
         print(f"fused_rollout_kernel<O=3, {'policy mean' if det else 'sampled'}"
               f">: " + instance_line(builds["fused_rollout"][1]["log"],
                                      f"fused_rollout_kernelILi3ELb{int(det)}E"))
+    # Past 8 obstacles the run-time instance (fused_rollout_rt_kernel): at
+    # O 9, 17 and 32, both modes equal to the plain version through resets
+    # at a ragged P 1000 (T 32, both timed there), the sampled one equal to
+    # the collect kernel from the same Philox seed; the kernel timed at the
+    # bench's (16384, 500).
+    for o in (9, 17, 32):
+        sm, rows, a_comp, c_comp = setup(1000, 32, episode_len=10, noisy=True,
+                                         o=o)
+        uniforms = torch.rand((32, sm.n_draws, 1000), device=dev,
+                              generator=make_generator(9, dev))
+        small = {}
+        for det in (False, True):
+            k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 32, det,
+                                      uniforms)
+            plain = {}
+            plain_ms = cuda_ms(lambda: plain.update(
+                r=fr.rollout_rows_reference(sm, rows, a_comp, c_comp,
+                                            uniforms, det)))
+            torch.cuda.synchronize()
+            err = same_rollout(k, plain["r"])
+            assert err == 0.0, f"rollout O={o} det={det}: kernel != plain"
+            small[det] = plain_ms
+        k_ms = cuda_ms(lambda: fr.fused_rollout_rows(
+            sm, rows, a_comp, c_comp, 11, 32, False, uniforms), reps=7,
+            warmup=2)
+        col = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 11, 32)
+        k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 32, False)
+        torch.cuda.synchronize()
+        assert same_rollout(k, (col.rows, col.rewards)) == 0.0, o
+        assert col.done.any()
+        bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 1000, 32)
+        times["fused_rollout"][f"O={o} 1000x32"] = dict(
+            ms=k_ms, plain_ms=small[False], bound_ms=bound_ms,
+            bound_by=bound_by)
+        sm, rows, a_comp, c_comp = setup(16384, 500, o=o)
+        ms = {det: cuda_ms(lambda: fr.fused_rollout_rows(
+            sm, rows, a_comp, c_comp, 3, 500, det), reps=7, warmup=2)
+            for det in (False, True)}
+        bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 16384, 500)
+        times["fused_rollout"][f"O={o} 16384x500"] = dict(
+            ms=ms[False], bound_ms=bound_ms, bound_by=bound_by,
+            policy_mean_ms=ms[True])
+        print(f"fused_rollout O={o}: kernel == plain (both modes) and == "
+              f"collect at P=1000 T=32 (kernel {k_ms:.4f} ms, plain "
+              f"{small[False]:.1f} / {small[True]:.1f} ms); P=16384 T=500: "
+              f"{ms[False]:.4f} ms sampled, {ms[True]:.4f} ms policy mean "
+              f"(medians of 7), bound {bound_ms * 1e3:.1f} us ({bound_by}), "
+              f"{bound_ms / ms[False]:.1%} of it; "
+              f"{16384 * 500 / ms[False] * 1e3:,.0f} env-steps/s")
 
     # ------------------------------------------------------------------
     phase("8. the bench path: python -m marlnav_tpu_torch.bench --plain, "
@@ -1147,20 +1305,22 @@ def main(out_dir):
     record["bench"] = result
 
     # ------------------------------------------------------------------
-    phase("9. training at wide widths: -no 8, -hs 128, -hs 256 and -no 14, "
-          "2 repeats, --fused-updates, both actor routes")
+    phase("9. training at wide widths: -no 8, -hs 128, -hs 256, -no 14, "
+          "-no 17 and -hs 512, 2 repeats, --fused-updates, both actor routes")
     # Widths the JAX package trains.  P=256 x buffer 100, 5 + 5 epochs: the
     # affine actor at full batch and the un-collapsed one
     # (MARLNAV_ACTOR_LAYOUT=packed) at -bs 50 (2 slices); with
-    # --fused-collect, except at -no 14: the collect kernel takes at most
-    # 8 obstacles, so that run collects through the plain step loop on
-    # the card (its update kernels see obs 34 and critic input 102).
+    # --fused-collect, except at -no 14, which collects through the plain
+    # step loop on the card (its update kernels see obs 34 and critic input
+    # 102).  -no 17 runs the collect kernel's run-time instance and, for
+    # the critic (In 120) and the un-collapsed actor (F 40), the run-time-
+    # width route; -hs 512 the latter for both.
     record["wide_training"] = {}
     epochs, wp, wt = 5, 256, 100
-    max_o = fc._library()[0].marlnav_collect_max_obstacles()
-    for extra in (["-no", "8"], ["-hs", "128"], ["-hs", "256"],
-                  ["-no", "14"]):
-        fused_collect = int(extra[1]) <= max_o if extra[0] == "-no" else True
+    for extra, fused_collect in (
+            (["-no", "8"], True), (["-hs", "128"], True),
+            (["-hs", "256"], True), (["-no", "14"], False),
+            (["-no", "17"], True), (["-hs", "512"], True)):
         for layout, bs in ((None, wt), ("packed", wt // 2)):
             wcfg = resolve_run_config(build_parser().parse_args(
                 ["-np", str(wp), "-bl", str(wt), "-bs", str(bs), "-ne",
@@ -1481,7 +1641,9 @@ def main(out_dir):
     # one), bit for bit; -bs 250 (the staged rounding) and
     # MARLNAV_ACTOR_LAYOUT=packed at -bs 250 (the un-collapsed kernel) for
     # a repeat each; -hs 256 and -no 14 for 2 short repeats on both actor
-    # routes, as phase 9.
+    # routes, as phase 9, and the widths with no bf16 instance, which take
+    # the run-time-width route: -hs 32, -no 14 -hs 256 and -no 17 (with the
+    # collect kernel's run-time instance).
     bf16_argv = main_argv + ["--bf16-updates"]
 
     def bf16_run(repeats, extra, want, label):
@@ -1525,8 +1687,10 @@ def main(out_dir):
             "-bs 250, MARLNAV_ACTOR_LAYOUT=packed")
     finally:
         del os.environ["MARLNAV_ACTOR_LAYOUT"]
-    for extra in (["-hs", "256"], ["-no", "14"]):
-        fused_collect = int(extra[1]) <= max_o if extra[0] == "-no" else True
+    for extra, fused_collect in (
+            (["-hs", "256"], True), (["-no", "14"], False),
+            (["-hs", "32"], True), (["-no", "14", "-hs", "256"], True),
+            (["-no", "17"], True)):
         for layout, bs in ((None, wt), ("packed", wt // 2)):
             wcfg = resolve_run_config(build_parser().parse_args(
                 ["-np", str(wp), "-bl", str(wt), "-bs", str(bs), "-ne",
@@ -1622,6 +1786,134 @@ def main(out_dir):
               f"of 5)")
         assert math.isfinite(tm16["wall"])
         del graph16
+
+    # ------------------------------------------------------------------
+    phase("16. the diagnostics modes on the card: -rc, the trajectory of "
+          "the trained actor, -re --save-animation")
+    # The reward check through cli on the card, mock scenarios 0 and 1 at
+    # 400 steps: its series against the reference goldens (target angles
+    # and rewards at tests/test_cli_and_io.py:126-146's tolerances for
+    # scenario 0; every series at tests/test_torch_env.py's golden ones,
+    # rtol 2e-5 / atol 2e-3) and against the same run on the CPU.  These
+    # modes run the env's plain step on the card, as the JAX package runs
+    # env.step in a scan: no kernel launches.
+    import numpy as np
+
+    from marlnav_tpu_torch.diagnostics import Animation, rollout_trajectory
+
+    record["diagnostics"] = {}
+    goldens = os.path.join(here, "tests", "goldens")
+    series_of = {"target_angles": ("target_angle", 0), "target_distances":
+                 ("target_distance", 0), "obs_angles": ("obstacles_angles", 0),
+                 "obs_distances": ("obstacles_distances", 0),
+                 "angles_to_first": ("others_angles", 0),
+                 "distances_to_first": ("others_distances", 0),
+                 "angles_to_second": ("others_angles", 1),
+                 "distances_to_second": ("others_distances", 1)}
+    with contextlib.chdir(out_dir):
+        for sn in (0, 1):
+            argv = ["-rc", "-sn", str(sn), "-ms", "400"]
+            reset_counts()
+            t0 = time.perf_counter()
+            card_series = cli(argv)
+            card_s = time.perf_counter() - t0
+            assert read_counts() == expect(), read_counts()
+            cpu_series = cli(["--device", "cpu"] + argv)
+            golden = dict(np.load(os.path.join(goldens, f"sn{sn}.npz")))
+            worst = 0.0
+            for key, (field, k) in series_of.items():
+                want = golden[field][:, 0, 0, k]
+                got = card_series[key]
+                assert got.shape == (400,) and math.isfinite(float(
+                    abs(got).max())), key
+                rtol, atol = ((1e-5, 1e-5) if sn == 0 and key ==
+                              "target_angles" else (2e-5, 2e-3))
+                np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                           err_msg=f"sn{sn} {key} golden")
+                np.testing.assert_allclose(got, cpu_series[key], rtol=2e-5,
+                                           atol=2e-3,
+                                           err_msg=f"sn{sn} {key} cpu")
+                worst = max(worst, float(abs(got - want).max()))
+            rtol, atol = (1e-5, 1e-3) if sn == 0 else (2e-5, 2e-3)
+            np.testing.assert_allclose(card_series["rewards"],
+                                       golden["rewards"][:, 0], rtol=rtol,
+                                       atol=atol, err_msg=f"sn{sn} rewards")
+            np.testing.assert_allclose(card_series["rewards"],
+                                       cpu_series["rewards"], rtol=2e-5,
+                                       atol=2e-3,
+                                       err_msg=f"sn{sn} rewards cpu")
+            rew_err = float(abs(card_series["rewards"]
+                                - golden["rewards"][:, 0]).max())
+            print(f"-rc -sn {sn} -ms 400 on the card: {card_s:.2f} s, no "
+                  f"kernel launched; series against the golden: max abs err "
+                  f"{worst:.3e} (observations), {rew_err:.3e} (rewards); the "
+                  f"CPU run's within the golden tolerances too")
+            record["diagnostics"][f"-rc -sn {sn}"] = dict(
+                seconds=card_s, obs_err=worst, rewards_err=rew_err)
+
+        # rollout_trajectory with the main path's trained actor (phase 4) at
+        # the main configuration's width, 1024 envs x 1000 steps: the policy
+        # mean (twice: equal bit for bit) and samples; the frames stacked on
+        # the card and fetched once.  Its first 8 steps, mean, against the
+        # same on the CPU.
+        tr_env = make_env(EnvParams(num_parallel=1024),
+                          TriangleInitConfig(num_parallel=1024), dev)
+        tr_kw = dict(normalizer_cfg=norm, scaler_cfg=scal)
+        assert not any(p_.device.type == "cpu"
+                       for p_ in trained_actor.parameters())
+        for sample in (False, True):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traj = rollout_trajectory(tr_env, 1000, make_generator(5, dev),
+                                      actor=trained_actor, sample=sample,
+                                      **tr_kw)
+            tr_s = time.perf_counter() - t0
+            assert read_counts() == expect(), read_counts()
+            assert traj.states.shape == (1000, 1024, 3, 5)
+            assert all(np.isfinite(x).all() for x in (
+                traj.states, traj.rewards, traj.obs.target_distance))
+            label = "sampled" if sample else "policy mean"
+            print(f"trajectory of the trained actor, {label}, 1024 envs x "
+                  f"1000 steps on the card: {tr_s:.2f} s = "
+                  f"{1024 * 1000 / tr_s:,.0f} env-steps/s (host wall, one "
+                  f"fetch); mean reward {float(traj.rewards.mean()):.3f}, "
+                  f"episodes ended {int(traj.terminated.sum())} + "
+                  f"{int(traj.truncated.sum())} truncated")
+            record["diagnostics"][f"trajectory {label}"] = dict(
+                seconds=tr_s, env_steps_per_s=1024 * 1000 / tr_s)
+            if not sample:
+                again = rollout_trajectory(tr_env, 1000,
+                                           make_generator(5, dev),
+                                           actor=trained_actor, **tr_kw)
+                assert (again.states == traj.states).all() and (
+                    again.rewards == traj.rewards).all()
+                print("  the policy mean's trajectory again: equal bit for "
+                      "bit")
+
+        # -re --save-animation: the GIF where matplotlib imports, else the
+        # clear error.
+        gif = os.path.join(out_dir, "anim.gif")
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ModuleNotFoundError:
+            has_mpl = False
+        reset_counts()
+        if has_mpl:
+            anim = cli(["-re", "-sn", "1", "-ms", "50", "--save-animation",
+                        gif])
+            assert isinstance(anim, Animation) and os.path.getsize(gif) > 0
+            print(f"-re -sn 1 --save-animation: {os.path.getsize(gif):,} "
+                  f"bytes written, {anim.traj.states.shape[0]} frames")
+        else:
+            try:
+                cli(["-re", "-sn", "1", "-ms", "50", "--save-animation", gif])
+                raise AssertionError("-re ran without matplotlib")
+            except ModuleNotFoundError as err:
+                assert "matplotlib" in str(err) and not os.path.exists(gif)
+                print(f"-re without matplotlib: {err}")
+        assert read_counts() == expect(), read_counts()
 
     def shape_key(key):
         """(P, T) as "PxT"; other shapes by their label."""

@@ -4,15 +4,26 @@ The port's own copy of ``marlnav_tpu/__main__.py``'s ``build_parser``: the
 same flags (short and long names) and defaults, so any invocation of the
 JAX package parses here, plus ``--device`` (default ``cuda``).
 
-This port runs the training mode, with ``--jit-repeats`` and
-``--pipeline-repeats`` (blocks of repeats, CUDA graphs on the card),
-``--checkpoint-dir`` / ``--checkpoint-interval`` / ``--resume``,
-``--returns-f64`` and ``--bf16-updates``.  Flags whose features are not
-ported yet raise ``NotImplementedError`` naming ROADMAP.md instead of being
-ignored: ``--num-data``, ``--num-model``, ``--multihost``, ``-re`` and
-``-rc``.  ``--allow-interpret`` has no counterpart (the port has
-no kernel interpreter: ``--device cpu`` runs the kernels' plain PyTorch
-versions) and raises as well.
+The three modes of the JAX package (``main``, as marlnav_tpu/__main__.py
+dispatches them):
+
+* training (the default), with ``--jit-repeats`` and
+  ``--pipeline-repeats`` (blocks of repeats, CUDA graphs on the card),
+  ``--checkpoint-dir`` / ``--checkpoint-interval`` / ``--resume``,
+  ``--returns-f64`` and ``--bf16-updates``;
+* ``-rc`` (reward check): the scripted sampler's trajectory, its
+  observation and reward series returned and plotted under ./plots
+  (``-rc -sa policy`` exits: the check needs a scripted sampler);
+* ``-re`` (rendering): the trajectory of the scripted sampler, or of
+  trained weights with ``-sa policy -w <file>``, animated, or written to
+  ``--save-animation <file>``.
+
+``cli`` returns the mode's result: ``train()``'s tuple, the series, or
+the ``Animation``.  Flags whose features are not ported yet raise
+``NotImplementedError`` naming ROADMAP.md instead of being ignored:
+``--num-data``, ``--num-model`` and ``--multihost``.  ``--allow-interpret``
+has no counterpart (the port has no kernel interpreter: ``--device cpu``
+runs the kernels' plain PyTorch versions) and raises as well.
 
 ``--fused-collect`` and ``--fused-updates`` route the rollout and the PPO
 gradients through the port's CUDA kernels (ops/csrc/); on ``--device cpu``
@@ -22,8 +33,10 @@ they run the kernels' plain PyTorch versions.
 from __future__ import annotations
 
 import argparse
+import sys
 
-from marlnav_tpu_torch.config import load_config_json, resolve_run_config
+from marlnav_tpu_torch.config import (RunConfig, load_config_json,
+                                      resolve_run_config)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -148,8 +161,6 @@ _UNPORTED = (
     ("--num-data", lambda a: a.num_data is not None),
     ("--num-model", lambda a: a.num_model != 1),
     ("--multihost", lambda a: a.multihost),
-    ("-re/--rendering", lambda a: a.rendering),
-    ("-rc/--reward_check", lambda a: a.reward_check),
 )
 
 
@@ -167,21 +178,58 @@ def reject_unported(args) -> None:
             "plain PyTorch versions")
 
 
+def main(cfg: RunConfig, mode: str, args=None):
+    """Mode dispatch (marlnav_tpu/__main__.py:148-210, reference
+    __main__.py:12-40); returns the mode's result."""
+    device = getattr(args, "device", "cuda") if args is not None else "cuda"
+    if mode == "training":
+        from marlnav_tpu_torch.train import train
+
+        return train(
+            cfg, device=device,
+            fused_collect=getattr(args, "fused_collect", False),
+            checkpoint_dir=getattr(args, "checkpoint_dir", None),
+            checkpoint_interval=getattr(args, "checkpoint_interval", 10),
+            resume=getattr(args, "resume", False),
+            output_root=getattr(args, "output_root", None),
+            jit_repeats=getattr(args, "jit_repeats", 1),
+            pipeline=getattr(args, "pipeline_repeats", False))
+
+    from marlnav_tpu_torch.env import make_env
+    from marlnav_tpu_torch.utils.seeding import make_generator
+
+    env = make_env(cfg.env, cfg.init, device, sampler_cfg=cfg.sampler)
+    generator = make_generator(cfg.seed, env.device)
+    if mode == "rendering":
+        from marlnav_tpu_torch.diagnostics import init_render
+
+        renderer = init_render(
+            env, cfg.animation, normalizer_cfg=cfg.normalizer,
+            scaler_cfg=cfg.scaler, hidden_size=cfg.animation.hidden_size,
+            generator=generator)
+        renderer.run(save_path=getattr(args, "save_animation", None))
+        return renderer
+    if mode == "reward_check":
+        from marlnav_tpu_torch.diagnostics import check_rews
+
+        return check_rews(env, cfg.max_step, cfg.animation.parallel_index,
+                          cfg.animation.agent_index, generator=generator)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
 def cli(argv=None):
-    """Parse ``argv`` and train; returns what ``train.train`` returns
-    (the train state, the final env state and the stats logger)."""
+    """Parse ``argv`` and run its mode; returns the mode's result:
+    ``train.train``'s (train state, final env state, stats logger), the
+    reward check's series, or the rendering's ``Animation``."""
     args = build_parser().parse_args(argv)
+    if args.reward_check and args.sampling_style == "policy":
+        sys.exit("reward check needs a scripted sampler, not a policy")
     reject_unported(args)
     cfg = (load_config_json(args.config) if args.config
            else resolve_run_config(args))
-    from marlnav_tpu_torch.train import train
-
-    return train(cfg, device=args.device, fused_collect=args.fused_collect,
-                 checkpoint_dir=args.checkpoint_dir,
-                 checkpoint_interval=args.checkpoint_interval,
-                 resume=args.resume, output_root=args.output_root,
-                 jit_repeats=args.jit_repeats,
-                 pipeline=args.pipeline_repeats)
+    mode = ("rendering" if args.rendering
+            else "reward_check" if args.reward_check else "training")
+    return main(cfg, mode, args)
 
 
 if __name__ == "__main__":

@@ -10,13 +10,14 @@ exact ordering (reference environment.py:92-107):
 
 The fresh draw consumes the ``torch.Generator`` carried in
 ``EnvState.generator``.  ``step`` returns a new ``EnvState``; it writes
-into no tensor it was given.
+into no tensor it was given.  ``sample_actions`` is the scripted sampler
+of ``sampler_cfg`` (env/samplers.py), or None where a policy acts.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -25,6 +26,7 @@ from marlnav_tpu_torch.env import geometry
 from marlnav_tpu_torch.env.dynamics import move_agents
 from marlnav_tpu_torch.env.initializers import make_initializer
 from marlnav_tpu_torch.env.reward import rewards_and_terminations
+from marlnav_tpu_torch.env.samplers import SamplerFn, make_action_sampler
 from marlnav_tpu_torch.env.types import (EnvState, EpisodeStats, Observations,
                                          StepOutput)
 from marlnav_tpu_torch.utils.seeding import resolve_device
@@ -39,6 +41,7 @@ class Env:
     init: Callable[[torch.Generator], EnvState]
     step: Callable[[EnvState, torch.Tensor], tuple]
     observations: Callable[[EnvState], Observations]
+    sample_actions: Optional[SamplerFn] = None
 
 
 def compute_observations(states, obstacles, target, params: EnvParams,
@@ -67,11 +70,13 @@ def compute_observations(states, obstacles, target, params: EnvParams,
     )
 
 
-def make_env(params: EnvParams, init_cfg, device="cuda") -> Env:
+def make_env(params: EnvParams, init_cfg, device="cuda", *,
+             sampler_cfg=None) -> Env:
     """Build the environment function bundle on ``device``; ``init_cfg``
-    selects the reset distribution (triangle or mock).  ``device``
-    defaults to CUDA and raises when CUDA is absent; pass ``"cpu"`` to run
-    on the CPU."""
+    selects the reset distribution (triangle or mock), ``sampler_cfg`` the
+    scripted actions of ``Env.sample_actions`` (None: a policy acts).
+    ``device`` defaults to CUDA and raises when CUDA is absent; pass
+    ``"cpu"`` to run on the CPU."""
     device = resolve_device(device)
     init_fn = make_initializer(init_cfg, device)
     others_idx = geometry.others_indices(params.num_agents, device)
@@ -169,4 +174,5 @@ def make_env(params: EnvParams, init_cfg, device="cuda") -> Env:
                                      truncated)
 
     return Env(params=params, device=device, init=init, step=step,
-               observations=observations)
+               observations=observations,
+               sample_actions=make_action_sampler(sampler_cfg, device))

@@ -39,6 +39,7 @@ namespace marlnav {
 constexpr int kAgents = 3;  // StepMath raises for A != 3
 constexpr int kMaxObs = 8;  // obstacle counts instantiated: 1 .. kMaxObs
 constexpr int kMaxBlockThreads = 256;
+constexpr int kMaxBlockSmem = 232448;  // bytes a block may take on an H100
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Row state: px, py, dx, dy, sp (A, P); obx, oby (O, P); tg, misc (2, P).
@@ -80,21 +81,42 @@ struct StepParams {
   float neg_pi, pi, log2pi2;  // -pi, pi, 2*log(2*pi)
 };
 
+// Draws of a step: [0, 2A) actions, then obstacle x, obstacle y, then 3
+// per agent for the noisy reset.
+__host__ __device__ constexpr int step_draws(int num_obstacles, int noisy) {
+  return 2 * kAgents + 2 * num_obstacles + (noisy ? 3 * kAgents : 0);
+}
+
+// The observation width for O obstacles.
+__host__ __device__ constexpr int obs_width(int num_obstacles) {
+  return 2 + 2 * num_obstacles + 2 * (kAgents - 1);
+}
+
 // The observation width and the most uniforms a step draws, for O
-// obstacles.  O is a template parameter of every kernel so each
+// obstacles.  O is a template parameter of the templated kernels so each
 // per-obstacle array and draw index is known at compile time and stays in
 // registers.
 template <int O>
 struct Dims {
-  static constexpr int F = 2 + 2 * O + 2 * (kAgents - 1);
-  static constexpr int kDraws = 2 * kAgents + 2 * O + 3 * kAgents;
+  static constexpr int F = obs_width(O);
+  static constexpr int kDraws = step_draws(O, 1);
   static constexpr int kGeoms = 1 + O + (kAgents - 1);  // geom calls an agent
 };
 
-// Draws of a step: [0, 2A) actions, then obstacle x, obstacle y, then 3
-// per agent for the noisy reset.
-__host__ __device__ inline int step_draws(int num_obstacles, int noisy) {
-  return 2 * kAgents + 2 * num_obstacles + (noisy ? 3 * kAgents : 0);
+// The run-time instance's dynamic shared memory in floats: the actor
+// operator (4 F + 4), then for each of `groups` groups its agents'
+// observation rows (A, F), its obstacles x then y (O each) and its step's
+// uniforms (step_draws), each group's region an even count of floats so
+// that the rows stay on 8 bytes.
+__host__ __device__ inline int rt_group_floats(int num_obstacles, int noisy) {
+  const int n = kAgents * obs_width(num_obstacles) + 2 * num_obstacles +
+                step_draws(num_obstacles, noisy);
+  return (n + 1) & ~1;
+}
+__host__ __device__ inline int rt_smem_floats(int num_obstacles, int noisy,
+                                              int groups) {
+  return 4 * obs_width(num_obstacles) + 4 +
+         groups * rt_group_floats(num_obstacles, noisy);
 }
 
 // A lane's place in its env's group of G lanes.
@@ -137,6 +159,8 @@ struct LaneState {
   float bx, by;              // its triangle base position
   float obx[O], oby[O];
   float tx, ty, step_num, latch;
+
+  __device__ static constexpr int num_obs() { return O; }
 
   __device__ __forceinline__ void load(const Rows& r, int P, int p, int i,
                                        const StepParams& c) {
@@ -185,21 +209,141 @@ struct LaneState {
       r.misc[P + p] = latch;
     }
   }
+
+  // The lane's agent's obstacle risk and collision flags at (npx, npy).
+  __device__ __forceinline__ void obstacle_flags(float npx, float npy,
+                                                 const StepParams& c,
+                                                 float& o_risk,
+                                                 float& o_coll) const {
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+      const float odx = obx[j] - npx, ody = oby[j] - npy;
+      const float o_dist = sqrtf(odx * odx + ody * ody);
+      o_risk = fmaxf(o_risk, o_dist < c.ob_risk_dist ? 1.0f : 0.0f);
+      o_coll = fmaxf(o_coll, o_dist < c.ob_coll_dist ? 1.0f : 0.0f);
+    }
+  }
+
+  // The obstacles' fresh draw from the reset uniforms ur, blended in by m
+  // (km = 1 - m); every lane blends its own copy.
+  template <int G>
+  __device__ __forceinline__ void reset_obstacles(float m, float km,
+                                                  const float* ur,
+                                                  const StepParams& c,
+                                                  const Group<G>&) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+      obx[j] = m * ((ur[j] - 0.5f) * c.ox_range + c.ox_mean) + km * obx[j];
+      oby[j] = m * ((ur[O + j] - 0.5f) * c.oy_range + c.oy_mean) + km * oby[j];
+    }
+  }
 };
 
-// Step t's uniforms for env p into the group's slots u[0 .. kDraws):
-// Philox4x32-10 keyed on (seed, p) with counter (t, draw group, 0, 0), 4
-// uniforms a group, lane l drawing groups l, l + G, ...; or, with `noise`
-// (T, n_draws, P), lane l loading draws l, l + G, ...  Slots at and above
-// n_draws are not set.  The slots do not depend on G.  Every lane of the
-// warp calls it: the __syncwarp before lets the last step's reads finish,
-// the one after publishes the slots.
-template <int O, int G>
+// The run-time instance's LaneState: the same rows, but the obstacles (o of
+// them) are the group's one copy in shared memory, obx then oby, loaded,
+// stored and blended on reset with each obstacle on one lane, a __syncwarp
+// after, and read by every lane of the group.
+struct RtLaneState {
+  float px, py, hx, hy, sp;
+  float bx, by;
+  float* obx;
+  float* oby;
+  int o;
+  float tx, ty, step_num, latch;
+
+  __device__ int num_obs() const { return o; }
+
+  template <int G>
+  __device__ __forceinline__ void load(const Rows& r, int P, int p, int i,
+                                       const StepParams& c,
+                                       const Group<G>& g) {
+    px = r.px[i * P + p];
+    py = r.py[i * P + p];
+    hx = r.dx[i * P + p];
+    hy = r.dy[i * P + p];
+    sp = r.sp[i * P + p];
+#pragma unroll
+    for (int j = 0; j < kAgents; ++j)
+      if (j == i) {
+        bx = c.base_x[j];
+        by = c.base_y[j];
+      }
+    for (int j = g.lane; j < o; j += G) {
+      obx[j] = r.obx[j * P + p];
+      oby[j] = r.oby[j * P + p];
+    }
+    tx = r.tg[p];
+    ty = r.tg[P + p];
+    step_num = r.misc[p];
+    latch = r.misc[P + p];
+    __syncwarp();
+  }
+
+  template <int G>
+  __device__ __forceinline__ void store(const Rows& r, int P, int p,
+                                        const Group<G>& g) const {
+    if (g.owner()) {
+      const int i = g.agent;
+      r.px[i * P + p] = px;
+      r.py[i * P + p] = py;
+      r.dx[i * P + p] = hx;
+      r.dy[i * P + p] = hy;
+      r.sp[i * P + p] = sp;
+    }
+    for (int j = g.lane; j < o; j += G) {
+      r.obx[j * P + p] = obx[j];
+      r.oby[j * P + p] = oby[j];
+    }
+    if (g.leader()) {
+      r.tg[p] = tx;
+      r.tg[P + p] = ty;
+      r.misc[p] = step_num;
+      r.misc[P + p] = latch;
+    }
+  }
+
+  __device__ __forceinline__ void obstacle_flags(float npx, float npy,
+                                                 const StepParams& c,
+                                                 float& o_risk,
+                                                 float& o_coll) const {
+    for (int j = 0; j < o; ++j) {
+      const float odx = obx[j] - npx, ody = oby[j] - npy;
+      const float o_dist = sqrtf(odx * odx + ody * ody);
+      o_risk = fmaxf(o_risk, o_dist < c.ob_risk_dist ? 1.0f : 0.0f);
+      o_coll = fmaxf(o_coll, o_dist < c.ob_coll_dist ? 1.0f : 0.0f);
+    }
+  }
+
+  // Every lane has read the obstacles of this step (the first __syncwarp)
+  // before obstacle j is blended on lane j % G; the second publishes them.
+  template <int G>
+  __device__ __forceinline__ void reset_obstacles(float m, float km,
+                                                  const float* ur,
+                                                  const StepParams& c,
+                                                  const Group<G>& g) {
+    __syncwarp();
+    for (int j = g.lane; j < o; j += G) {
+      obx[j] = m * ((ur[j] - 0.5f) * c.ox_range + c.ox_mean) + km * obx[j];
+      oby[j] = m * ((ur[o + j] - 0.5f) * c.oy_range + c.oy_mean) + km * oby[j];
+    }
+    __syncwarp();
+  }
+};
+
+// Step t's uniforms for env p into the group's slots u[0 .. slots), slots
+// >= n_draws (Dims<O>::kDraws in the templated instances, n_draws in the
+// run-time one): Philox4x32-10 keyed on (seed, p) with counter (t, draw
+// group, 0, 0), 4 uniforms a group, lane l drawing groups l, l + G, ...;
+// or, with `noise` (T, n_draws, P), lane l loading draws l, l + G, ...
+// Slots at and above n_draws may be left unset.  The slots do not depend on
+// G.  Every lane of the warp calls it: the __syncwarp before lets the last
+// step's reads finish, the one after publishes the slots.
+template <int G>
 __device__ __forceinline__ void group_uniforms(const float* __restrict__ noise,
-                                               int n_draws, int P, int p,
-                                               int t, uint2 key,
+                                               int n_draws, int slots, int P,
+                                               int p, int t, uint2 key,
                                                const Group<G>& g, float* u) {
-  constexpr int kDraws = Dims<O>::kDraws;
+  const int kDraws = slots;
   __syncwarp();
   if (noise != nullptr) {
     const float* nt = noise + static_cast<size_t>(t) * n_draws * P + p;
@@ -299,6 +443,46 @@ __device__ __forceinline__ void group_obs(const LaneState<O>& e,
   }
 }
 
+// group_obs for the run-time instance: the agent's lanes take its geom
+// calls k = sub, sub + S, ... and write each call's two features straight
+// into the agent's row x (F floats in shared memory), in the Observations
+// order; spare lanes write nothing.  The caller's __syncwarp publishes x.
+template <int G>
+__device__ __forceinline__ void group_obs_rt(const RtLaneState& e,
+                                             const Group<G>& g,
+                                             const float (&apx)[kAgents],
+                                             const float (&apy)[kAgents],
+                                             const StepParams& c, float* x) {
+  constexpr int S = Group<G>::S;
+  if (!g.agent_lane()) return;
+  const int o = e.o, n_geoms = 1 + o + (kAgents - 1);
+  for (int k = g.sub; k < n_geoms; k += S) {
+    float qx, qy, a_, d_;
+    int ia, id;  // the features' indices in the row
+    if (k == 0) {
+      qx = e.tx;
+      qy = e.ty;
+      ia = 0;
+      id = 1;
+    } else if (k <= o) {
+      qx = e.obx[k - 1];
+      qy = e.oby[k - 1];
+      ia = 2 + (k - 1);
+      id = 2 + o + (k - 1);
+    } else {
+      const int m = k - 1 - o;
+      const bool before = m < g.agent;
+      qx = before ? apx[m] : apx[m + 1];
+      qy = before ? apy[m] : apy[m + 1];
+      ia = 2 + 2 * o + m;
+      id = 2 + 2 * o + (kAgents - 1) + m;
+    }
+    geom(e.px, e.py, e.hx, e.hy, qx, qy, c.cap_distance, a_, d_);
+    x[ia] = a_ * c.inv_pi;
+    x[id] = d_ * c.d_scale - 1.0f;
+  }
+}
+
 // Agent i's observation row, 4 B a feature from `row` on: float4 stores
 // where F % 4 == 0 (the row then starts on a 16-byte boundary), else
 // float2 (F is even).  With S = 2 the agent's lanes take alternate chunks.
@@ -320,6 +504,30 @@ __device__ __forceinline__ void store_obs_row(const Group<G>& g, float* row,
   }
 }
 
+// store_obs_row for the run-time instance: the row from x in shared
+// memory (on 8 bytes), float2 stores taken in turn by the agent's lanes.
+template <int G>
+__device__ __forceinline__ void store_obs_row_rt(const Group<G>& g,
+                                                 float* row, const float* x,
+                                                 int F) {
+  constexpr int S = Group<G>::S;
+  for (int q = g.sub; q < F / 2; q += S)
+    reinterpret_cast<float2*>(row)[q] =
+        reinterpret_cast<const float2*>(x)[q];
+}
+
+// A run-time row of features: x[0 .. f) in shared memory.
+struct RtRow {
+  const float* x;
+  int f;
+};
+
+template <int F>
+__device__ __forceinline__ constexpr int row_width(const float (&)[F]) {
+  return F;
+}
+__device__ __forceinline__ int row_width(const RtRow& r) { return r.f; }
+
 // One row of the actor operator, w . x + c, summed in feature order
 // (step_math.actor_affine).
 template <int F>
@@ -328,6 +536,12 @@ __device__ __forceinline__ float affine_row(const float* w, float c,
   float acc = w[0] * x[0];
 #pragma unroll
   for (int f = 1; f < F; ++f) acc = acc + w[f] * x[f];
+  return acc + c;
+}
+__device__ __forceinline__ float affine_row(const float* w, float c,
+                                            const RtRow& r) {
+  float acc = w[0] * r.x[0];
+  for (int f = 1; f < r.f; ++f) acc = acc + w[f] * r.x[f];
   return acc + c;
 }
 
@@ -340,15 +554,16 @@ struct Action {
 // and, with kLogProb, its log-prob (DiagGaussian.log_prob, with (a - mu)^2
 // / var == z^2).  Rows k and k + 2 of the operator (wa (4, F) row-major,
 // then ca (4,)) give component k's mean and variance; with S = 2
-// component k is computed on the agent's lane k.
-template <int F, int G, bool kMean, bool kLogProb>
+// component k is computed on the agent's lane k.  x: the features in
+// registers (float[F]) or the run-time instance's row (RtRow).
+template <int G, bool kMean, bool kLogProb, class X>
 __device__ __forceinline__ Action group_action(const Group<G>& g,
                                                const float* wa,
-                                               const float* ca,
-                                               const float (&x)[F],
+                                               const float* ca, const X& x,
                                                const float* u,
                                                const StepParams& c) {
   constexpr int S = Group<G>::S;
+  const int F = row_width(x);
   float mu[2], v[2], lv[2];
 #pragma unroll
   for (int k0 = 0; k0 < 2; k0 += S) {
@@ -397,8 +612,8 @@ struct StepOutcome {
 // rewards, reset_blend).  `e` becomes the next step's state; `ur` holds
 // the reset uniforms (slots 2A and up).  Every lane of the group returns
 // the same outcome.
-template <int O, int G>
-__device__ __forceinline__ StepOutcome group_advance(LaneState<O>& e,
+template <class E, int G>
+__device__ __forceinline__ StepOutcome group_advance(E& e,
                                                      const Group<G>& g,
                                                      float ang_raw,
                                                      float acc_raw,
@@ -437,13 +652,7 @@ __device__ __forceinline__ StepOutcome group_advance(LaneState<O>& e,
       fminf(fmaxf((nhx * ddx + nhy * ddy) * inv, F32(-1.0 + 1e-8)),
             F32(1.0 - 1e-8));
   float o_risk = 0.0f, o_coll = 0.0f;
-#pragma unroll
-  for (int j = 0; j < O; ++j) {
-    const float odx = e.obx[j] - npx, ody = e.oby[j] - npy;
-    const float o_dist = sqrtf(odx * odx + ody * ody);
-    o_risk = fmaxf(o_risk, o_dist < c.ob_risk_dist ? 1.0f : 0.0f);
-    o_coll = fmaxf(o_coll, o_dist < c.ob_coll_dist ? 1.0f : 0.0f);
-  }
+  e.obstacle_flags(npx, npy, c, o_risk, o_coll);
   // the other agents in index order
   float n_risk = 0.0f, n_coll = 0.0f, band_sum = 0.0f, bond_sum = 0.0f;
 #pragma unroll
@@ -496,15 +705,10 @@ __device__ __forceinline__ StepOutcome group_advance(LaneState<O>& e,
 
   // ---- auto-reset: fresh triangle draw, mask-blended ----
   const float m = finished, km = 1.0f - finished;
-#pragma unroll
-  for (int j = 0; j < O; ++j) {
-    e.obx[j] = m * ((ur[j] - 0.5f) * c.ox_range + c.ox_mean) + km * e.obx[j];
-    e.oby[j] =
-        m * ((ur[O + j] - 0.5f) * c.oy_range + c.oy_mean) + km * e.oby[j];
-  }
+  e.reset_obstacles(m, km, ur, c, g);
   float bx = e.bx, by = e.by, hx0 = 1.0f;
   if (c.noisy) {
-    const float* un = ur + 2 * O + 3 * g.agent;
+    const float* un = ur + 2 * e.num_obs() + 3 * g.agent;
     float z0, z1;
     box_muller(un[0], un[1], z0, z1);
     const float ang0 = c.angle_range * (un[2] - 0.5f);

@@ -41,6 +41,8 @@
 // doubles the warps and has both lanes of an agent repeat the work they
 // share.  G = 8 is faster at P = 1024 (1.56 against 2.11 ms at T = 1000),
 // where latency rules.  Blocks of 128 threads (32 gave the same time).
+// Past kMaxObs = 8 obstacles fused_rollout_rt_kernel takes the step with
+// O at run time, as fused_collect.cu's run-time instance does.
 // What limits it now, not profiled per instruction: with 2,048 warps, 16
 // an SM, most likely the SMs' issue rate, spent in part on the spare lane,
 // on the obstacle blend every lane repeats, and on the IEEE divides and
@@ -88,7 +90,8 @@ fused_rollout_kernel(Rows in, Rows out, const float* __restrict__ w,
   const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
 
   for (int t = 0; t < c.num_steps; ++t) {
-    group_uniforms<O, G>(noise, n_draws, P, p, t, key, g, u);
+    group_uniforms<G>(noise, n_draws, Dims<O>::kDraws, P, p, t, key,
+                      g, u);
     float apx[kAgents], apy[kAgents];
 #pragma unroll
     for (int j = 0; j < kAgents; ++j) {
@@ -98,7 +101,61 @@ fused_rollout_kernel(Rows in, Rows out, const float* __restrict__ w,
     float x[F];
     group_obs(e, g, apx, apy, c, x);
     const Action a =
-        group_action<F, G, kMean, false>(g, wa, ca, x, u + 2 * g.agent, c);
+        group_action<G, kMean, false>(g, wa, ca, x, u + 2 * g.agent, c);
+    const StepOutcome s =
+        group_advance(e, g, a.ang_raw, a.acc_raw, u + 2 * kAgents, c);
+    if (valid && g.leader()) rew_out[static_cast<size_t>(t) * P + p] = s.reward;
+  }
+  if (valid) e.store(out, P, p, g);
+}
+
+// The run-time instance: c.num_obstacles > kMaxObs (env_step.cuh), as
+// fused_collect_rt_kernel: the operator and each group's rows, obstacles
+// and uniforms in dynamic shared memory of rt_smem_floats.
+template <bool kMean>
+__global__ void __launch_bounds__(kMaxBlockThreads)
+fused_rollout_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
+                        const float* __restrict__ noise, uint32_t seed,
+                        StepParams c, float* __restrict__ rew_out) {
+  constexpr int G = kLanes;
+  const int P = c.num_envs, o = c.num_obstacles, F = obs_width(o);
+  const int n_draws = step_draws(o, c.noisy);
+
+  extern __shared__ float s_dyn[];
+  float* s_w = s_dyn;
+  for (int i = threadIdx.x; i < 4 * F + 4; i += blockDim.x) s_w[i] = w[i];
+  __syncthreads();
+  const float* wa = s_w;
+  const float* ca = s_w + 4 * F;
+
+  const Group<G> g(threadIdx.x);
+  const int env = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const bool valid = env < P;
+  const int p = valid ? env : P - 1;
+
+  float* xs = s_dyn + 4 * F + 4 +
+              static_cast<int>(threadIdx.x / G) * rt_group_floats(o, c.noisy);
+  RtLaneState e;
+  e.obx = xs + kAgents * F;
+  e.oby = e.obx + o;
+  e.o = o;
+  float* u = e.oby + o;
+  e.load(in, P, p, g.agent, c, g);
+  const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
+  float* x = xs + g.agent * F;
+
+  for (int t = 0; t < c.num_steps; ++t) {
+    group_uniforms<G>(noise, n_draws, n_draws, P, p, t, key, g, u);
+    float apx[kAgents], apy[kAgents];
+#pragma unroll
+    for (int j = 0; j < kAgents; ++j) {
+      apx[j] = Group<G>::from_agent(e.px, j);
+      apy[j] = Group<G>::from_agent(e.py, j);
+    }
+    group_obs_rt(e, g, apx, apy, c, x);
+    __syncwarp();
+    const Action a = group_action<G, kMean, false>(g, wa, ca, RtRow{x, F},
+                                                   u + 2 * g.agent, c);
     const StepOutcome s =
         group_advance(e, g, a.ang_raw, a.acc_raw, u + 2 * kAgents, c);
     if (valid && g.leader()) rew_out[static_cast<size_t>(t) * P + p] = s.reward;
@@ -116,6 +173,14 @@ int marlnav_rollout_params_size() {
 }
 int marlnav_rollout_max_obstacles() { return marlnav::kMaxObs; }
 int marlnav_rollout_lanes() { return marlnav::kLanes; }
+// Bytes of dynamic shared memory of the run-time instance (num_obstacles
+// > kMaxObs) for blocks of `threads`; -1 past what a block may take.
+int marlnav_rollout_rt_smem(int num_obstacles, int noisy, int threads) {
+  const long long bytes =
+      4ll * marlnav::rt_smem_floats(num_obstacles, noisy,
+                                    threads / marlnav::kLanes);
+  return bytes > marlnav::kMaxBlockSmem ? -1 : static_cast<int>(bytes);
+}
 
 // Launch `blocks` blocks of `threads` threads (a multiple of 32, at most
 // kMaxBlockThreads, blocks x threads >= kLanes x num_envs; see
@@ -153,8 +218,22 @@ int marlnav_fused_rollout(const marlnav::Rows* in, const marlnav::Rows* out,
     MARLNAV_LAUNCH(6)
     MARLNAV_LAUNCH(7)
     MARLNAV_LAUNCH(8)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    default: {
+      const int smem = marlnav_rollout_rt_smem(params->num_obstacles,
+                                               params->noisy, threads);
+      if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+      auto* kernel =
+          deterministic
+              ? marlnav::fused_rollout_rt_kernel<true>
+              : marlnav::fused_rollout_rt_kernel<false>;
+      if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      kernel<<<blocks, threads, smem, s>>>(*in, *out, w, noise, seed, *params,
+                                           rew);
+    }
   }
 #undef MARLNAV_LAUNCH
   return static_cast<int>(cudaGetLastError());

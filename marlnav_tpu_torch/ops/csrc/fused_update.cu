@@ -42,7 +42,7 @@
 //   actor:  (4F + 16) B a row (obs 48, action 8, log-prob 4, advantage 4)
 //           = 196 MB -> 58.6 us; 16F + 100 float operations a row (0.9
 //           GFLOP, 13 us).  Bytes bound it.  Design (actor_grad_kernel, F
-//           at run time, 1 .. 255): a persistent grid of the blocks that fit
+//           at run time, 1 .. 1023): a persistent grid of the blocks that fit
 //           the card at once streams row tiles through a ring of 4 stages
 //           in shared memory, each tile's four spans started by one thread
 //           as bulk copies (the tensor memory accelerator) on the stage's
@@ -129,11 +129,15 @@ namespace update {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // The affine actor: a ring of kStages row tiles a block; obs widths up to
-// kActorMaxObs, whose 32-row tiles take 137 KB of shared memory.
+// kActorMaxObs, where the column groups of [x | 1] (4 columns each, F / 4
+// + 1 of them) still have a thread each.
 constexpr int kStages = 4;
-constexpr int kActorMaxObs = kThreads - 1;
-// Its tile takes the most rows (256, 128, 64, 32) whose block needs at most
-// this much shared memory, so that two blocks or more share an SM.
+constexpr int kActorMaxObs = 4 * kThreads - 1;
+// Up to kActorNarrowObs its tile takes the most rows (256, 128, 64, 32)
+// whose block needs at most kActorSmemTarget bytes of shared memory, so
+// that two blocks or more share an SM (F 255: 32 rows, 137 KB); past it the
+// most rows (32, 16, 8) that fit a block's shared memory.
+constexpr int kActorNarrowObs = kThreads - 1;
 constexpr int kActorSmemTarget = 96 * 1024;
 constexpr int kCriticMaxIn = 103;
 constexpr int kUncollapsedMaxObs = 39;
@@ -157,6 +161,22 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   const float inside = flag(x > lo) * flag(x < hi);
   const float on_edge = flag(x == lo) + flag(x == hi);
   return inside + 0.5f * on_edge;
+}
+
+// One row of update_math.critic_chain: the clipped-value loss term of the
+// new value v in *loss, and its gradient g_v.
+__device__ __forceinline__ float critic_row(float v, float vold, float ret,
+                                            float eps, float* loss) {
+  const float lo = vold - eps, hi = vold + eps;
+  const float clamped = fminf(fmaxf(v, lo), hi);
+  const float e1 = v - ret;
+  const float e2 = clamped - ret;
+  const float d1 = e1 * e1;
+  const float d2 = e2 * e2;
+  *loss = fmaxf(d1, d2);
+  const float w_d2 = flag(d1 < d2) + 0.5f * flag(d1 == d2);
+  const float w_d1 = 1.f - w_d2;
+  return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
 }
 
 // The PPO constants of the actor objective.
@@ -268,12 +288,18 @@ __host__ __device__ inline int actor_smem_floats(int f, int r) {
 }
 
 // Rows a tile (0 outside the widths taken).  F 12: 256 rows, 70 KB, three
-// blocks an SM; F 255: 32 rows, 137 KB, one.
+// blocks an SM; F 255: 32 rows, 137 KB, one; F 300: 32 rows, 161 KB; F
+// 1023: 8 rows, 148 KB.
 inline int actor_tile_rows(int f) {
   if (f < 1 || f > kActorMaxObs) return 0;
-  for (int r = 256; r > 32; r /= 2)
-    if (4 * actor_smem_floats(f, r) <= kActorSmemTarget) return r;
-  return 32;
+  if (f <= kActorNarrowObs) {
+    for (int r = 256; r > 32; r /= 2)
+      if (4 * actor_smem_floats(f, r) <= kActorSmemTarget) return r;
+    return 32;
+  }
+  for (int r = 32; r > 8; r /= 2)
+    if (actor_smem_floats(f, r) <= kSmemFloats) return r;
+  return 8;
 }
 
 // The source's offset within 16 bytes, in floats.
@@ -388,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // The chain: row `row` of a tile on threads k = 0 .. tpr - 1 (adjacent
   // lanes), which sum columns k, k + tpr, ... of z.
   const int tpr = kThreads / rt, row = tid / tpr, kr = tid % tpr;
-  const unsigned row_mask = ((1u << tpr) - 1u) << (lane & ~(tpr - 1));
+  const unsigned row_mask = (0xffffffffu >> (32 - tpr)) << (lane & ~(tpr - 1));
   // The sums: columns c0 .. c0 + 3 of [x | 1] (column F is the ones
   // column, dzs; columns past it are none) over rows sub, sub + q, ... of
   // each tile; a group's q threads are consecutive.
@@ -710,7 +736,8 @@ struct CriticHeadT : PassTiles<NT> {
       p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 2);
       const int row = g + 8 * h;
       float loss;
-      const float gvr = critic_row(p[h] + b2, aux[row], aux[16 + row], &loss);
+      const float gvr =
+          update::critic_row(p[h] + b2, aux[row], aux[16 + row], eps, &loss);
       const bool valid = row0 + row < n;
       gv[h] = valid ? gvr : 0.f;
       if (valid && t == 0 && first) {
@@ -735,22 +762,6 @@ struct CriticHeadT : PassTiles<NT> {
         acc_w2[nt][1] += gvh * r(h1);
       }
     }
-  }
-
-  // One row of update_math.critic_chain; returns g_v, the loss term in
-  // *loss.
-  __device__ float critic_row(float v, float vold, float ret,
-                              float* loss) const {
-    const float lo = vold - eps, hi = vold + eps;
-    const float clamped = fminf(fmaxf(v, lo), hi);
-    const float e1 = v - ret;
-    const float e2 = clamped - ret;
-    const float d1 = e1 * e1;
-    const float d2 = e2 * e2;
-    *loss = fmaxf(d1, d2);
-    const float w_d2 = flag(d1 < d2) + 0.5f * flag(d1 == d2);
-    const float w_d1 = 1.f - w_d2;
-    return 2.f * (w_d1 * e1 + w_d2 * e2 * clip_grad(v, lo, hi));
   }
 
   // This warp's dW2 sums of the pass's columns (col0 ..) and, with
@@ -1558,6 +1569,304 @@ inline cudaError_t reduce(const float* partials, int blocks, int n_out,
   return cudaGetLastError();
 }
 
+// ----------------------------------------------------------------------
+// The run-time-width route: every width past the tensor-core instances
+// ----------------------------------------------------------------------
+//
+// Critic In > 103 or H > 256, un-collapsed actor F > 39 or H > 256, and in
+// bf16 every width but the ten instances (critic_instance, actor_instance)
+// take this route, which the wrappers pick by width before the launch.  It
+// is written for any width that fits shared memory, not for speed, on the
+// CUDA cores: each product is a fixed-order float32 sum of fused
+// multiply-adds (bf16: of the operands rounded where the plain versions
+// round them, ops/update_math.py, whose products are exact in float32), so
+// its float32 results sit within the tensor-core kernels' float64
+// tolerance and the per-row chains stay op for op.  Three launches on the
+// caller's stream:
+//   rt_forward_kernel: tiles of kRtRows rows, one a block at a time; each
+//     row's head input (v, or z's four values) over the hidden units in
+//     chunks of up to kRtChunk, each chunk's share summed in unit order and
+//     the shares added in chunk order; then the row's chain (critic_row or
+//     ppo_row): its loss term and g (g_v, or g_z) into rowbuf (N, 1 + kOut).
+//   rt_backward_kernel: a grid of (row blocks, hidden chunks of hc units).
+//     Each block takes the row tiles b, b + gridDim.x, ... and its chunk:
+//     it recomputes the chunk's pre-activations (the forward's function,
+//     bit for bit), applies the row chain from rowbuf (g_pre, or g_h), and
+//     sums the chunk's dW1, db1 and dW2 (or dWmu, dWvar) over its rows in
+//     shared memory, each sum on one thread in row order; blocks of chunk 0
+//     also sum the loss and the head biases.  Each writes its part of its
+//     row block's partial (gridDim.x, n_out).
+//   reduce_partials_kernel: the row blocks' partials in order, in double.
+// The grid depends only on the row count, the widths and the card, so two
+// launches on the same inputs agree bit for bit.
+constexpr int kRtRows = 16;    // rows a tile
+constexpr int kRtChunk = 128;  // hidden units a forward chunk, at most
+
+// GradArgs (vec4 unused: x loads as 4-byte words) and the route's own.
+struct RtArgs : GradArgs {
+  int hc;           // hidden units a backward block
+  int ldx;          // a row's stride in the x tile: In, made odd
+  float* rowbuf;    // (N, 1 + kOut): loss term, g
+};
+
+template <bool kActor>
+struct RtShape {
+  static constexpr int kOut = kActor ? 4 : 1;  // g_v, or g_z
+  static constexpr int kRow = 1 + kOut;        // rowbuf floats a row
+  // Shared memory in floats of the forward and of a backward block of hc
+  // hidden units.
+  static __host__ __device__ int forward_floats(int ldx) {
+    return kRtRows * ldx + kRtRows * kRtChunk * kOut + kRtRows * kOut;
+  }
+  static __host__ __device__ int backward_floats(int in, int ldx, int hc) {
+    return hc * (in + 1 + kOut) + kRtRows * ldx + 2 * kRtRows * hc +
+           kRtRows * kRow;
+  }
+};
+
+__host__ __device__ inline int rt_ldx(int in) { return in | 1; }
+
+// The hidden units a backward block takes: the most of 128, 64, ..., 1 (at
+// most H rounded up to a power of two) whose block fits kSmemFloats, and
+// whose forward fits too; 0 where none does.
+template <bool kActor>
+inline int rt_chunk(int in, int hid) {
+  using Sh = RtShape<kActor>;
+  const int ldx = rt_ldx(in);
+  if (in < 1 || hid < 1 || Sh::forward_floats(ldx) > kSmemFloats) return 0;
+  int hc = kRtChunk;
+  while (hc > 1 && hc / 2 >= hid) hc /= 2;
+  for (; hc >= 1; hc /= 2)
+    if (Sh::backward_floats(in, ldx, hc) <= kSmemFloats) return hc;
+  return 0;
+}
+
+// x rounded to bf16 where BF.
+template <bool BF>
+__device__ __forceinline__ float rt_r(float v) {
+  return BF ? round_bf16(v) : v;
+}
+
+// Hidden unit j's pre-activation of the row x: W1[j] . x, a fused
+// multiply-add a column in column order, then + b1[j].
+template <bool BF>
+__device__ __forceinline__ float rt_pre(const float* x, const float* w,
+                                        int in, float b) {
+  float acc = 0.f;
+  for (int k = 0; k < in; ++k)
+    acc = __fmaf_rn(rt_r<BF>(__ldg(w + k)), rt_r<BF>(x[k]), acc);
+  return acc + b;
+}
+
+// The actor's head weight of output o (wmu rows, then wvar rows) at unit j.
+__device__ __forceinline__ float rt_head_w(const RtArgs& a, int o, int j) {
+  return o < 2 ? __ldg(a.head[0] + o * a.hidden + j)
+               : __ldg(a.head[2] + (o - 2) * a.hidden + j);
+}
+
+// Rows r0 .. r0 + kRtRows - 1 of x into xs (kRtRows, ldx), zeros past n.
+__device__ __forceinline__ void rt_load_x(const RtArgs& a, long long r0,
+                                          int rows, float* xs) {
+  const int in = a.in_size;
+  for (int i = threadIdx.x; i < kRtRows * in; i += blockDim.x) {
+    const int r = i / in, k = i - r * in;
+    xs[r * a.ldx + k] =
+        r < rows ? a.obs[(r0 + r) * static_cast<long long>(in) + k] : 0.f;
+  }
+}
+
+template <bool kActor, bool BF>
+__global__ void __launch_bounds__(kThreads) rt_forward_kernel(const RtArgs a) {
+  using Sh = RtShape<kActor>;
+  constexpr int kOut = Sh::kOut;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);     // (kRtRows, ldx)
+  float* part = xs + kRtRows * a.ldx;              // (kRtRows, kRtChunk, kOut)
+  float* tot = part + kRtRows * kRtChunk * kOut;   // (kRtRows, kOut)
+  const int in = a.in_size, hid = a.hidden, tid = threadIdx.x;
+  const long long n = a.n_rows, n_tiles = (n + kRtRows - 1) / kRtRows;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * kRtRows;
+    const int rows = static_cast<int>(n - r0 < kRtRows ? n - r0 : kRtRows);
+    rt_load_x(a, r0, rows, xs);
+    if (tid < kRtRows * kOut) tot[tid] = 0.f;
+    __syncthreads();
+    for (int j0 = 0; j0 < hid; j0 += kRtChunk) {
+      const int hc = hid - j0 < kRtChunk ? hid - j0 : kRtChunk;
+      for (int i = tid; i < kRtRows * hc; i += kThreads) {
+        const int jj = i / kRtRows, r = i - jj * kRtRows, j = j0 + jj;
+        const float pre = rt_pre<BF>(xs + r * a.ldx, a.w1 + static_cast<long long>(j) * in,
+                                     in, __ldg(a.b1 + j));
+        float* dst = part + (r * kRtChunk + jj) * kOut;
+        if constexpr (kActor) {
+#pragma unroll
+          for (int o = 0; o < 4; ++o)
+            dst[o] = rt_r<BF>(rt_head_w(a, o, j)) * rt_r<BF>(pre);
+        } else {
+          dst[0] = rt_r<BF>(__ldg(a.head[0] + j)) * rt_r<BF>(fmaxf(pre, 0.f));
+        }
+      }
+      __syncthreads();
+      if (tid < kRtRows * kOut) {  // row tid / kOut, output tid % kOut
+        const float* src = part + (tid / kOut) * kRtChunk * kOut + tid % kOut;
+        float share = 0.f;
+        for (int jj = 0; jj < hc; ++jj) share = share + src[jj * kOut];
+        tot[tid] = tot[tid] + share;
+      }
+      __syncthreads();
+    }
+    if (tid < rows) {
+      const long long row = r0 + tid;
+      float* out = a.rowbuf + row * Sh::kRow;
+      if constexpr (kActor) {
+        float z[4], g[4];
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+          z[o] = tot[tid * 4 + o] +
+                 (o < 2 ? a.head[1][o] : a.head[3][o - 2]);
+        out[0] = ppo_row(z, make_float2(a.row[0][2 * row], a.row[0][2 * row + 1]),
+                         a.row[1][row], a.row[2][row], a.k, g);
+#pragma unroll
+        for (int o = 0; o < 4; ++o) out[1 + o] = g[o];
+      } else {
+        float loss;
+        out[1] = critic_row(tot[tid] + a.head[1][0], a.row[0][row],
+                            a.row[1][row], a.eps, &loss);
+        out[0] = loss;
+      }
+    }
+    __syncthreads();  // xs and tot are refilled next
+  }
+}
+
+template <bool kActor, bool BF>
+__global__ void __launch_bounds__(kThreads) rt_backward_kernel(const RtArgs a) {
+  using Sh = RtShape<kActor>;
+  constexpr int kOut = Sh::kOut, kRow = Sh::kRow;
+  extern __shared__ float4 smem4[];
+  const int in = a.in_size, hid = a.hidden, hc = a.hc, ldx = a.ldx;
+  const int tid = threadIdx.x, j0 = blockIdx.y * hc;
+  const int nj = hid - j0 < hc ? hid - j0 : hc;
+  // Sums: dW1 (nj, In), db1 (nj), dW2 (nj) or [dWmu; dWvar] (4, nj); then
+  // the tile: x (kRtRows, ldx), g_pre or g_h and h (kRtRows, hc) each, and
+  // the rows' loss and g (kRtRows, kRow).
+  float* acc = reinterpret_cast<float*>(smem4);
+  float* xs = acc + hc * (in + 1 + kOut);
+  float* gs = xs + kRtRows * ldx;
+  float* hs = gs + kRtRows * hc;
+  float* rg = hs + kRtRows * hc;
+  const int n_acc = nj * (in + 1 + kOut);
+  for (int i = tid; i < n_acc; i += kThreads) acc[i] = 0.f;
+  // Blocks of chunk 0: the loss and the head biases' sums, on threads
+  // tid < kRow (rowbuf's columns), over the rows in order.
+  const bool small = blockIdx.y == 0 && tid < kRow;
+  float small_sum = 0.f;
+  const long long n = a.n_rows, n_tiles = (n + kRtRows - 1) / kRtRows;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * kRtRows;
+    const int rows = static_cast<int>(n - r0 < kRtRows ? n - r0 : kRtRows);
+    rt_load_x(a, r0, rows, xs);
+    for (int i = tid; i < kRtRows * kRow; i += kThreads)
+      rg[i] = i < rows * kRow ? a.rowbuf[r0 * kRow + i] : 0.f;
+    __syncthreads();
+    // The chunk's g_pre (critic: (w2 g_v)(h > 0)) or g_h (actor: [Wmu;
+    // Wvar]^T g_z), and h, for every row of the tile; rows past n have g 0.
+    for (int i = tid; i < kRtRows * nj; i += kThreads) {
+      const int jj = i / kRtRows, r = i - jj * kRtRows, j = j0 + jj;
+      const float pre = rt_pre<BF>(xs + r * ldx, a.w1 + static_cast<long long>(j) * in,
+                                   in, __ldg(a.b1 + j));
+      const float* g = rg + r * kRow + 1;
+      float gp, h;
+      if constexpr (kActor) {
+        h = pre;
+        float w[4];
+#pragma unroll
+        for (int o = 0; o < 4; ++o) w[o] = rt_r<BF>(rt_head_w(a, o, j));
+        gp = ((w[0] * rt_r<BF>(g[0]) + w[1] * rt_r<BF>(g[1])) +
+              w[2] * rt_r<BF>(g[2])) +
+             w[3] * rt_r<BF>(g[3]);
+      } else {
+        h = fmaxf(pre, 0.f);
+        gp = (rt_r<BF>(__ldg(a.head[0] + j)) * rt_r<BF>(g[0])) *
+             flag(h > 0.f);
+      }
+      gs[r * hc + jj] = gp;
+      hs[r * hc + jj] = h;
+    }
+    __syncthreads();
+    for (int i = tid; i < n_acc; i += kThreads) {
+      float sum = acc[i];
+      if (i < nj * in) {  // dW1 (jj, k) += g_pre x
+        const int jj = i / in, k = i - jj * in;
+        for (int r = 0; r < kRtRows; ++r)
+          sum = __fmaf_rn(rt_r<BF>(gs[r * hc + jj]), rt_r<BF>(xs[r * ldx + k]),
+                          sum);
+      } else if (i < nj * (in + 1)) {  // db1: the float32 g_pre
+        const int jj = i - nj * in;
+        for (int r = 0; r < kRtRows; ++r) sum = sum + gs[r * hc + jj];
+      } else {  // dW2 += g_v h, or output o's row of g_z^T h
+        const int q = i - nj * (in + 1), o = q / nj, jj = q - o * nj;
+        for (int r = 0; r < kRtRows; ++r)
+          sum = __fmaf_rn(rt_r<BF>(rg[r * kRow + 1 + o]),
+                          rt_r<BF>(hs[r * hc + jj]), sum);
+      }
+      acc[i] = sum;
+    }
+    if (small)
+      for (int r = 0; r < rows; ++r) small_sum = small_sum + rg[r * kRow + tid];
+    __syncthreads();  // the tile is refilled next
+  }
+  // This block's part of its row block's partial, at the outputs' indices.
+  float* out = a.partials + static_cast<long long>(blockIdx.x) *
+                                (kActor ? 1 + hid * in + 5 * hid + 4
+                                        : 1 + hid * in + 2 * hid + 1);
+  const int o_b1 = 1 + hid * in, o_head = o_b1 + hid;
+  for (int i = tid; i < n_acc; i += kThreads) {
+    int o;
+    if (i < nj * in) {
+      const int jj = i / in;
+      o = 1 + (j0 + jj) * in + (i - jj * in);
+    } else if (i < nj * (in + 1)) {
+      o = o_b1 + j0 + (i - nj * in);
+    } else {
+      const int q = i - nj * (in + 1), c = q / nj, j = j0 + q - c * nj;
+      o = !kActor ? o_head + j
+          : c < 2 ? o_head + c * hid + j
+                  : o_head + 2 * hid + 2 + (c - 2) * hid + j;
+    }
+    out[o] = acc[i];
+  }
+  if (small) {  // column 0 the loss; then db2, or dbmu and dbvar
+    const int c = tid - 1;
+    out[tid == 0      ? 0
+        : !kActor     ? o_head + hid
+        : c < 2       ? o_head + 2 * hid + c
+                      : o_head + 4 * hid + 2 + (c - 2)] = small_sum;
+  }
+}
+
+template <bool kActor, bool BF>
+cudaError_t launch_rt(const RtArgs& args, int blocks, int n_out, float* out,
+                      cudaStream_t s) {
+  using Sh = RtShape<kActor>;
+  const int fwd = 4 * Sh::forward_floats(args.ldx);
+  const int bwd = 4 * Sh::backward_floats(args.in_size, args.ldx, args.hc);
+  cudaError_t err = cudaFuncSetAttribute(
+      rt_forward_kernel<kActor, BF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, fwd);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rt_backward_kernel<kActor, BF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bwd);
+  if (err != cudaSuccess) return err;
+  rt_forward_kernel<kActor, BF><<<blocks, kThreads, fwd, s>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks, (args.hidden + args.hc - 1) / args.hc);
+  rt_backward_kernel<kActor, BF><<<grid, kThreads, bwd, s>>>(args);
+  return reduce(args.partials, blocks, n_out, out, s);
+}
+
 template <class Head, int KS>
 cudaError_t launch_tc(const GradArgs& args, int blocks, cudaStream_t s) {
   using Sh = TcShape<Head, KS>;
@@ -1670,19 +1979,23 @@ inline const void* actor_kernel(int mode) {
                            : nullptr;
 }
 
-// Let the affine actor's blocks (each mode's) take the shared memory of its
-// widest tile (F 255 at 32 rows) on `device`, the current device; once a
-// device.
-inline cudaError_t actor_allow_smem(int device) {
-  static bool allowed[64] = {};
+// Let the affine actor's blocks (each mode's) take the shared memory of a
+// tile at obs width f on `device`, the current device: at least that of
+// the widest narrow tile (F 255 at 32 rows), raised where a wider width
+// needs more; once a device and size.
+inline cudaError_t actor_allow_smem(int device, int f) {
+  static int allowed[64] = {};
   const bool known = device >= 0 && device < 64;
-  if (known && allowed[device]) return cudaSuccess;
+  const int narrow = 4 * actor_smem_floats(kActorNarrowObs, 32);
+  const int need = 4 * actor_smem_floats(f, actor_tile_rows(f));
+  const int bytes = need > narrow ? need : narrow;
+  if (known && allowed[device] >= bytes) return cudaSuccess;
   cudaError_t err = cudaSuccess;
   for (int mode = kF32; mode <= kStaged && err == cudaSuccess; ++mode)
     err = cudaFuncSetAttribute(actor_kernel(mode),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               4 * actor_smem_floats(kActorMaxObs, 32));
-  if (known && err == cudaSuccess) allowed[device] = true;
+                               bytes);
+  if (known && err == cudaSuccess) allowed[device] = bytes;
   return err;
 }
 
@@ -1704,7 +2017,7 @@ int marlnav_actor_resident_blocks(int obs_size, int device, int mode) {
   if (!rows || !actor_kernel(mode)) return 0;
   int per_sm = 0, sms = 0;
   if (cudaSetDevice(device) != cudaSuccess ||
-      actor_allow_smem(device) != cudaSuccess ||
+      actor_allow_smem(device, obs_size) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, actor_kernel(mode), kThreads,
           4 * actor_smem_floats(obs_size, rows)) != cudaSuccess ||
@@ -1735,6 +2048,16 @@ int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden, int bf16) {
   return per_sm;
 }
 
+// The hidden units a block of the run-time route's backward takes at these
+// widths (actor != 0: the un-collapsed actor), 0 where no block's shared
+// memory holds its rows; and the most floats of shared memory a block takes.
+int marlnav_rt_chunk(int in_size, int hidden, int actor) {
+  using namespace marlnav::update;
+  return actor ? rt_chunk<true>(in_size, hidden)
+               : rt_chunk<false>(in_size, hidden);
+}
+int marlnav_smem_floats() { return marlnav::update::kSmemFloats; }
+
 // Each launches on `stream` (a cudaStream_t from
 // torch.cuda.current_stream()) and returns cudaGetLastError(): 0 when its
 // launches were accepted.
@@ -1759,7 +2082,7 @@ int marlnav_actor_grad_sums(const float* obs, const float* act,
   if (!rows || !actor_kernel(mode) || n_rows < 1 || capacity < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = actor_allow_smem(device);
+  if (err == cudaSuccess) err = actor_allow_smem(device, obs_size);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (n_rows + rows - 1) / rows;
   const int blocks = static_cast<int>(tiles < capacity ? tiles : capacity);
@@ -1835,6 +2158,43 @@ int marlnav_actor_grad_uncollapsed_sums(
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(
       partials, blocks, ActorHead<4>::n_out(obs_size, hidden), out, s));
+}
+
+// The run-time-width route (three launches, see rt_forward_kernel) of the
+// critic (actor == 0: row0 old values, row1 returns; head0 w2, head1 b2)
+// or the un-collapsed actor (row0 actions, row1 log-probs, row2
+// advantages; head0..3 wmu, bmu, wvar, bvar), on `blocks` row blocks;
+// rowbuf (N, 2) or (N, 5), partials (blocks, n_out); out as the
+// tensor-core entry points'.
+int marlnav_rt_grad_sums(int actor, const float* obs, const float* row0,
+                         const float* row1, const float* row2,
+                         const float* w1, const float* b1, const float* head0,
+                         const float* head1, const float* head2,
+                         const float* head3, long long n_rows, int in_size,
+                         int hidden, float eps, float lo, float hi,
+                         float ent_c, float ent_half, int bf16, int blocks,
+                         float* rowbuf, float* partials, float* out,
+                         int device, void* stream) {
+  using namespace marlnav::update;
+  const int hc = marlnav_rt_chunk(in_size, hidden, actor);
+  if (!hc || n_rows < 1 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RtArgs args{{obs, w1, b1, {row0, row1, row2},
+                     {head0, head1, head2, head3}, n_rows, in_size, hidden,
+                     false, eps, {lo, hi, ent_c, ent_half}, partials},
+                    hc, rt_ldx(in_size), rowbuf};
+  const int n_out = actor ? ActorHead<4>::n_out(in_size, hidden)
+                          : CriticHead<4>::n_out(in_size, hidden);
+  if (actor)
+    err = bf16 ? launch_rt<true, true>(args, blocks, n_out, out, s)
+               : launch_rt<true, false>(args, blocks, n_out, out, s);
+  else
+    err = bf16 ? launch_rt<false, true>(args, blocks, n_out, out, s)
+               : launch_rt<false, false>(args, blocks, n_out, out, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

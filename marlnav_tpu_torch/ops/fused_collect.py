@@ -312,13 +312,33 @@ COLLECT_LANES = 8
 BLOCK_THREADS = 128
 
 
-def launch_geometry(num_envs: int, lanes: int):
+def launch_geometry(num_envs: int, lanes: int,
+                    threads: int = BLOCK_THREADS):
     """``(blocks, threads)`` of a rollout kernel's launch over ``num_envs``
     envs, ``lanes`` consecutive threads an env: env p is stepped by threads
     ``lanes * p .. lanes * p + lanes - 1`` of the grid.  ``lanes`` divides
     32 and a block is whole warps, so no env's group crosses a warp; the
     last block's groups past ``num_envs`` run along and store nothing."""
-    return -(-lanes * num_envs // BLOCK_THREADS), BLOCK_THREADS
+    return -(-lanes * num_envs // threads), threads
+
+
+def block_threads(what: str, sm: StepMath, max_obstacles: int,
+                  rt_smem) -> int:
+    """Threads a block of a rollout kernel: ``BLOCK_THREADS`` for the
+    templated instances (1 .. ``max_obstacles`` obstacles); for the
+    run-time instance past them, the most of 128, 64 and 32 whose groups'
+    observation rows, obstacles and uniforms fit one block's shared memory
+    (``rt_smem(o, noisy, threads)``: its bytes, or -1).  Raises
+    ``ValueError`` where not even one warp's groups fit."""
+    if sm.o <= max_obstacles:
+        return BLOCK_THREADS
+    for threads in (BLOCK_THREADS, 64, 32):
+        if rt_smem(sm.o, int(sm.noisy), threads) >= 0:
+            return threads
+    raise ValueError(
+        f"{what} kernel: the observation rows, obstacles and uniforms of "
+        f"one warp's envs at {sm.o} obstacles do not fit one block's "
+        f"shared memory (232448 bytes)")
 
 
 def _library():
@@ -331,6 +351,8 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.marlnav_collect_rt_smem.argtypes = [ctypes.c_int] * 3
+    lib.marlnav_collect_rt_smem.restype = ctypes.c_int
     for getter in (lib.marlnav_collect_params_size,
                    lib.marlnav_collect_max_obstacles,
                    lib.marlnav_collect_lanes):
@@ -353,17 +375,18 @@ def _check(name, x: torch.Tensor, shape, dtype, device):
             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
 
 
-def _check_launch(what: str, sm: StepMath, rows: RowState,
-                  a_comp: torch.Tensor, c_comp: torch.Tensor, num_steps: int,
-                  noise: Optional[torch.Tensor], max_obstacles: int):
+def _check_launch(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
+                  c_comp: torch.Tensor, num_steps: int,
+                  noise: Optional[torch.Tensor]):
     """Raise unless a rollout kernel (collect or bench) can take these
     inputs: rows (r, P), the actor operator and the optional uniforms,
-    float32, contiguous, on the rows' device."""
+    float32, contiguous, on the rows' device.  Every obstacle count >= 1
+    has an instance: 1 .. 8 templated, past 8 the run-time one
+    (``block_threads`` checks its shared memory)."""
     device = rows.px.device
     a, o, num_envs = sm.a, sm.o, rows.px.shape[-1]
-    if not 1 <= o <= max_obstacles:
-        raise ValueError(f"{what} kernel takes 1..{max_obstacles} obstacles, "
-                         f"got {o}")
+    if o < 1:
+        raise ValueError(f"rollout kernels need an obstacle, got {o}")
     if num_envs < 1 or num_steps < 1:
         raise ValueError(f"need num_envs, num_steps >= 1: {num_envs}, "
                          f"{num_steps}")
@@ -419,8 +442,10 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
         raise ValueError(f"fused collect: unsupported device {device}")
 
     lib, _ = _library()
-    _check_launch("fused collect", sm, rows, a_comp, c_comp, num_steps, noise,
-                  lib.marlnav_collect_max_obstacles())
+    _check_launch(sm, rows, a_comp, c_comp, num_steps, noise)
+    threads = block_threads("fused collect", sm,
+                            lib.marlnav_collect_max_obstacles(),
+                            lib.marlnav_collect_rt_smem)
     seed = seed_tensor(seed, device)
     f32 = torch.float32
     weights = torch.cat([a_comp.reshape(-1), c_comp])
@@ -438,7 +463,7 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     ptrs_out = _Rows(*(x.data_ptr() for x in out_rows.fields()))
     params = _kernel_params(sm, num_envs, num_steps)
     stream = torch.cuda.current_stream(device).cuda_stream
-    blocks, threads = launch_geometry(num_envs, COLLECT_LANES)
+    blocks, threads = launch_geometry(num_envs, COLLECT_LANES, threads)
     err = lib.marlnav_fused_collect(
         ctypes.byref(ptrs_in), ctypes.byref(ptrs_out), weights.data_ptr(),
         None if noise is None else noise.data_ptr(), seed.data_ptr(),

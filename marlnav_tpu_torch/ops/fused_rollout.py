@@ -39,6 +39,7 @@ from marlnav_tpu_torch.ops.fused_collect import (  # noqa: F401
     _kernel_params,
     _KernelParams,
     _Rows,
+    block_threads,
     env_state_to_rows,
     launch_geometry,
     roll_rows,
@@ -79,6 +80,8 @@ def _library():
     fn.argtypes = [ptr] * 4 + [ctypes.c_uint32, ptr, ctypes.c_int, ptr] \
         + [ctypes.c_int] * 3 + [ptr]
     fn.restype = ctypes.c_int
+    lib.marlnav_rollout_rt_smem.argtypes = [ctypes.c_int] * 3
+    lib.marlnav_rollout_rt_smem.restype = ctypes.c_int
     for getter in (lib.marlnav_rollout_params_size,
                    lib.marlnav_rollout_max_obstacles,
                    lib.marlnav_rollout_lanes):
@@ -118,13 +121,15 @@ def fused_rollout_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
         raise ValueError(f"fused rollout: unsupported device {device}")
 
     lib = _library()
-    _check_launch("fused rollout", sm, rows, a_comp, c_comp, num_steps, noise,
-                  lib.marlnav_rollout_max_obstacles())
+    _check_launch(sm, rows, a_comp, c_comp, num_steps, noise)
+    threads = block_threads("fused rollout", sm,
+                            lib.marlnav_rollout_max_obstacles(),
+                            lib.marlnav_rollout_rt_smem)
     weights = torch.cat([a_comp.reshape(-1), c_comp])
     out_rows = RowState(*(torch.empty_like(x) for x in rows.fields()))
     rewards = torch.empty((num_steps, num_envs), dtype=torch.float32,
                           device=device)
-    blocks, threads = launch_geometry(num_envs, ROLLOUT_LANES)
+    blocks, threads = launch_geometry(num_envs, ROLLOUT_LANES, threads)
     err = lib.marlnav_fused_rollout(
         ctypes.byref(_Rows(*(x.data_ptr() for x in rows.fields()))),
         ctypes.byref(_Rows(*(x.data_ptr() for x in out_rows.fields()))),

@@ -24,11 +24,17 @@ gradients to the same ``torch.optim.Adam`` the autograd route uses.
 
 The last two share one kernel body with a head for each (critic: ReLU and
 the value; actor: the 2 + 2 heads and the PPO chain), whose products run on
-the tensor cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``).  Widths taken:
-critic In <= 103 and H <= 256; un-collapsed actor F <= 39 and H <= 256;
-affine actor any F <= 255 (a runtime width: its rows stream through
-shared memory in tiles sized by F).  Past them each wrapper raises
-``ValueError``.
+the tensor cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``), in template
+instances for critic In <= 103 and H <= 256 and un-collapsed actor F <= 39
+and H <= 256 (bf16: ten of those widths).  Every other width takes the
+run-time-width route (``fused_update.cu rt_forward_kernel``), which the
+wrapper picks by width before the launch: CUDA-core sums, three launches
+(forward, backward, the fixed-order reduction), one count.  It raises
+``ValueError`` only where one block's shared memory cannot hold a tile of
+16 rows of x (In past about 3,000).  The affine actor takes any F <=
+1023 (a runtime width: its rows stream through shared memory in tiles
+sized by F; past 1023 its column groups of [x | 1] would outnumber a
+block's threads).
 
 The TPU needed two layouts of each (tiled and staged); here the Buffer's
 time slice is already a contiguous block of rows, so one kernel serves the
@@ -82,9 +88,16 @@ def _library():
     lib.marlnav_actor_grad_uncollapsed_sums.argtypes = (
         [ptr] * 10 + [ctypes.c_longlong, i32, i32] + [f32] * 4
         + [i32, i32, ptr, ptr, i32, ptr])
+    lib.marlnav_rt_grad_sums.argtypes = (
+        [i32] + [ptr] * 10 + [ctypes.c_longlong, i32, i32] + [f32] * 5
+        + [i32, i32, ptr, ptr, ptr, i32, ptr])
     for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums,
-               lib.marlnav_actor_grad_uncollapsed_sums):
+               lib.marlnav_actor_grad_uncollapsed_sums,
+               lib.marlnav_rt_grad_sums):
         fn.restype = i32
+    lib.marlnav_rt_chunk.argtypes = [i32, i32, i32]
+    lib.marlnav_rt_chunk.restype = i32
+    lib.marlnav_smem_floats.argtypes, lib.marlnav_smem_floats.restype = [], i32
     for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
@@ -140,11 +153,44 @@ def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
     return blocks, index, torch.cuda.current_stream(device).cuda_stream
 
 
-# The tensor-core kernels' bf16 instances cover the widths training
-# reaches (fused_update.cu critic_instance / actor_instance); past them,
-# a bf16 call raises with this note.
-_BF16_WIDTHS = (" (bf16: the instances of the widths training reaches, the "
-                "default, -no 8, -no 14, -hs 128 and -hs 256)")
+# Rows a tile of the run-time-width route (kRtRows in fused_update.cu).
+RT_ROWS = 16
+
+
+def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
+                  hidden: int, eps: float, ppo, bf16: bool, n_out: int):
+    """The run-time-width route of the critic (``actor`` False) or the
+    un-collapsed actor: its three launches (forward, backward, the
+    fixed-order reduction of the row blocks' partials) on the current
+    stream; returns the flat sums.  Raises ``ValueError`` where one
+    block's shared memory cannot hold a tile of its rows."""
+    if not lib.marlnav_rt_chunk(n_in, hidden, int(actor)):
+        raise ValueError(
+            f"{'un-collapsed actor' if actor else 'critic'} grad kernel: "
+            f"{RT_ROWS} rows of input width {n_in} and their sums for "
+            f"hidden {hidden} do not fit one block's shared memory "
+            f"({4 * lib.marlnav_smem_floats()} bytes)")
+    n = obs.shape[0]
+    # two row blocks an SM, each its rows and every hidden chunk
+    blocks, index, stream = _launch_setup(obs.device, n, RT_ROWS, 2)
+    rowbuf = torch.empty(n * (5 if actor else 2), dtype=torch.float32,
+                         device=obs.device)
+    partials = torch.empty((blocks, n_out), dtype=torch.float32,
+                           device=obs.device)
+    out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.marlnav_rt_grad_sums(
+        int(actor), obs.data_ptr(), *(ptr(x) for x in rows), w1.data_ptr(),
+        b1.data_ptr(), *(ptr(x) for x in head), n, n_in, hidden, eps, *ppo,
+        int(bf16), blocks, rowbuf.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), index, stream)
+    if err != 0:
+        raise RuntimeError(f"run-time-width grad kernels launch failed: "
+                           f"CUDA error {err}")
+    return out
 
 
 def _check_rows(device, n_rows, named):
@@ -214,15 +260,16 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
         ("b2", b2, (1,)), ("obs", obs, (n, n_in)), ("vold", vold, (n,)),
         ("ret", ret, (n,))))
     lib = _library()
-    # 16 rows a warp at a time
+    n_out = 1 + h * n_in + 2 * h + 1
+    # 16 rows a warp at a time; 0: no instance at these widths
     warps = lib.marlnav_critic_warps(n_in, h, int(bf16))
     if not warps:
-        raise ValueError(f"critic grad kernel{_BF16_WIDTHS if bf16 else ''} "
-                         f"takes hidden 1..{lib.marlnav_max_hidden()} and "
-                         f"input 1..{lib.marlnav_critic_max_in()}, got {h} "
-                         f"and {n_in}")
+        out = _rt_grad_sums(lib, False, obs, (vold, ret, None), w1, b1,
+                            (w2, b2, None, None), n_in, h, eps, (0.0,) * 4,
+                            bf16, n_out)
+        critic_grad_sums.launches += 1
+        return _split(out, ((), (h, n_in), (h,), (1, h), (1,)))
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
-    n_out = 1 + h * n_in + 2 * h + 1
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
     out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
@@ -261,18 +308,20 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
     lib = _library()
-    # 16 rows a warp at a time
+    n_out = 1 + h * f + 5 * h + 4
+    shapes = ((), (h, f), (h,), (2, h), (2,), (2, h), (2,))
+    # 16 rows a warp at a time; 0: no instance at these widths
     warps = lib.marlnav_uncollapsed_warps(f, h, int(bf16))
     if not warps:
-        raise ValueError(f"un-collapsed actor grad kernel"
-                         f"{_BF16_WIDTHS if bf16 else ''} takes hidden "
-                         f"1..{lib.marlnav_max_hidden()} and obs "
-                         f"1..{lib.marlnav_uncollapsed_max_obs()}, got {h} "
-                         f"and {f}")
+        out = _rt_grad_sums(lib, True, obs, (actions, log_probs, adv), w1, b1,
+                            (wmu, bmu, wvar, bvar), f, h, 0.0,
+                            (1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5), bf16,
+                            n_out)
+        actor_grad_uncollapsed_sums.launches += 1
+        return _split(out, shapes)
     blocks, index, stream = _launch_setup(
         obs.device, n, 16 * warps,
         lib.marlnav_uncollapsed_blocks_per_sm(f, h, int(bf16)))
-    n_out = 1 + h * f + 5 * h + 4
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
     out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
@@ -286,7 +335,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         raise RuntimeError(f"un-collapsed actor grad kernel launch failed: "
                            f"CUDA error {err}")
     actor_grad_uncollapsed_sums.launches += 1
-    return _split(out, ((), (h, f), (h,), (2, h), (2,), (2, h), (2,)))
+    return _split(out, shapes)
 
 
 actor_grad_uncollapsed_sums.launches = 0

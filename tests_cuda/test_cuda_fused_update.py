@@ -7,9 +7,10 @@ not bit for bit.
 
 Cases: the default widths and those of -no 8 (F 22), -no 14 (F 34, critic
 In 102), -hs 128 and -hs 256, hidden sizes between passes of the
-tensor-core body (200), ragged row counts, the affine actor at odd and at
-its widest obs width and on row slices that start off 16 bytes, and the
-widths past each kernel's limits, which raise.
+tensor-core body (200), ragged row counts, the affine actor at odd and
+wide obs widths and on row slices that start off 16 bytes, and the widths
+past each kernel's limits, which raise (tests_cuda/test_cuda_widths.py
+holds the widths between).
 
 Those inputs keep every row a margin from the clip edges and the ReLU's
 kink (wider networks put more rows near them).
@@ -153,17 +154,24 @@ def test_uncollapsed_kernel_matches_plain_on_card(cuda):
 
 @pytest.mark.cuda
 def test_widths_past_the_limits_raise_on_the_card(cuda):
-    """Past its widths each wrapper raises ValueError naming them."""
+    """Past its widths each wrapper raises ValueError naming them: the
+    affine actor past obs 1023, and the run-time-width route of the critic
+    and the un-collapsed actor where one block's shared memory cannot hold
+    a tile of rows (input width 4000)."""
     lib = fu._library()
-    max_f, max_h = lib.marlnav_actor_max_obs(), lib.marlnav_max_hidden()
+    max_f = lib.marlnav_actor_max_obs()
     actor_in, _ = _sum_inputs(64, max_f + 1, 50, cuda)
     with pytest.raises(ValueError, match=f"1..{max_f}"):
         fu.actor_grad_sums(*actor_in, 0.2, 0.001)
-    _, critic_in = _sum_inputs(64, OBS, max_h + 1, cuda)
-    with pytest.raises(ValueError, match=f"hidden 1..{max_h}"):
-        fu.critic_grad_sums(*critic_in, 0.2)
-    args = _uncollapsed_inputs(64, OBS, max_h + 1, cuda)
-    with pytest.raises(ValueError, match=f"hidden 1..{max_h}"):
+    w1, b1, w2, b2, _, vold, ret = _sum_inputs(64, OBS, 50, cuda)[1]
+    wide = torch.zeros((50, 4000), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fu.critic_grad_sums(wide, b1, w2, b2,
+                            torch.zeros((64, 4000), device=cuda), vold, ret,
+                            0.2)
+    args = list(_uncollapsed_inputs(64, OBS, 50, cuda))
+    args[0], args[6] = wide, torch.zeros((64, 4000), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
         fu.actor_grad_uncollapsed_sums(*args, 0.2, 0.001)
 
 
