@@ -180,7 +180,15 @@ SM_CLOCK_HZ = 1.98e9
 SPILL_STORES_TODAY = {("actor", 2, 7): 12, ("critic", 9, 16): 4}
 
 
+_PHASE_START = [None]
+
+
 def phase(title):
+    """Start a phase; print how long the one before took."""
+    now = time.perf_counter()
+    if _PHASE_START[0] is not None:
+        print(f"(phase took {now - _PHASE_START[0]:.1f} s)")
+    _PHASE_START[0] = now
     print(f"\n=== {title} ===", flush=True)
 
 
@@ -235,23 +243,39 @@ def timed(fn, reps=3):
             "wall": statistics.median(wall_ms)}
 
 
+def sass_hmma(sass, pattern, key):
+    """{key(match): HMMA instructions} of each function of ``cuobjdump
+    -sass`` output whose name matches ``pattern``."""
+    counts, at = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(pattern, line)
+            at = key(m) if m else None
+            if at:
+                counts[at] = 0
+        elif at and "HMMA" in line:
+            counts[at] += 1
+    return counts
+
+
 def hmma_counts(sass, bf16=False):
     """{(head, KS, NT): HMMA instructions} of each instance of
     tc_grad_kernel<CriticHead<NT> or ActorHead<NT>, KS> (with ``bf16``,
-    CriticHeadBf16 or ActorHeadBf16) in ``cuobjdump -sass`` output."""
-    counts, key = {}, None
+    CriticHeadBf16 or ActorHeadBf16)."""
     head = "HeadBf16" if bf16 else "Head"
-    for line in sass.splitlines():
-        if "Function :" in line:
-            m = re.search(r"tc_grad_kernelI\w*?(Critic|Actor)" + head +
-                          r"ILi(\d+)EEELi(\d+)E", line)
-            key = ((m.group(1).lower(), int(m.group(3)), int(m.group(2)))
-                   if m else None)
-            if key:
-                counts[key] = 0
-        elif key and "HMMA" in line:
-            counts[key] += 1
-    return counts
+    return sass_hmma(sass, r"tc_grad_kernelI\w*?(Critic|Actor)" + head +
+                     r"ILi(\d+)EEELi(\d+)E",
+                     lambda m: (m.group(1).lower(), int(m.group(3)),
+                                int(m.group(2))))
+
+
+def rt_hmma_counts(sass):
+    """{(part, actor, bf16): HMMA instructions} of each instance of the
+    run-time-width route's rt_forward_kernel / rt_backward_kernel<kActor,
+    BF>."""
+    return sass_hmma(sass, r"rt_(forward|backward)_kernelILb(\d)ELb(\d)E",
+                     lambda m: (m.group(1), int(m.group(2)),
+                                int(m.group(3))))
 
 
 def ptxas_summary(log):
@@ -477,6 +501,16 @@ def main(out_dir):
         assert {h for h, _, _ in hmma16} == {"critic", "actor"}, hmma16
         assert all(c > 0 for c in hmma16.values()), hmma16
         record["tc_hmma_bf16"] = {f"{k}": c for k, c in hmma16.items()}
+        # The run-time-width route's products on the tensor cores too: HMMA
+        # in each of its eight kernels (their ptxas lines, no spill, above).
+        rt_hmma = rt_hmma_counts(sass)
+        for (part, actor, bf16), count in sorted(rt_hmma.items()):
+            print(f"rt_{part}_kernel<{'actor' if actor else 'critic'}, "
+                  f"{'bf16' if bf16 else 'float32'}>: {count} HMMA in its "
+                  f"SASS")
+        assert len(rt_hmma) == 8 and all(c > 0 for c in rt_hmma.values()), \
+            rt_hmma
+        record["rt_hmma"] = {f"{k}": c for k, c in rt_hmma.items()}
     else:
         print("cuobjdump not found: HMMA count not measured")
 
@@ -923,24 +957,29 @@ def main(out_dir):
                 n * (4 * f + 16) + 4 * (2 * (h * f + 5 * h + 4) + 1),
                 n * uncollapsed_ops_per_row(f, h))}[name]
 
-    def time_kernels(key, label, inputs, mcfg, widths=None):
-        """Each kernel and its plain version on ``inputs``, against the
-        bound, kept in ``times`` under ``key``."""
+    def time_kernels(key, label, inputs, mcfg, widths=None, mode=None):
+        """Each kernel and its plain version on ``inputs`` (in bf16 mode
+        ``mode`` where given), against the bound, kept in ``times`` under
+        ``key``."""
         for name, args in inputs.items():
             kernel, plain = fns[name]
+            if mode is not None:
+                args = (*args, mode)
             n = args[rows_arg[name]].shape[0]
             nbytes, ops = update_work(name, n, mcfg, widths)
             k_ms = cuda_ms(lambda: kernel(*args), reps=7, warmup=2)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             fp32_ms = ops / FP32_OPS_PER_S * 1e3
-            ops_ms = (ops / TF32_OPS_PER_S * 1e3 if name in TENSOR_CORE_WORK
+            tc_rate = TF32_OPS_PER_S if mode is None else BF16_OPS_PER_S
+            ops_ms = (ops / tc_rate * 1e3 if name in TENSOR_CORE_WORK
                       else fp32_ms)
             bound_ms = max(bytes_ms, ops_ms)
             times[name][key] = dict(
                 ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-            rate = "TF32" if name in TENSOR_CORE_WORK else "float32"
+            rate = ("float32" if name not in TENSOR_CORE_WORK
+                    else "TF32" if mode is None else "bf16")
             print(f"{name} {label}: {n:,} rows, kernel {k_ms:.4f} ms "
                   f"(median of 7), plain version {plain_ms:.3f} ms (median "
                   f"of 3), bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f}"
@@ -1063,7 +1102,8 @@ def main(out_dir):
                 (2, EnvParams(num_agents=2).obs_size, 32), (3, 22, 50),
                 (3, 12, 128), (4, 24, 128), (1, 103, 128), (3, 12, 256),
                 (3, 34, 256), (1, lib.marlnav_critic_max_in(), max_h),
-                (3, 40, 50), (1, 210, 64), (3, 12, 512), (1, 103, 257)],
+                (3, 40, 50), (1, 210, 64), (3, 12, 512), (1, 103, 257),
+                (1, 1040, 64)],
             "fused_actor_grad_uncollapsed": [
                 (1, 22, 50), (1, 22, 128), (1, 32, 128), (1, 39, 128),
                 (1, 12, 256), (1, 34, 256),
@@ -1114,6 +1154,42 @@ def main(out_dir):
             args = (*weights, *rows)
         return label, args
 
+    # Phase 15's bf16 check (described there); the width --bf16-updates -hs
+    # 64 trains is held to it below.
+    bf16_modes = {"fused_actor_grad": ("tiled", "staged"),
+                  "fused_critic_grad": (True,),
+                  "fused_actor_grad_uncollapsed": (True,)}
+    record["bf16"] = {"errors": {}}
+
+    def check16(name, mode, label, args):
+        kernel, plain = fns[name]
+        k1, k2 = kernel(*args, mode), kernel(*args, mode)
+        p16, p32 = plain(*args, mode), plain(*args)
+        p64 = plain(*args, mode, torch.float64)
+        torch.cuda.synchronize()
+        tag = f"{name} bf16{'' if mode is True else ' ' + mode} {label}"
+        assert all(torch.equal(a, b) for a, b in zip(k1, k2)), \
+            f"{tag}: two launches differ"
+        per = {}
+        for o, k, b, f32, w in zip(outputs[name], k1, p16, p32, p64):
+            err = (k - b).abs().max().item()
+            gap = (b - f32).abs().max().item()
+            e64 = (k.double() - w).abs().max().item()
+            scale = w.abs().max().item()
+            per[o] = dict(err=err, gap=gap, err64=e64,
+                          rel64=e64 / scale if scale else 0.0)
+            if gap > 0.0:
+                assert err <= 0.25 * gap, (f"{tag} {o}: |kernel - plain "
+                                           f"bf16| {err} > 1/4 of {gap}")
+            else:
+                assert err <= 1e-4 * scale + 1e-7, f"{tag} {o}: {err}"
+        print(f"{tag}: per output, |kernel - plain bf16| / bf16 - f32 gap; "
+              f"against float64 of the rounded operands (share of max): "
+              + ", ".join(f"{o} {v['err']:.2e} / {v['gap']:.2e}; "
+                          f"{v['err64']:.2e} ({v['rel64']:.1e})"
+                          for o, v in per.items()))
+        record["bf16"]["errors"][tag] = per
+
     def runtime_route(name, agents, f, h):
         """Whether these widths take the run-time-width route."""
         if name == "fused_critic_grad":
@@ -1130,6 +1206,47 @@ def main(out_dir):
             check(name, label, args)
             time_kernels(label, label, {name: args}, None,
                          (f, h, agents * f))
+    # What --bf16-updates -hs 64 trains: the critic at In 36 / H 64, which
+    # has no bf16 instance, through the run-time route's bf16 kernels.
+    assert not lib.marlnav_critic_warps(36, 64, 1)
+    label, args = wide_case("fused_critic_grad", 3, 12, 64)
+    label += " (run-time route)"
+    check16("fused_critic_grad", True, label, args)  # tagged bf16 there
+    time_kernels(f"bf16 {label}", f"bf16 {label}",
+                 {"fused_critic_grad": args}, None, (12, 64, 36), mode=True)
+    # A record, no routing change: the run-time route (fu._rt_grad_sums
+    # called directly) beside the tensor-core instance at three templated
+    # widths, on the same inputs, two launches each bitwise equal.
+    record["rt_at_instances"] = {}
+    for agents, f, h in ((3, 12, 50), (1, 103, 128), (3, 34, 256)):
+        label, args = wide_case("fused_critic_grad", agents, f, h)
+        w1, b1, w2, b2, x, vold, ret, eps = args
+        n_in = agents * f
+        assert lib.marlnav_critic_warps(n_in, h, 0)  # an instance
+        n_out = 1 + h * n_in + 2 * h + 1
+
+        def direct():
+            return fu._rt_grad_sums(lib, False, x, (vold, ret, None), w1, b1,
+                                    (w2, b2, None, None), n_in, h, eps,
+                                    (0.0,) * 4, False, n_out)
+        r1, r2 = direct(), direct()
+        want = um.critic_grad_sums_reference(
+            *(v.double() if torch.is_tensor(v) else v for v in args))
+        torch.cuda.synchronize()
+        assert torch.equal(r1, r2), label
+        shapes = ((), (h, n_in), (h,), (1, h), (1,))
+        for o, k, w in zip(outputs["fused_critic_grad"],
+                           fu._split(r1, shapes), want):
+            err = (k.double() - w).abs().max().item() / n  # as a mean
+            assert err <= 1e-4 * w.abs().max().item() / n + 1e-7, (label, o)
+        inst_ms = cuda_ms(lambda: fu.critic_grad_sums(*args), reps=7,
+                          warmup=2)
+        rt_ms = cuda_ms(direct, reps=7, warmup=2)
+        record["rt_at_instances"][label] = dict(instance_ms=inst_ms,
+                                                rt_ms=rt_ms)
+        print(f"fused_critic_grad {label}, {n:,} rows: tensor-core instance "
+              f"{inst_ms:.4f} ms, run-time route called directly "
+              f"{rt_ms:.4f} ms ({rt_ms / inst_ms:.2f}x; medians of 7)")
 
     # ------------------------------------------------------------------
     phase("7. rollout kernel against its plain version and the collect "
@@ -1314,7 +1431,8 @@ def main(out_dir):
     # step loop on the card (its update kernels see obs 34 and critic input
     # 102).  -no 17 runs the collect kernel's run-time instance and, for
     # the critic (In 120) and the un-collapsed actor (F 40), the run-time-
-    # width route; -hs 512 the latter for both.
+    # width route; -hs 512 the latter for both.  At -no 17 and -hs 512 only
+    # the un-collapsed actor: phase 17 trains the affine one at full size.
     record["wide_training"] = {}
     epochs, wp, wt = 5, 256, 100
     for extra, fused_collect in (
@@ -1322,6 +1440,8 @@ def main(out_dir):
             (["-hs", "256"], True), (["-no", "14"], False),
             (["-no", "17"], True), (["-hs", "512"], True)):
         for layout, bs in ((None, wt), ("packed", wt // 2)):
+            if layout is None and extra in (["-no", "17"], ["-hs", "512"]):
+                continue  # the affine actor: trained at full size, phase 17
             wcfg = resolve_run_config(build_parser().parse_args(
                 ["-np", str(wp), "-bl", str(wt), "-bs", str(bs), "-ne",
                  str(epochs), "-nt", str(2 * wp * wt), "-se", "0",
@@ -1588,40 +1708,6 @@ def main(out_dir):
     # phase 6's inputs (the default widths: the full batch of a real
     # collect and -bs 250 slice 0) and at H 256 and In 102 (phase 6's
     # random rows).
-    bf16_modes = {"fused_actor_grad": ("tiled", "staged"),
-                  "fused_critic_grad": (True,),
-                  "fused_actor_grad_uncollapsed": (True,)}
-    record["bf16"] = {"errors": {}}
-
-    def check16(name, mode, label, args):
-        kernel, plain = fns[name]
-        k1, k2 = kernel(*args, mode), kernel(*args, mode)
-        p16, p32 = plain(*args, mode), plain(*args)
-        p64 = plain(*args, mode, torch.float64)
-        torch.cuda.synchronize()
-        tag = f"{name} bf16{'' if mode is True else ' ' + mode} {label}"
-        assert all(torch.equal(a, b) for a, b in zip(k1, k2)), \
-            f"{tag}: two launches differ"
-        per = {}
-        for o, k, b, f32, w in zip(outputs[name], k1, p16, p32, p64):
-            err = (k - b).abs().max().item()
-            gap = (b - f32).abs().max().item()
-            e64 = (k.double() - w).abs().max().item()
-            scale = w.abs().max().item()
-            per[o] = dict(err=err, gap=gap, err64=e64,
-                          rel64=e64 / scale if scale else 0.0)
-            if gap > 0.0:
-                assert err <= 0.25 * gap, (f"{tag} {o}: |kernel - plain "
-                                           f"bf16| {err} > 1/4 of {gap}")
-            else:
-                assert err <= 1e-4 * scale + 1e-7, f"{tag} {o}: {err}"
-        print(f"{tag}: per output, |kernel - plain bf16| / bf16 - f32 gap; "
-              f"against float64 of the rounded operands (share of max): "
-              + ", ".join(f"{o} {v['err']:.2e} / {v['gap']:.2e}; "
-                          f"{v['err64']:.2e} ({v['rel64']:.1e})"
-                          for o, v in per.items()))
-        record["bf16"]["errors"][tag] = per
-
     for name, modes in bf16_modes.items():
         for mode in modes:
             check16(name, mode, "P=1024 T=1000 full batch", main_inputs[name])
@@ -1914,6 +2000,86 @@ def main(out_dir):
                 assert "matplotlib" in str(err) and not os.path.exists(gif)
                 print(f"-re without matplotlib: {err}")
         assert read_counts() == expect(), read_counts()
+
+    # ------------------------------------------------------------------
+    phase("17. the run-time gradient route on the training path at full "
+          "size: -no 17, -hs 512, --bf16-updates -hs 64; a graphed repeat "
+          "fused against autograd")
+    # The defaults (P 1024, buffer 1000, full batch, 50 + 50 epochs) with
+    # --fused-collect, at three widths whose critic has no tensor-core
+    # instance (In 120 / H 50, In 36 / H 512, and in bf16 In 36 / H 64):
+    # one repeat captured as a CUDA graph (as --jit-repeats runs it) on the
+    # fused update route and on the autograd one, in the same call, its
+    # kernel launches counted around its timed replays
+    # (medians of 3: device ms by CUDA events, host wall ms, env-steps/s
+    # by the wall).  Then -no 17 through the CLI: 4 eager repeats against
+    # --jit-repeats 2 (an eager block, then a graphed one), bit for bit.
+    record["runtime_training"] = {}
+    seed17 = torch.tensor(400, dtype=torch.int32, device=dev)
+    for extra in (["-no", "17"], ["-hs", "512"],
+                  ["--bf16-updates", "-hs", "64"]):
+        rcfg = resolve_run_config(build_parser().parse_args(
+            ["-np", "1024", "-nt", str(1024 * 1000), "-se", "0",
+             "--output-root", out_dir, "--fused-updates"] + extra))
+        rm = rcfg.model
+        assert not lib.marlnav_critic_warps(rm.num_agents * rm.obs_size,
+                                            rm.hidden_size,
+                                            int(rm.bf16_updates))
+        renv = make_env(rcfg.env, rcfg.init, dev)
+        rcollect = fc.make_fused_collect(rm, rcfg.env, rcfg.init,
+                                         rcfg.normalizer, rcfg.scaler)
+        label = " ".join(extra)
+        by_route = {}
+        for route in ("fused", "autograd"):
+            mcfg_ = (rm if route == "fused" else
+                     dataclasses.replace(rm, fused_updates=False))
+            rmappo = make_mappo(mcfg_, renv, rcfg.normalizer, rcfg.scaler,
+                                False, True)
+            rts, res = rmappo.init(make_generator(0, dev))
+            rrows = fc.env_state_to_rows(res)
+
+            def repeat17():
+                return rmappo.train_many(
+                    rts, rrows, None, 1,
+                    lambda ts_, rows_, _: rcollect(ts_, rows_, seed17))
+            repeat17()  # warm
+            graph17 = CountedGraph()
+            with graph17.capture():
+                repeat17()
+            reset_counts()
+            tm17 = timed(graph17.replay, reps=3)
+            counts_ = read_counts()
+            want = expect(fused_collect=3, returns=3, **(
+                {"fused_actor_grad": 150, "fused_critic_grad": 150}
+                if route == "fused" else {}))
+            assert counts_ == want, (label, route, counts_)
+            assert all(math.isfinite(v) for v in tm17.values())
+            by_route[route] = tm17
+            print(f"{label}, graphed {route} repeat: device "
+                  f"{tm17['device']:.3f} ms, host wall {tm17['wall']:.3f} ms"
+                  f" = {1024 * 1000 / tm17['wall'] * 1e3:,.0f} env-steps/s "
+                  f"(medians of 3); launches in the 3 replays {counts_}")
+            del graph17, rmappo, rts, rrows
+        print(f"{label}: autograd / fused repeat (host wall) "
+              f"{by_route['autograd']['wall'] / by_route['fused']['wall']:.2f}"
+              f"x")
+        record["runtime_training"][label] = by_route
+    argv17 = main_argv + ["-no", "17", "-nt", str(4 * 1024 * 1000)]
+    runs17 = {}
+    for label, extra in (("eager", []), ("--jit-repeats 2",
+                                         ["--jit-repeats", "2"])):
+        reset_counts()
+        runs17[label] = cli(argv17 + extra)
+        torch.cuda.synchronize()
+        counts_ = read_counts()
+        assert counts_ == expect(fused_collect=4, fused_actor_grad=200,
+                                 fused_critic_grad=200, returns=4), counts_
+    same_run(runs17["eager"], runs17["--jit-repeats 2"], "-no 17 graphed")
+    print("-no 17, 4 repeats: --jit-repeats 2 equals the eager loop bit for "
+          "bit (weights, Adam states, env rows, logs); launches 4 / 200 / "
+          "200 / 0 / 0 / 4 each")
+    del runs17
+    print(f"(phase took {time.perf_counter() - _PHASE_START[0]:.1f} s)")
 
     def shape_key(key):
         """(P, T) as "PxT"; other shapes by their label."""

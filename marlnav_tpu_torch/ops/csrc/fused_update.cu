@@ -92,7 +92,9 @@
 //     backward of its own group's tiles.
 // Widths are template instances on padded sizes (critic In <= 103, H <=
 // 256; un-collapsed actor F <= 39, H <= 256; critic_instance and
-// actor_instance).  mma.sync, not wgmma: see mma_tf32.cuh.
+// actor_instance); every other width takes the run-time-width route (its
+// own section below), the same products on the tensor cores with In and H
+// at run time.  mma.sync, not wgmma: see mma_tf32.cuh.
 // --bf16-updates (bf16 variants, rounding where the JAX route rounds; the
 // plain versions in ops/update_math.py round at the same points):
 //   - actor_grad_kernel<kTiled | kStaged>: the operands of the products
@@ -1575,71 +1577,99 @@ inline cudaError_t reduce(const float* partials, int blocks, int n_out,
 //
 // Critic In > 103 or H > 256, un-collapsed actor F > 39 or H > 256, and in
 // bf16 every width but the ten instances (critic_instance, actor_instance)
-// take this route, which the wrappers pick by width before the launch.  It
-// is written for any width that fits shared memory, not for speed, on the
-// CUDA cores: each product is a fixed-order float32 sum of fused
-// multiply-adds (bf16: of the operands rounded where the plain versions
-// round them, ops/update_math.py, whose products are exact in float32), so
-// its float32 results sit within the tensor-core kernels' float64
-// tolerance and the per-row chains stay op for op.  Three launches on the
-// caller's stream:
-//   rt_forward_kernel: tiles of kRtRows rows, one a block at a time; each
-//     row's head input (v, or z's four values) over the hidden units in
-//     chunks of up to kRtChunk, each chunk's share summed in unit order and
-//     the shares added in chunk order; then the row's chain (critic_row or
-//     ppo_row): its loss term and g (g_v, or g_z) into rowbuf (N, 1 + kOut).
-//   rt_backward_kernel: a grid of (row blocks, hidden chunks of hc units).
-//     Each block takes the row tiles b, b + gridDim.x, ... and its chunk:
-//     it recomputes the chunk's pre-activations (the forward's function,
-//     bit for bit), applies the row chain from rowbuf (g_pre, or g_h), and
-//     sums the chunk's dW1, db1 and dW2 (or dWmu, dWvar) over its rows in
-//     shared memory, each sum on one thread in row order; blocks of chunk 0
-//     also sum the loss and the head biases.  Each writes its part of its
-//     row block's partial (gridDim.x, n_out).
+// take this route, which the wrappers pick by width before the launch.  Its
+// widths are run-time values and its products run on the tensor cores as
+// tc_grad_kernel's do (3xTF32 m16n8k8; bf16: one m16n8k16 on operands
+// rounded where the plain versions round them, ops/update_math.py), but no
+// width lives whole in shared memory: W1 streams through it a (hidden chunk
+// x k-chunk) tile at a time.  Each k-step's products start from zero on the
+// tensor core and are added to the running sums by the CUDA cores
+// (add_to): the tensor core's own float32 accumulation, run over hundreds
+// of k-steps, drifted from float64 past the plain version's error (5x on
+// dW1 at In 1040); a k-step at a time it stays at or below it.  Three
+// launches on the caller's stream:
+//   rt_forward_kernel: a persistent grid over row tiles of kRtRows (128)
+//     rows, 16 a warp.  For each hidden chunk of kRtHc (64) units in turn,
+//     pre = x W1^T over the chunk with K at run time: stages of kRtKc (32)
+//     columns of x and W1 on a ring of three, two in flight by cp.async
+//     (zeros past the rows, the units and In), W1 split into its TF32
+//     halves (or rounded to bf16) once a stage, in fragment order; then +
+//     b1.  The chunk's share of the head input (v, or z's four values) is
+//     summed by each lane over its units, reduced over the quad by shuffles
+//     and added to the row's sum in chunk order.  Then each row's chain
+//     (critic_row or ppo_row): its loss term and g (g_v, or g_z) into
+//     rowbuf (N, 1 + kOut).
+//   rt_backward_kernel: a grid of (row blocks B, hidden chunks, In chunks
+//     of kRtIc (128) columns).  Block (b, c, i) takes the row tiles b, b + B,
+//     ... and for each recomputes chunk c's pre-activations by the forward's
+//     own stages (the same k order: the same bits, so the ReLU mask and h
+//     are the forward's), applies the row chain from rowbuf (g_pre = (w2
+//     g_v)(h > 0), or g_h = [Wmu; Wvar]^T g_z; split into its TF32 halves
+//     once) and adds dW1^T of its In chunk += x^T g_pre on the tensor cores,
+//     into accumulators that stay in registers across its rows; the In
+//     chunk's columns of x are kept from the stages that pass them.  Blocks
+//     of In chunk 0 also sum db1 (the float32 g_pre) and the head's products
+//     (dW2 = g_v . h, or g_z^T h: one or four rows, a sixteenth or a quarter
+//     of an m-tile, so on the CUDA cores), each lane over its own rows, in
+//     registers; blocks (b, 0, 0) the loss and the head biases from rowbuf.
+//     Each writes its part of row block b's partial (B, n_out).
 //   reduce_partials_kernel: the row blocks' partials in order, in double.
-// The grid depends only on the row count, the widths and the card, so two
-// launches on the same inputs agree bit for bit.
-constexpr int kRtRows = 16;    // rows a tile
-constexpr int kRtChunk = 128;  // hidden units a forward chunk, at most
+// The grids depend only on the row count, the widths and the card, and no
+// sum takes an atomic, so two launches on the same inputs agree bit for bit.
+// Shared memory is the same at every width; the widths end where the
+// backward grid's y or z (65,535 chunks) or 32-bit output indices do.
+// Work: 3 products of In x H a row (the forward, its recompute, dW1), each
+// three TF32 passes; past 128 columns each In chunk recomputes the forward
+// once more.  On the H100 the route runs at 13-22% of the float32 CUDA-core
+// bound and far below the tensor cores' (PERF.md row 3); timed variants
+// point at the stage copies and the dW1 product, not the tensor cores.
+constexpr int kRtRows = 128;         // rows a tile: 16 a warp
+constexpr int kRtHc = 64;            // hidden units a chunk
+constexpr int kRtNt = kRtHc / 8;     // n-tiles a chunk
+constexpr int kRtKc = 32;            // columns of x and W1 a stage
+constexpr int kRtIc = 128;           // columns of dW1 a backward block
+constexpr int kRtLdx = kRtKc + 4;    // = 4 mod 8: A loads free of conflicts
+constexpr int kRtLdi = kRtIc + 4;    // the same for the In chunk's x
+constexpr int kRtLdg = kRtHc + 8;    // = 8 mod 32: B loads free of conflicts
+constexpr int kRtLdg2 = kRtHc + 4;   // float2s: 2 kRtLdg2 = 8 mod 32, the
+                                     // same for the 64-bit loads
+constexpr int kRtMaxChunks = 65535;  // a grid's y or z
 
-// GradArgs (vec4 unused: x loads as 4-byte words) and the route's own.
+// GradArgs (vec4 unused) and the route's own.
 struct RtArgs : GradArgs {
-  int hc;           // hidden units a backward block
-  int ldx;          // a row's stride in the x tile: In, made odd
-  float* rowbuf;    // (N, 1 + kOut): loss term, g
+  int copy;       // floats a stage copy: 4, 2 or 1 (rows of x and W1 on
+                  // 16 or 8 bytes, else 4)
+  float* rowbuf;  // (N, 1 + kOut): loss term, g
 };
 
-template <bool kActor>
+// A block's shared memory, in floats: kRing stages (x (kRtRows, kRtLdx),
+// W1 (kRtHc, kRtLdx), and where the stage starts a chunk its b1 and head
+// weights ((1 + kOut), kRtHc)), W1's fragments of a stage, the chunk's b1
+// and head weights; the backward's also the In chunk's x (kRtRows,
+// kRtLdi), g_pre (float32: its TF32 halves, (kRtRows, kRtLdg2) float2s;
+// bf16: (kRtRows, kRtLdg) floats) and two tiles' rowbuf rows (kRtRows,
+// kRow), the next one's copied while a tile runs.  The forward keeps two
+// stages in flight (kRing 3); the backward, whose tiles fill the rest, one
+// (kRing 2).
+template <bool kActor, int kRing>
 struct RtShape {
   static constexpr int kOut = kActor ? 4 : 1;  // g_v, or g_z
   static constexpr int kRow = 1 + kOut;        // rowbuf floats a row
-  // Shared memory in floats of the forward and of a backward block of hc
-  // hidden units.
-  static __host__ __device__ int forward_floats(int ldx) {
-    return kRtRows * ldx + kRtRows * kRtChunk * kOut + kRtRows * kOut;
-  }
-  static __host__ __device__ int backward_floats(int in, int ldx, int hc) {
-    return hc * (in + 1 + kOut) + kRtRows * ldx + 2 * kRtRows * hc +
-           kRtRows * kRow;
-  }
+  static constexpr int kParams = (kRtRows + kRtHc) * kRtLdx;  // in a stage
+  static constexpr int kStage = kParams + (1 + kOut) * kRtHc;
+  static constexpr int kFrag = kRing * kStage;  // (k-steps, n-tiles, 32)
+  static constexpr int kB1 = kFrag + kRtKc / 8 * kRtNt * 32 * 4;
+  static constexpr int kHead = kB1 + kRtHc;
+  static constexpr int kForward = kHead + kOut * kRtHc;
+  static constexpr int kXi = kForward;
+  static constexpr int kG = kXi + kRtRows * kRtLdi;
+  static constexpr int kRg = kG + kRtRows * kRtLdg2 * 2;
+  static constexpr int kBackward = kRg + 2 * kRtRows * kRow;
+  static_assert(kForward <= kSmemFloats / 2, "two forward blocks an SM");
+  static_assert(kRing == 3 || kBackward <= kSmemFloats, "a backward fits");
+  static_assert(kWarps * (1 + kOut) * kRtHc <= kRtRows * kRtLdi,
+                "the column sums' reduction fits the In chunk's x");
 };
-
-__host__ __device__ inline int rt_ldx(int in) { return in | 1; }
-
-// The hidden units a backward block takes: the most of 128, 64, ..., 1 (at
-// most H rounded up to a power of two) whose block fits kSmemFloats, and
-// whose forward fits too; 0 where none does.
-template <bool kActor>
-inline int rt_chunk(int in, int hid) {
-  using Sh = RtShape<kActor>;
-  const int ldx = rt_ldx(in);
-  if (in < 1 || hid < 1 || Sh::forward_floats(ldx) > kSmemFloats) return 0;
-  int hc = kRtChunk;
-  while (hc > 1 && hc / 2 >= hid) hc /= 2;
-  for (; hc >= 1; hc /= 2)
-    if (Sh::backward_floats(in, ldx, hc) <= kSmemFloats) return hc;
-  return 0;
-}
 
 // x rounded to bf16 where BF.
 template <bool BF>
@@ -1647,210 +1677,580 @@ __device__ __forceinline__ float rt_r(float v) {
   return BF ? round_bf16(v) : v;
 }
 
-// Hidden unit j's pre-activation of the row x: W1[j] . x, a fused
-// multiply-add a column in column order, then + b1[j].
-template <bool BF>
-__device__ __forceinline__ float rt_pre(const float* x, const float* w,
-                                        int in, float b) {
-  float acc = 0.f;
-  for (int k = 0; k < in; ++k)
-    acc = __fmaf_rn(rt_r<BF>(__ldg(w + k)), rt_r<BF>(x[k]), acc);
-  return acc + b;
+// Start the copies of a stage into xs, (kRtRows + kRtHc, kRtLdx): rows r0
+// .. r0 + kRtRows - 1 of x, then units j0 .. j0 + kRtHc - 1 of W1, over
+// columns k0 .. k0 + kRtKc - 1, E floats a copy; zeros past the rows, the
+// units and In.  A thread keeps one column group and steps over the rows.
+template <int E>
+__device__ __forceinline__ void rt_fetch(const RtArgs& a, long long r0,
+                                         int j0, int k0, float* xs,
+                                         int tid) {
+  constexpr int kPer = kRtKc / E;         // copies a row
+  constexpr int kStep = kThreads / kPer;  // rows between a thread's copies
+  const long long in = a.in_size;
+  const int c = k0 + E * (tid % kPer), r = tid / kPer;
+  const bool col = c < in;
+  auto copy = [&](float* dst, const float* src, bool ok) {
+    if (E == 4) mma::cp_async16_zfill(dst, ok ? src : a.obs, ok);
+    else if (E == 2) mma::cp_async8_zfill(dst, ok ? src : a.obs, ok);
+    else mma::cp_async4_zfill(dst, ok ? src : a.obs, ok);
+  };
+  float* dst = xs + r * kRtLdx + (c - k0);
+  const float* x = a.obs + (r0 + r) * in + c;
+#pragma unroll
+  for (int i = 0; i < kRtRows / kStep; ++i)
+    copy(dst + i * kStep * kRtLdx, x + i * kStep * in,
+         col && r0 + r + i * kStep < a.n_rows);
+  dst += kRtRows * kRtLdx;
+  const float* w = a.w1 + (j0 + r) * in + c;
+#pragma unroll
+  for (int i = 0; i < kRtHc / kStep; ++i)
+    copy(dst + i * kStep * kRtLdx, w + i * kStep * in,
+         col && j0 + r + i * kStep < a.hidden);
 }
 
-// The actor's head weight of output o (wmu rows, then wvar rows) at unit j.
-__device__ __forceinline__ float rt_head_w(const RtArgs& a, int o, int j) {
-  return o < 2 ? __ldg(a.head[0] + o * a.hidden + j)
-               : __ldg(a.head[2] + (o - 2) * a.hidden + j);
+__device__ __forceinline__ void rt_fetch(const RtArgs& a, long long r0,
+                                         int j0, int k0, float* xs,
+                                         int tid) {
+  if (a.copy == 4)
+    rt_fetch<4>(a, r0, j0, k0, xs, tid);
+  else if (a.copy == 2)
+    rt_fetch<2>(a, r0, j0, k0, xs, tid);
+  else
+    rt_fetch<1>(a, r0, j0, k0, xs, tid);
 }
 
-// Rows r0 .. r0 + kRtRows - 1 of x into xs (kRtRows, ldx), zeros past n.
-__device__ __forceinline__ void rt_load_x(const RtArgs& a, long long r0,
-                                          int rows, float* xs) {
-  const int in = a.in_size;
-  for (int i = threadIdx.x; i < kRtRows * in; i += blockDim.x) {
-    const int r = i / in, k = i - r * in;
-    xs[r * a.ldx + k] =
-        r < rows ? a.obs[(r0 + r) * static_cast<long long>(in) + k] : 0.f;
+// Start the copies of hidden units j0 .. j0 + kRtHc - 1 of b1 and of the
+// head's weights (w2, or Wmu's two rows and Wvar's) into dst ((1 + kOut),
+// kRtHc); zeros past H.
+template <int kOut>
+__device__ __forceinline__ void rt_fetch_params(const RtArgs& a, int j0,
+                                                float* dst, int tid) {
+  const int hid = a.hidden;
+  for (int i = tid; i < (1 + kOut) * kRtHc; i += kThreads) {
+    const int o = i / kRtHc - 1, j = j0 + i % kRtHc;
+    const float* src = o < 0    ? a.b1 + j
+                       : o < 2 ? a.head[0] + o * hid + j
+                               : a.head[2] + (o - 2) * hid + j;
+    mma::cp_async4_zfill(dst + i, j < hid ? src : a.b1, j < hid);
   }
 }
 
-template <bool kActor, bool BF>
-__global__ void __launch_bounds__(kThreads) rt_forward_kernel(const RtArgs a) {
-  using Sh = RtShape<kActor>;
-  constexpr int kOut = Sh::kOut;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);     // (kRtRows, ldx)
-  float* part = xs + kRtRows * a.ldx;              // (kRtRows, kRtChunk, kOut)
-  float* tot = part + kRtRows * kRtChunk * kOut;   // (kRtRows, kOut)
-  const int in = a.in_size, hid = a.hidden, tid = threadIdx.x;
-  const long long n = a.n_rows, n_tiles = (n + kRtRows - 1) / kRtRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile * kRtRows;
-    const int rows = static_cast<int>(n - r0 < kRtRows ? n - r0 : kRtRows);
-    rt_load_x(a, r0, rows, xs);
-    if (tid < kRtRows * kOut) tot[tid] = 0.f;
-    __syncthreads();
-    for (int j0 = 0; j0 < hid; j0 += kRtChunk) {
-      const int hc = hid - j0 < kRtChunk ? hid - j0 : kRtChunk;
-      for (int i = tid; i < kRtRows * hc; i += kThreads) {
-        const int jj = i / kRtRows, r = i - jj * kRtRows, j = j0 + jj;
-        const float pre = rt_pre<BF>(xs + r * a.ldx, a.w1 + static_cast<long long>(j) * in,
-                                     in, __ldg(a.b1 + j));
-        float* dst = part + (r * kRtChunk + jj) * kOut;
-        if constexpr (kActor) {
+// Start the copies of rowbuf's rows r0 .. r0 + kRtRows - 1 into dst
+// (kRtRows, kRow); zeros past n (their g is 0).
+template <int kRow>
+__device__ __forceinline__ void rt_fetch_rows(const RtArgs& a, long long r0,
+                                              float* dst, int tid) {
+  const long long end = a.n_rows * kRow;
+  for (int i = tid; i < kRtRows * kRow; i += kThreads) {
+    const long long at = r0 * kRow + i;
+    mma::cp_async4_zfill(dst + i, at < end ? a.rowbuf + at : a.rowbuf,
+                         at < end);
+  }
+}
+
+// W1's stage (kRtHc, kRtLdx) into B fragments: float32, (k-step of 8,
+// n-tile, lane) -> float4 (big b0, big b1, small b0, small b1); bf16,
+// (k-step of 16, n-tile, lane) -> uint2 of packed pairs (mma_bf16.cuh).
+template <bool BF>
+__device__ __forceinline__ void rt_split(const float* ws, float4* frag,
+                                         int tid) {
+  if constexpr (BF) {
+    for (int i = tid; i < kRtKc / 16 * kRtNt * 32; i += kThreads) {
+      const int l = i & 31, nt = (i >> 5) % kRtNt, k16 = (i >> 5) / kRtNt;
+      const float* w =
+          ws + (nt * 8 + (l >> 2)) * kRtLdx + k16 * 16 + 2 * (l & 3);
+      reinterpret_cast<uint2*>(frag)[i] =
+          make_uint2(mma::pack_bf16(w[0], w[1]), mma::pack_bf16(w[8], w[9]));
+    }
+  } else {
+    for (int i = tid; i < kRtKc / 8 * kRtNt * 32; i += kThreads) {
+      const int l = i & 31, nt = (i >> 5) % kRtNt, ks = (i >> 5) / kRtNt;
+      const float* w = ws + (nt * 8 + (l >> 2)) * kRtLdx + ks * 8 + (l & 3);
+      const float b[2] = {w[0], w[4]};
+      uint32_t big[2], small[2];
+      mma::split(b, big, small);
+      frag[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                            __uint_as_float(small[0]),
+                            __uint_as_float(small[1]));
+    }
+  }
+}
+
+// c += d, where d is one k-step's product, accumulated by the tensor core
+// from zero: the running sums are float32 adds on the CUDA cores, so no
+// tensor-core accumulation runs longer than a k-step (its float32 sums over
+// hundreds of products drift from float64 far past the plain version's
+// error).
+__device__ __forceinline__ void add_to(float (&c)[4], const float (&d)[4]) {
 #pragma unroll
-          for (int o = 0; o < 4; ++o)
-            dst[o] = rt_r<BF>(rt_head_w(a, o, j)) * rt_r<BF>(pre);
-        } else {
-          dst[0] = rt_r<BF>(__ldg(a.head[0] + j)) * rt_r<BF>(fmaxf(pre, 0.f));
+  for (int e = 0; e < 4; ++e) c[e] = c[e] + d[e];
+}
+
+// c += x W1^T over one stage for a warp's 16 rows xw (row stride kRtLdx):
+// `steps` k-steps of 8 (float32) or 16 (bf16, x rounded at its load).
+template <bool BF>
+__device__ __forceinline__ void rt_stage_mma(float (&c)[kRtNt][4],
+                                             const float* xw,
+                                             const float4* frag, int steps,
+                                             int lane) {
+  if constexpr (BF) {
+    const uint2* f = reinterpret_cast<const uint2*>(frag);
+#pragma unroll
+    for (int k16 = 0; k16 < kRtKc / 16; ++k16) {
+      if (k16 >= steps) break;
+      uint32_t a[4];
+      mma::load_a_rows_bf16(xw + k16 * 16, kRtLdx, lane, a);
+#pragma unroll
+      for (int nt = 0; nt < kRtNt; ++nt) {
+        const uint2 w = f[(k16 * kRtNt + nt) * 32 + lane];
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma::mma_bf16(d, a, w.x, w.y);
+        add_to(c[nt], d);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < kRtKc / 8; ++ks) {
+      if (ks >= steps) break;
+      float a[4];
+      uint32_t a_big[4], a_small[4];
+      mma::load_a_rows(xw + ks * 8, kRtLdx, lane, a);
+      mma::split(a, a_big, a_small);
+#pragma unroll
+      for (int nt = 0; nt < kRtNt; ++nt) {
+        const float4 w = frag[(ks * kRtNt + nt) * 32 + lane];
+        const uint32_t b_big[2] = {__float_as_uint(w.x), __float_as_uint(w.y)};
+        const uint32_t b_small[2] = {__float_as_uint(w.z),
+                                     __float_as_uint(w.w)};
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma::mma_3xtf32(d, a_big, a_small, b_big, b_small);
+        add_to(c[nt], d);
+      }
+    }
+  }
+}
+
+// The stages of one block: tile i of its own (rows (first + i step)
+// kRtRows ..) takes stages i per_tile .. i per_tile + per_tile - 1, stage w
+// of a tile being hidden chunk c0 + w / n_k over k-chunk w % n_k.  Every
+// stage runs the same steps on all threads:
+//   wait for its copies; barrier; start the next stage's copies into the
+//   other buffer; `prepare` (W1's split, and what else the stage's shared
+//   memory needs); barrier; its products; `after` (a chunk's or a tile's
+//   end).
+struct RtStages {
+  long long first, step, n_tiles;  // this block's tiles of the grid's
+  int per_tile, n_k, c0;
+  __device__ long long count() const {
+    return first < n_tiles ? ((n_tiles - 1 - first) / step + 1) * per_tile
+                           : 0;
+  }
+  __device__ void at(long long s, long long& r0, int& chunk, int& kq) const {
+    const long long i = s / per_tile;
+    const int w = static_cast<int>(s - i * per_tile);
+    r0 = (first + i * step) * kRtRows;
+    chunk = c0 + w / n_k;
+    kq = w % n_k;
+  }
+};
+
+// k-steps of stage k-chunk kq: of 8 columns (float32) or 16 (bf16), up to
+// In.
+template <bool BF>
+__device__ __forceinline__ int rt_steps(int in, int kq) {
+  constexpr int kStep = BF ? 16 : 8;
+  const int left = (in - kq * kRtKc + kStep - 1) / kStep;
+  return left < kRtKc / kStep ? left : kRtKc / kStep;
+}
+
+template <bool kActor, bool BF>
+__global__ void __launch_bounds__(kThreads, 2)
+    rt_forward_kernel(const RtArgs a) {
+  using Sh = RtShape<kActor, 3>;
+  constexpr int kOut = Sh::kOut, kRow = Sh::kRow;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float4* frag = reinterpret_cast<float4*>(smem + Sh::kFrag);
+  float* s_b1 = smem + Sh::kB1;
+  float* s_head = smem + Sh::kHead;  // (kOut, kRtHc), rounded where BF
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int in = a.in_size, hid = a.hidden;
+  const int n_k = (in + kRtKc - 1) / kRtKc;
+  const int n_chunks = (hid + kRtHc - 1) / kRtHc;
+  const RtStages st{blockIdx.x, gridDim.x,
+                    (a.n_rows + kRtRows - 1) / kRtRows, n_chunks * n_k, n_k,
+                    0};
+  const long long n_stages = st.count();
+  auto fetch = [&](long long s) {
+    long long r0;
+    int chunk, kq;
+    st.at(s, r0, chunk, kq);
+    float* xs = smem + (s % 3) * Sh::kStage;
+    rt_fetch(a, r0, chunk * kRtHc, kq * kRtKc, xs, tid);
+    if (kq == 0) rt_fetch_params<kOut>(a, chunk * kRtHc, xs + Sh::kParams, tid);
+  };
+  for (int s = 0; s < 2; ++s) {
+    if (s < n_stages) fetch(s);
+    mma::cp_async_commit();
+  }
+  float c[kRtNt][4];
+  float tot[2 * kOut];  // the row sums of the head input: rows g, g + 8
+  for (long long s = 0; s < n_stages; ++s) {
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (s + 2 < n_stages) fetch(s + 2);
+    mma::cp_async_commit();
+    long long r0;
+    int chunk, kq;
+    st.at(s, r0, chunk, kq);
+    const float* xs = smem + (s % 3) * Sh::kStage;
+    rt_split<BF>(xs + kRtRows * kRtLdx, frag, tid);
+    if (kq == 0)  // the chunk's b1 and head weights, the latter rounded
+      for (int i = tid; i < (1 + kOut) * kRtHc; i += kThreads) {
+        const float v = xs[Sh::kParams + i];
+        s_b1[i] = i < kRtHc ? v : rt_r<BF>(v);  // s_head follows s_b1
+      }
+    __syncthreads();
+    if (kq == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kRtNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+      if (chunk == 0)
+#pragma unroll
+        for (int i = 0; i < 2 * kOut; ++i) tot[i] = 0.f;
+    }
+    rt_stage_mma<BF>(c, xs + warp * 16 * kRtLdx, frag, rt_steps<BF>(in, kq),
+                     lane);
+    if (kq != n_k - 1) continue;
+    // The chunk's end: pre = c + b1, and this lane's share of the head
+    // input over its units (critic: w2 . relu(pre); actor: [Wmu; Wvar]
+    // pre), reduced over the quad, added to the row sums.
+    float p[2 * kOut];  // p[2 o + h]: output o, row g + 8 h
+#pragma unroll
+    for (int i = 0; i < 2 * kOut; ++i) p[i] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kRtNt; ++nt) {
+      const int j = nt * 8 + 2 * t;
+      const float2 b = *reinterpret_cast<const float2*>(s_b1 + j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = c[nt][2 * h] + b.x, v1 = c[nt][2 * h + 1] + b.y;
+        if (!kActor) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+#pragma unroll
+        for (int o = 0; o < kOut; ++o) {
+          const float2 w =
+              *reinterpret_cast<const float2*>(s_head + o * kRtHc + j);
+          p[2 * o + h] = p[2 * o + h] + w.x * rt_r<BF>(v0);
+          p[2 * o + h] = p[2 * o + h] + w.y * rt_r<BF>(v1);
         }
       }
-      __syncthreads();
-      if (tid < kRtRows * kOut) {  // row tid / kOut, output tid % kOut
-        const float* src = part + (tid / kOut) * kRtChunk * kOut + tid % kOut;
-        float share = 0.f;
-        for (int jj = 0; jj < hc; ++jj) share = share + src[jj * kOut];
-        tot[tid] = tot[tid] + share;
-      }
-      __syncthreads();
     }
-    if (tid < rows) {
-      const long long row = r0 + tid;
-      float* out = a.rowbuf + row * Sh::kRow;
+#pragma unroll
+    for (int i = 0; i < 2 * kOut; ++i) {
+      p[i] = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 1);
+      p[i] = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 2);
+      tot[i] = tot[i] + p[i];
+    }
+    if (chunk != n_chunks - 1) continue;
+    // The tile's end: lanes t = 0, 1 of each quad take rows g and g + 8.
+    const long long row = r0 + warp * 16 + g + 8 * t;
+    if (t < 2 && row < a.n_rows) {
+      float* out = a.rowbuf + row * kRow;
       if constexpr (kActor) {
-        float z[4], g[4];
+        float z[4], gz[4];
 #pragma unroll
         for (int o = 0; o < 4; ++o)
-          z[o] = tot[tid * 4 + o] +
+          z[o] = (t ? tot[2 * o + 1] : tot[2 * o]) +
                  (o < 2 ? a.head[1][o] : a.head[3][o - 2]);
-        out[0] = ppo_row(z, make_float2(a.row[0][2 * row], a.row[0][2 * row + 1]),
-                         a.row[1][row], a.row[2][row], a.k, g);
+        out[0] = ppo_row(z, make_float2(a.row[0][2 * row],
+                                        a.row[0][2 * row + 1]),
+                         a.row[1][row], a.row[2][row], a.k, gz);
 #pragma unroll
-        for (int o = 0; o < 4; ++o) out[1 + o] = g[o];
+        for (int o = 0; o < 4; ++o) out[1 + o] = gz[o];
       } else {
         float loss;
-        out[1] = critic_row(tot[tid] + a.head[1][0], a.row[0][row],
-                            a.row[1][row], a.eps, &loss);
+        out[1] = critic_row((t ? tot[1] : tot[0]) + a.head[1][0],
+                            a.row[0][row], a.row[1][row], a.eps, &loss);
         out[0] = loss;
       }
     }
-    __syncthreads();  // xs and tot are refilled next
   }
+  mma::cp_async_wait<0>();
 }
 
 template <bool kActor, bool BF>
-__global__ void __launch_bounds__(kThreads) rt_backward_kernel(const RtArgs a) {
-  using Sh = RtShape<kActor>;
+__global__ void __launch_bounds__(kThreads, 1)
+    rt_backward_kernel(const RtArgs a) {
+  using Sh = RtShape<kActor, 2>;
   constexpr int kOut = Sh::kOut, kRow = Sh::kRow;
   extern __shared__ float4 smem4[];
-  const int in = a.in_size, hid = a.hidden, hc = a.hc, ldx = a.ldx;
-  const int tid = threadIdx.x, j0 = blockIdx.y * hc;
-  const int nj = hid - j0 < hc ? hid - j0 : hc;
-  // Sums: dW1 (nj, In), db1 (nj), dW2 (nj) or [dWmu; dWvar] (4, nj); then
-  // the tile: x (kRtRows, ldx), g_pre or g_h and h (kRtRows, hc) each, and
-  // the rows' loss and g (kRtRows, kRow).
-  float* acc = reinterpret_cast<float*>(smem4);
-  float* xs = acc + hc * (in + 1 + kOut);
-  float* gs = xs + kRtRows * ldx;
-  float* hs = gs + kRtRows * hc;
-  float* rg = hs + kRtRows * hc;
-  const int n_acc = nj * (in + 1 + kOut);
-  for (int i = tid; i < n_acc; i += kThreads) acc[i] = 0.f;
-  // Blocks of chunk 0: the loss and the head biases' sums, on threads
-  // tid < kRow (rowbuf's columns), over the rows in order.
-  const bool small = blockIdx.y == 0 && tid < kRow;
-  float small_sum = 0.f;
-  const long long n = a.n_rows, n_tiles = (n + kRtRows - 1) / kRtRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile * kRtRows;
-    const int rows = static_cast<int>(n - r0 < kRtRows ? n - r0 : kRtRows);
-    rt_load_x(a, r0, rows, xs);
-    for (int i = tid; i < kRtRows * kRow; i += kThreads)
-      rg[i] = i < rows * kRow ? a.rowbuf[r0 * kRow + i] : 0.f;
-    __syncthreads();
-    // The chunk's g_pre (critic: (w2 g_v)(h > 0)) or g_h (actor: [Wmu;
-    // Wvar]^T g_z), and h, for every row of the tile; rows past n have g 0.
-    for (int i = tid; i < kRtRows * nj; i += kThreads) {
-      const int jj = i / kRtRows, r = i - jj * kRtRows, j = j0 + jj;
-      const float pre = rt_pre<BF>(xs + r * ldx, a.w1 + static_cast<long long>(j) * in,
-                                   in, __ldg(a.b1 + j));
-      const float* g = rg + r * kRow + 1;
-      float gp, h;
-      if constexpr (kActor) {
-        h = pre;
-        float w[4];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float4* frag = reinterpret_cast<float4*>(smem + Sh::kFrag);
+  const float* s_b1 = smem + Sh::kB1;
+  const float* s_head = smem + Sh::kHead;
+  float* xi = smem + Sh::kXi;  // (kRtRows, kRtLdi): the In chunk's x
+  float* gs = smem + Sh::kG;   // g_pre, or g_h: float2 halves, or bf16's
+  float* rg = smem + Sh::kRg;  // (2, kRtRows, kRow): tiles' rowbuf rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int in = a.in_size, hid = a.hidden;
+  const int j0 = blockIdx.y * kRtHc, i0 = blockIdx.z * kRtIc;
+  const int n_k = (in + kRtKc - 1) / kRtKc;
+  const RtStages st{blockIdx.x, gridDim.x,
+                    (a.n_rows + kRtRows - 1) / kRtRows, n_k, n_k,
+                    static_cast<int>(blockIdx.y)};
+  const long long n_stages = st.count();
+  // dW1^T of the In chunk (its m-tiles, 16 columns each) by the chunk's 8
+  // n-tiles: warps share an m-tile where there are fewer than 8 (wn warps
+  // each, n-tiles wn0, wn0 + wn, ...), so that a narrow In keeps every
+  // warp busy.
+  const int span = in - i0 < kRtIc ? in - i0 : kRtIc;
+  const int mts = (span + 15) / 16;
+  const int wn = mts > 4 ? 1 : mts > 2 ? 2 : mts > 1 ? 4 : 8;
+  const int mt = warp / wn, wn0 = warp % wn, nj = kRtNt / wn;
+  const bool dw1 = mt < mts;
+  float acc[kRtNt][4];
 #pragma unroll
-        for (int o = 0; o < 4; ++o) w[o] = rt_r<BF>(rt_head_w(a, o, j));
-        gp = ((w[0] * rt_r<BF>(g[0]) + w[1] * rt_r<BF>(g[1])) +
-              w[2] * rt_r<BF>(g[2])) +
-             w[3] * rt_r<BF>(g[3]);
-      } else {
-        h = fmaxf(pre, 0.f);
-        gp = (rt_r<BF>(__ldg(a.head[0] + j)) * rt_r<BF>(g[0])) *
-             flag(h > 0.f);
+  for (int j = 0; j < kRtNt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // In chunk 0: this lane's sums of its units' columns (8 nt + 2t + e)
+  // over its rows of each tile (g, then g + 8): db1, then the head's (dW2,
+  // or dWmu and dWvar).  Blocks (b, 0, 0), warp 0: lane l's sums of
+  // rowbuf's columns (loss, then g) over rows l, l + 32, ... of each tile.
+  const bool sums = blockIdx.z == 0;
+  const bool small = sums && blockIdx.y == 0 && warp == 0;
+  float csum[1 + kOut][kRtNt][2], ssum[kRow];
+#pragma unroll
+  for (int o = 0; o <= kOut; ++o)
+#pragma unroll
+    for (int nt = 0; nt < kRtNt; ++nt) csum[o][nt][0] = csum[o][nt][1] = 0.f;
+#pragma unroll
+  for (int o = 0; o < kRow; ++o) ssum[o] = 0.f;
+  // The chunk's b1 and head weights, once: the first barrier below shows
+  // them.
+  for (int i = tid; i < (1 + kOut) * kRtHc; i += kThreads) {
+    const int o = i / kRtHc - 1, j = j0 + i % kRtHc;
+    float v = 0.f;
+    if (j < hid)
+      v = o < 0 ? a.b1[j]
+          : !kActor ? rt_r<BF>(a.head[0][j])
+          : o < 2   ? rt_r<BF>(a.head[0][o * hid + j])
+                    : rt_r<BF>(a.head[2][(o - 2) * hid + j]);
+    smem[Sh::kB1 + i] = v;
+  }
+  auto fetch = [&](long long s) {
+    long long r0;
+    int chunk, kq;
+    st.at(s, r0, chunk, kq);
+    float* xs = smem + (s & 1) * Sh::kStage;
+    rt_fetch(a, r0, j0, kq * kRtKc, xs, tid);
+    if (kq == 0)  // the tile's rowbuf rows, into its half of rg
+      rt_fetch_rows<kRow>(a, r0, rg + (s / n_k & 1) * kRtRows * kRow, tid);
+  };
+  if (n_stages > 0) fetch(0);
+  mma::cp_async_commit();
+  float c[kRtNt][4];
+  for (long long s = 0; s < n_stages; ++s) {
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < n_stages) fetch(s + 1);
+    mma::cp_async_commit();
+    long long r0;
+    int chunk, kq;
+    st.at(s, r0, chunk, kq);
+    const float* xs = smem + (s & 1) * Sh::kStage;
+    rt_split<BF>(xs + kRtRows * kRtLdx, frag, tid);
+    const int x0 = kq * kRtKc - i0;  // the stage's columns in the In chunk
+    if (x0 >= 0 && x0 < kRtIc)
+      for (int u = tid; u < kRtRows * kRtKc / 4; u += kThreads) {
+        const int r = u / (kRtKc / 4), q = 4 * (u % (kRtKc / 4));
+        *reinterpret_cast<float4*>(xi + r * kRtLdi + x0 + q) =
+            *reinterpret_cast<const float4*>(xs + r * kRtLdx + q);
       }
-      gs[r * hc + jj] = gp;
-      hs[r * hc + jj] = h;
+    __syncthreads();
+    if (kq == 0)
+#pragma unroll
+      for (int nt = 0; nt < kRtNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+    rt_stage_mma<BF>(c, xs + warp * 16 * kRtLdx, frag, rt_steps<BF>(in, kq),
+                     lane);
+    if (kq != n_k - 1) continue;
+    // The tile's end.  g_pre (critic: (w2 g_v)(h > 0), with h = relu(pre))
+    // or g_h (actor: [Wmu; Wvar]^T g_z, with h = pre) into gs (float32:
+    // split into its TF32 halves once, here), and the column sums.
+    const float* rgt = rg + (s / n_k & 1) * kRtRows * kRow;
+#pragma unroll
+    for (int nt = 0; nt < kRtNt; ++nt) {
+      const int j = nt * 8 + 2 * t;
+      const float2 b = *reinterpret_cast<const float2*>(s_b1 + j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const float* gr = rgt + r * kRow + 1;
+        float hv[2] = {c[nt][2 * h] + b.x, c[nt][2 * h + 1] + b.y};
+        float gp[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (kActor) {
+            const float* w = s_head + j + e;
+            gp[e] = ((w[0] * rt_r<BF>(gr[0]) + w[kRtHc] * rt_r<BF>(gr[1])) +
+                     w[2 * kRtHc] * rt_r<BF>(gr[2])) +
+                    w[3 * kRtHc] * rt_r<BF>(gr[3]);
+          } else {
+            hv[e] = fmaxf(hv[e], 0.f);
+            gp[e] = (s_head[j + e] * rt_r<BF>(gr[0])) * flag(hv[e] > 0.f);
+          }
+          if (sums) {
+            csum[0][nt][e] = csum[0][nt][e] + gp[e];
+#pragma unroll
+            for (int o = 0; o < kOut; ++o)
+              csum[1 + o][nt][e] =
+                  csum[1 + o][nt][e] + rt_r<BF>(gr[o]) * rt_r<BF>(hv[e]);
+          }
+        }
+        if constexpr (BF) {
+          *reinterpret_cast<float2*>(gs + r * kRtLdg + j) =
+              make_float2(gp[0], gp[1]);
+        } else {
+          uint32_t big[2], small_[2];
+          mma::split(gp, big, small_);
+          *reinterpret_cast<float4*>(gs + 2 * (r * kRtLdg2 + j)) =
+              make_float4(__uint_as_float(big[0]), __uint_as_float(small_[0]),
+                          __uint_as_float(big[1]),
+                          __uint_as_float(small_[1]));
+        }
+      }
     }
     __syncthreads();
-    for (int i = tid; i < n_acc; i += kThreads) {
-      float sum = acc[i];
-      if (i < nj * in) {  // dW1 (jj, k) += g_pre x
-        const int jj = i / in, k = i - jj * in;
-        for (int r = 0; r < kRtRows; ++r)
-          sum = __fmaf_rn(rt_r<BF>(gs[r * hc + jj]), rt_r<BF>(xs[r * ldx + k]),
-                          sum);
-      } else if (i < nj * (in + 1)) {  // db1: the float32 g_pre
-        const int jj = i - nj * in;
-        for (int r = 0; r < kRtRows; ++r) sum = sum + gs[r * hc + jj];
-      } else {  // dW2 += g_v h, or output o's row of g_z^T h
-        const int q = i - nj * (in + 1), o = q / nj, jj = q - o * nj;
-        for (int r = 0; r < kRtRows; ++r)
-          sum = __fmaf_rn(rt_r<BF>(rg[r * kRow + 1 + o]),
-                          rt_r<BF>(hs[r * hc + jj]), sum);
+    // dW1^T += x^T g_pre over the tile's rows (K = kRtRows).
+    if (dw1) {
+      const float* xa = xi + mt * 16;
+      if constexpr (BF) {
+#pragma unroll 2
+        for (int k16 = 0; k16 < kRtRows / 16; ++k16) {
+          uint32_t af[4];
+          mma::load_a_cols_bf16(xa + k16 * 16 * kRtLdi, kRtLdi, lane, af);
+#pragma unroll
+          for (int jn = 0; jn < kRtNt; ++jn) {
+            if (jn >= nj) break;
+            uint32_t bf[2];
+            mma::load_b_rows_bf16(gs + k16 * 16 * kRtLdg + (wn0 + wn * jn) * 8,
+                                  kRtLdg, lane, bf);
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma::mma_bf16(d, af, bf[0], bf[1]);
+            add_to(acc[jn], d);
+          }
+        }
+      } else {
+        const float2* g2 = reinterpret_cast<const float2*>(gs);
+#pragma unroll 2
+        for (int k8 = 0; k8 < kRtRows / 8; ++k8) {
+          float af[4];
+          uint32_t a_big[4], a_small[4];
+          mma::load_a_cols(xa + k8 * 8 * kRtLdi, kRtLdi, lane, af);
+          mma::split(af, a_big, a_small);
+#pragma unroll
+          for (int jn = 0; jn < kRtNt; ++jn) {
+            if (jn >= nj) break;
+            // B (row k8 8 + t (+ 4), unit n-tile 8 + g): its halves.
+            const float2* b = g2 + (k8 * 8 + t) * kRtLdg2 +
+                              (wn0 + wn * jn) * 8 + g;
+            const float2 b0 = b[0], b1 = b[4 * kRtLdg2];
+            const uint32_t b_big[2] = {__float_as_uint(b0.x),
+                                       __float_as_uint(b1.x)};
+            const uint32_t b_small[2] = {__float_as_uint(b0.y),
+                                         __float_as_uint(b1.y)};
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma::mma_3xtf32(d, a_big, a_small, b_big, b_small);
+            add_to(acc[jn], d);
+          }
+        }
       }
-      acc[i] = sum;
     }
     if (small)
-      for (int r = 0; r < rows; ++r) small_sum = small_sum + rg[r * kRow + tid];
-    __syncthreads();  // the tile is refilled next
+#pragma unroll
+      for (int i = 0; i < kRtRows / 32; ++i)
+#pragma unroll
+        for (int o = 0; o < kRow; ++o)
+          ssum[o] = ssum[o] + rgt[(lane + 32 * i) * kRow + o];
   }
-  // This block's part of its row block's partial, at the outputs' indices.
-  float* out = a.partials + static_cast<long long>(blockIdx.x) *
-                                (kActor ? 1 + hid * in + 5 * hid + 4
-                                        : 1 + hid * in + 2 * hid + 1);
+  mma::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with xi, which red reuses
+
+  // This block's part of row block b's partial, at the outputs' indices.
+  const int n_out =
+      kActor ? 1 + hid * in + 5 * hid + 4 : 1 + hid * in + 2 * hid + 1;
+  float* out = a.partials + static_cast<long long>(blockIdx.x) * n_out;
   const int o_b1 = 1 + hid * in, o_head = o_b1 + hid;
-  for (int i = tid; i < n_acc; i += kThreads) {
-    int o;
-    if (i < nj * in) {
-      const int jj = i / in;
-      o = 1 + (j0 + jj) * in + (i - jj * in);
-    } else if (i < nj * (in + 1)) {
-      o = o_b1 + j0 + (i - nj * in);
-    } else {
-      const int q = i - nj * (in + 1), c = q / nj, j = j0 + q - c * nj;
-      o = !kActor ? o_head + j
-          : c < 2 ? o_head + c * hid + j
-                  : o_head + 2 * hid + 2 + (c - 2) * hid + j;
+  if (dw1)
+#pragma unroll
+    for (int jn = 0; jn < kRtNt; ++jn) {
+      if (jn >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = i0 + mt * 16 + g + 8 * (e >> 1);
+        const int j = j0 + (wn0 + wn * jn) * 8 + 2 * t + (e & 1);
+        if (m < in && j < hid) out[1 + j * in + m] = acc[jn][e];
+      }
     }
-    out[o] = acc[i];
+  if (sums) {  // the lanes' sums over g by shuffles, then warps in order
+    float* red = xi;  // (kWarps, 1 + kOut, kRtHc)
+#pragma unroll
+    for (int o = 0; o <= kOut; ++o)
+#pragma unroll
+      for (int nt = 0; nt < kRtNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = csum[o][nt][e];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            v = v + __shfl_xor_sync(0xffffffffu, v, off);
+          if (g == 0)
+            red[(warp * (1 + kOut) + o) * kRtHc + nt * 8 + 2 * t + e] = v;
+        }
+    __syncthreads();
+    for (int i = tid; i < (1 + kOut) * kRtHc; i += kThreads) {
+      const int o = i / kRtHc, j = j0 + i % kRtHc;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v = v + red[w * (1 + kOut) * kRtHc + i];
+      if (j >= hid) continue;
+      const int c = o - 1;
+      out[o == 0      ? o_b1 + j
+          : !kActor   ? o_head + j
+          : c < 2     ? o_head + c * hid + j
+                      : o_head + 2 * hid + 2 + (c - 2) * hid + j] = v;
+    }
   }
   if (small) {  // column 0 the loss; then db2, or dbmu and dbvar
-    const int c = tid - 1;
-    out[tid == 0      ? 0
-        : !kActor     ? o_head + hid
-        : c < 2       ? o_head + 2 * hid + c
-                      : o_head + 4 * hid + 2 + (c - 2)] = small_sum;
+#pragma unroll
+    for (int o = 0; o < kRow; ++o) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ssum[o] = ssum[o] + __shfl_xor_sync(0xffffffffu, ssum[o], off);
+      const int c = o - 1;
+      if (lane == 0)
+        out[o == 0      ? 0
+            : !kActor   ? o_head + hid
+            : c < 2     ? o_head + 2 * hid + c
+                        : o_head + 4 * hid + 2 + (c - 2)] = ssum[o];
+    }
   }
 }
 
 template <bool kActor, bool BF>
-cudaError_t launch_rt(const RtArgs& args, int blocks, int n_out, float* out,
-                      cudaStream_t s) {
-  using Sh = RtShape<kActor>;
-  const int fwd = 4 * Sh::forward_floats(args.ldx);
-  const int bwd = 4 * Sh::backward_floats(args.in_size, args.ldx, args.hc);
+cudaError_t launch_rt(const RtArgs& args, int sms, int blocks, int n_out,
+                      float* out, cudaStream_t s) {
+  const int fwd = 4 * RtShape<kActor, 3>::kForward;
+  const int bwd = 4 * RtShape<kActor, 2>::kBackward;
   cudaError_t err = cudaFuncSetAttribute(
       rt_forward_kernel<kActor, BF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, fwd);
@@ -1859,10 +2259,14 @@ cudaError_t launch_rt(const RtArgs& args, int blocks, int n_out, float* out,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bwd);
   if (err != cudaSuccess) return err;
-  rt_forward_kernel<kActor, BF><<<blocks, kThreads, fwd, s>>>(args);
+  const long long tiles = (args.n_rows + kRtRows - 1) / kRtRows;
+  const int forward_blocks =
+      static_cast<int>(tiles < 2LL * sms ? tiles : 2LL * sms);
+  rt_forward_kernel<kActor, BF><<<forward_blocks, kThreads, fwd, s>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(blocks, (args.hidden + args.hc - 1) / args.hc);
+  const dim3 grid(blocks, (args.hidden + kRtHc - 1) / kRtHc,
+                  (args.in_size + kRtIc - 1) / kRtIc);
   rt_backward_kernel<kActor, BF><<<grid, kThreads, bwd, s>>>(args);
   return reduce(args.partials, blocks, n_out, out, s);
 }
@@ -2048,15 +2452,25 @@ int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden, int bf16) {
   return per_sm;
 }
 
-// The hidden units a block of the run-time route's backward takes at these
-// widths (actor != 0: the un-collapsed actor), 0 where no block's shared
-// memory holds its rows; and the most floats of shared memory a block takes.
-int marlnav_rt_chunk(int in_size, int hidden, int actor) {
+// The row blocks of the run-time route's backward grid (the rows of its
+// partials) for n_rows rows at these widths on a card of `sms` SMs: one
+// wave of blocks (one an SM) over the grid's hidden and In chunks, at least
+// one, at most a tile of rows each; 0 where the widths pass the grid's
+// 65,535 chunks or a 32-bit output index.
+int marlnav_rt_row_blocks(long long n_rows, int in_size, int hidden,
+                          int sms) {
   using namespace marlnav::update;
-  return actor ? rt_chunk<true>(in_size, hidden)
-               : rt_chunk<false>(in_size, hidden);
+  const long long chunks = (hidden + kRtHc - 1) / kRtHc;
+  const long long in_chunks = (in_size + kRtIc - 1) / kRtIc;
+  if (n_rows < 1 || in_size < 1 || hidden < 1 || sms < 1 ||
+      chunks > kRtMaxChunks || in_chunks > kRtMaxChunks ||
+      static_cast<long long>(hidden) * (in_size + 5) + 4 > 0x7fffffffLL)
+    return 0;
+  const long long tiles = (n_rows + kRtRows - 1) / kRtRows;
+  long long blocks = sms / (chunks * in_chunks);
+  if (blocks < 1) blocks = 1;
+  return static_cast<int>(blocks < tiles ? blocks : tiles);
 }
-int marlnav_smem_floats() { return marlnav::update::kSmemFloats; }
 
 // Each launches on `stream` (a cudaStream_t from
 // torch.cuda.current_stream()) and returns cudaGetLastError(): 0 when its
@@ -2163,37 +2577,42 @@ int marlnav_actor_grad_uncollapsed_sums(
 // The run-time-width route (three launches, see rt_forward_kernel) of the
 // critic (actor == 0: row0 old values, row1 returns; head0 w2, head1 b2)
 // or the un-collapsed actor (row0 actions, row1 log-probs, row2
-// advantages; head0..3 wmu, bmu, wvar, bvar), on `blocks` row blocks;
-// rowbuf (N, 2) or (N, 5), partials (blocks, n_out); out as the
-// tensor-core entry points'.
+// advantages; head0..3 wmu, bmu, wvar, bvar), its backward on `blocks` row
+// blocks (marlnav_rt_row_blocks for `sms`); rowbuf (N, 2) or (N, 5),
+// partials (blocks, n_out); out as the tensor-core entry points'.
 int marlnav_rt_grad_sums(int actor, const float* obs, const float* row0,
                          const float* row1, const float* row2,
                          const float* w1, const float* b1, const float* head0,
                          const float* head1, const float* head2,
                          const float* head3, long long n_rows, int in_size,
                          int hidden, float eps, float lo, float hi,
-                         float ent_c, float ent_half, int bf16, int blocks,
-                         float* rowbuf, float* partials, float* out,
-                         int device, void* stream) {
+                         float ent_c, float ent_half, int bf16, int sms,
+                         int blocks, float* rowbuf, float* partials,
+                         float* out, int device, void* stream) {
   using namespace marlnav::update;
-  const int hc = marlnav_rt_chunk(in_size, hidden, actor);
-  if (!hc || n_rows < 1 || blocks < 1)
+  const int most = marlnav_rt_row_blocks(n_rows, in_size, hidden, sms);
+  if (!most || blocks < 1 || blocks > most)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The widest copies that every row of x and W1 starts on.
+  const std::uintptr_t at = reinterpret_cast<std::uintptr_t>(obs) |
+                            reinterpret_cast<std::uintptr_t>(w1) |
+                            4u * static_cast<unsigned>(in_size);
+  const int copy = at % 16 == 0 ? 4 : at % 8 == 0 ? 2 : 1;
   const RtArgs args{{obs, w1, b1, {row0, row1, row2},
                      {head0, head1, head2, head3}, n_rows, in_size, hidden,
                      false, eps, {lo, hi, ent_c, ent_half}, partials},
-                    hc, rt_ldx(in_size), rowbuf};
+                    copy, rowbuf};
   const int n_out = actor ? ActorHead<4>::n_out(in_size, hidden)
                           : CriticHead<4>::n_out(in_size, hidden);
   if (actor)
-    err = bf16 ? launch_rt<true, true>(args, blocks, n_out, out, s)
-               : launch_rt<true, false>(args, blocks, n_out, out, s);
+    err = bf16 ? launch_rt<true, true>(args, sms, blocks, n_out, out, s)
+               : launch_rt<true, false>(args, sms, blocks, n_out, out, s);
   else
-    err = bf16 ? launch_rt<false, true>(args, blocks, n_out, out, s)
-               : launch_rt<false, false>(args, blocks, n_out, out, s);
+    err = bf16 ? launch_rt<false, true>(args, sms, blocks, n_out, out, s)
+               : launch_rt<false, false>(args, sms, blocks, n_out, out, s);
   return static_cast<int>(err);
 }
 

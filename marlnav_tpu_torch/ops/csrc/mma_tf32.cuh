@@ -115,6 +115,33 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
+// As cp_async4 / cp_async16, and 8 bytes, but zeros land in place of the
+// source where !valid (no source byte is read then; src need only be
+// mapped).
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
+                                                bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_zfill(float* dst, const float* src,
+                                                bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+                                                 bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

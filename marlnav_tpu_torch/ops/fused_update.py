@@ -28,10 +28,12 @@ the tensor cores in 3xTF32 (``ops/csrc/mma_tf32.cuh``), in template
 instances for critic In <= 103 and H <= 256 and un-collapsed actor F <= 39
 and H <= 256 (bf16: ten of those widths).  Every other width takes the
 run-time-width route (``fused_update.cu rt_forward_kernel``), which the
-wrapper picks by width before the launch: CUDA-core sums, three launches
-(forward, backward, the fixed-order reduction), one count.  It raises
-``ValueError`` only where one block's shared memory cannot hold a tile of
-16 rows of x (In past about 3,000).  The affine actor takes any F <=
+wrapper picks by width before the launch: the same tensor-core products
+with K and H at run time, W1 streamed through shared memory a tile at a
+time, three launches (forward, backward, the fixed-order reduction), one
+count.  It raises ``ValueError`` only past its grid (over 4 million hidden
+units or 8 million input columns) or 32-bit output indices.  The affine
+actor takes any F <=
 1023 (a runtime width: its rows stream through shared memory in tiles
 sized by F; past 1023 its column groups of [x | 1] would outnumber a
 block's threads).
@@ -90,14 +92,13 @@ def _library():
         + [i32, i32, ptr, ptr, i32, ptr])
     lib.marlnav_rt_grad_sums.argtypes = (
         [i32] + [ptr] * 10 + [ctypes.c_longlong, i32, i32] + [f32] * 5
-        + [i32, i32, ptr, ptr, ptr, i32, ptr])
+        + [i32, i32, i32, ptr, ptr, ptr, i32, ptr])
     for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums,
                lib.marlnav_actor_grad_uncollapsed_sums,
                lib.marlnav_rt_grad_sums):
         fn.restype = i32
-    lib.marlnav_rt_chunk.argtypes = [i32, i32, i32]
-    lib.marlnav_rt_chunk.restype = i32
-    lib.marlnav_smem_floats.argtypes, lib.marlnav_smem_floats.restype = [], i32
+    lib.marlnav_rt_row_blocks.argtypes = [ctypes.c_longlong, i32, i32, i32]
+    lib.marlnav_rt_row_blocks.restype = i32
     for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
@@ -153,26 +154,24 @@ def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
     return blocks, index, torch.cuda.current_stream(device).cuda_stream
 
 
-# Rows a tile of the run-time-width route (kRtRows in fused_update.cu).
-RT_ROWS = 16
-
-
 def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
                   hidden: int, eps: float, ppo, bf16: bool, n_out: int):
     """The run-time-width route of the critic (``actor`` False) or the
     un-collapsed actor: its three launches (forward, backward, the
     fixed-order reduction of the row blocks' partials) on the current
-    stream; returns the flat sums.  Raises ``ValueError`` where one
-    block's shared memory cannot hold a tile of its rows."""
-    if not lib.marlnav_rt_chunk(n_in, hidden, int(actor)):
+    stream; returns the flat sums.  Raises ``ValueError`` where the widths
+    pass its backward grid (65,535 hidden chunks of 64 units or In chunks
+    of 128 columns) or a 32-bit output index."""
+    n = obs.shape[0]
+    index = _device_index(obs.device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    blocks = lib.marlnav_rt_row_blocks(n, n_in, hidden, sms)
+    if not blocks:
         raise ValueError(
             f"{'un-collapsed actor' if actor else 'critic'} grad kernel: "
-            f"{RT_ROWS} rows of input width {n_in} and their sums for "
-            f"hidden {hidden} do not fit one block's shared memory "
-            f"({4 * lib.marlnav_smem_floats()} bytes)")
-    n = obs.shape[0]
-    # two row blocks an SM, each its rows and every hidden chunk
-    blocks, index, stream = _launch_setup(obs.device, n, RT_ROWS, 2)
+            f"input width {n_in} and hidden {hidden} pass the run-time "
+            f"route's grid (65,535 chunks of 64 hidden units or of 128 "
+            f"input columns) or 32-bit output indices")
     rowbuf = torch.empty(n * (5 if actor else 2), dtype=torch.float32,
                          device=obs.device)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -185,8 +184,9 @@ def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
     err = lib.marlnav_rt_grad_sums(
         int(actor), obs.data_ptr(), *(ptr(x) for x in rows), w1.data_ptr(),
         b1.data_ptr(), *(ptr(x) for x in head), n, n_in, hidden, eps, *ppo,
-        int(bf16), blocks, rowbuf.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), index, stream)
+        int(bf16), sms, blocks, rowbuf.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), index, torch.cuda.current_stream(obs.device)
+        .cuda_stream)
     if err != 0:
         raise RuntimeError(f"run-time-width grad kernels launch failed: "
                            f"CUDA error {err}")

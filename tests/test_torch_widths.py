@@ -15,11 +15,19 @@ itself, with no interpret mode at these widths:
   5e-4 (view angles near dot ~ 1), rewards rtol 1e-4 / atol 1e-3, done
   exactly, the state where no env finished rtol 1e-5 / atol 1e-3 (the
   tolerances of tests/test_torch_fused_collect.py);
-* the plain critic and un-collapsed actor gradients at critic (In 120, H
-  50) (-no 17), (In 36, H 512) (-hs 512) and actor (F 40, H 50) (-no 17)
-  against ``jax.value_and_grad`` of the JAX package's losses (XLA):
-  losses rtol 1e-5, gradients rtol 1e-4 / atol 1e-6 (float32 sums in
-  another order, tests/test_torch_mappo.py's tolerances).
+* the plain critic and un-collapsed actor gradients at the widths the
+  run-time-width route is timed at on the card: critic (In 120, H 50)
+  (-no 17), (In 210, H 64), (In 36, H 512) (-hs 512), (In 102, H 257) and
+  (In 1041, H 64) (past 1,000 columns), actor (F 40, H 50) (-no 17), (F
+  70, H 128) and (F 12, H 512), against ``jax.value_and_grad`` of the JAX
+  package's losses (XLA): losses rtol 1e-5, gradients rtol 1e-4 / atol
+  1e-6 (float32 sums in another order, tests/test_torch_mappo.py's
+  tolerances);
+* with ``--bf16-updates`` the plain critic at (In 36, H 64), the width
+  ``-hs 64`` trains through the run-time route's bf16 kernels, against the
+  JAX package's staged critic kernel in interpret mode with and without
+  bf16, as tests/test_torch_bf16.py holds the routes: each output within a
+  quarter of the JAX route's own bf16 - float32 gap.
 """
 
 from typing import NamedTuple
@@ -54,6 +62,9 @@ from marlnav_tpu_torch.ops import fused_update as fu
 from marlnav_tpu_torch.ops.step_math import StepMath
 from marlnav_tpu_torch.utils.seeding import make_generator
 
+from test_torch_bf16 import (assert_bf16_route, cfgs, jax_out, networks,
+                             port_out)
+from test_torch_bf16 import rand_buffer as bf16_buffer
 from test_torch_fused_collect import tame_policy
 
 P, A = 64, 3
@@ -183,8 +194,13 @@ def test_plain_tamed_run_matches_jax_env_at_many_obstacles(o):
 
 T, PB = 12, 4
 WIDE = {"critic-in120-h50": ("critic", 40, 50),
+        "critic-in210-h64": ("critic", 70, 64),
         "critic-in36-h512": ("critic", 12, 512),
-        "uncollapsed-f40-h50": ("actor", 40, 50)}
+        "critic-in102-h257": ("critic", 34, 257),
+        "critic-in1041-h64": ("critic", 347, 64),
+        "uncollapsed-f40-h50": ("actor", 40, 50),
+        "uncollapsed-f70-h128": ("actor", 70, 128),
+        "uncollapsed-f12-h512": ("actor", 12, 512)}
 
 
 def rand_buffer(seed, obs):
@@ -232,3 +248,27 @@ def test_plain_gradients_match_jax_at_wide_widths(width):
             np.testing.assert_allclose(got.T if leaf == "w" else got, want,
                                        rtol=1e-4, atol=1e-6,
                                        err_msg=f"{width} {name}.{leaf}")
+
+
+def test_plain_bf16_critic_matches_jax_at_h64():
+    """fu.critic_grad with bf16_updates (the plain version on the CPU) at
+    In 36 / H 64 against make_fused_critic_grad in interpret mode, bf16
+    and float32, on both minibatch slices: within a quarter of the JAX
+    route's gap, output by output."""
+    from marlnav_tpu.ops.fused_update import (make_fused_critic_grad,
+                                              stage_critic_minibatch)
+    p, t = 128, 12
+    (_, jcr), (_, tcr) = networks(3, hidden=64)
+    jb, tb = bf16_buffer(2, t, p)
+    kernels = {}
+    for bf16 in (False, True):
+        jc, tc = cfgs(p, t, bf16, batch_size=6, hidden_size=64)
+        kernels[bf16] = jax.jit(make_fused_critic_grad(jc, interpret=True),
+                                static_argnums=2)
+    assert tcr.fc1.weight.shape == (64, 36)
+    for i, (j_mb, t_mb) in enumerate(zip(jm.minibatch_slices(jb, jc),
+                                         tm.minibatch_slices(tb, tc))):
+        staged = stage_critic_minibatch(j_mb, jc)
+        j = {bf16: jax_out(*k(jcr, *staged)) for bf16, k in kernels.items()}
+        port = port_out(*fu.critic_grad(tcr, t_mb, tc))
+        assert_bf16_route(port, j[True], j[False], f"critic H 64, slice {i}")

@@ -156,23 +156,24 @@ def test_uncollapsed_kernel_matches_plain_on_card(cuda):
 def test_widths_past_the_limits_raise_on_the_card(cuda):
     """Past its widths each wrapper raises ValueError naming them: the
     affine actor past obs 1023, and the run-time-width route of the critic
-    and the un-collapsed actor where one block's shared memory cannot hold
-    a tile of rows (input width 4000)."""
+    and the un-collapsed actor past its backward grid, 65,535 hidden chunks
+    of 64 units (hidden 4,194,241 at input width 1); no width of it has
+    to fit shared memory whole (input 4,000 runs:
+    tests_cuda/test_cuda_widths.py)."""
     lib = fu._library()
     max_f = lib.marlnav_actor_max_obs()
     actor_in, _ = _sum_inputs(64, max_f + 1, 50, cuda)
     with pytest.raises(ValueError, match=f"1..{max_f}"):
         fu.actor_grad_sums(*actor_in, 0.2, 0.001)
-    w1, b1, w2, b2, _, vold, ret = _sum_inputs(64, OBS, 50, cuda)[1]
-    wide = torch.zeros((50, 4000), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fu.critic_grad_sums(wide, b1, w2, b2,
-                            torch.zeros((64, 4000), device=cuda), vold, ret,
-                            0.2)
-    args = list(_uncollapsed_inputs(64, OBS, 50, cuda))
-    args[0], args[6] = wide, torch.zeros((64, 4000), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fu.actor_grad_uncollapsed_sums(*args, 0.2, 0.001)
+    h = 65_535 * 64 + 1
+    z = lambda *s: torch.zeros(s, device=cuda)  # noqa: E731
+    x, col = z(64, 1), z(64)
+    with pytest.raises(ValueError, match="grid"):
+        fu.critic_grad_sums(z(h, 1), z(h), z(1, h), z(1), x, col, col, 0.2)
+    with pytest.raises(ValueError, match="grid"):
+        fu.actor_grad_uncollapsed_sums(z(h, 1), z(h), z(2, h), z(2), z(2, h),
+                                       z(2), x, z(64, 2), col, col, 0.2,
+                                       0.001)
 
 
 def _unshaped_inputs(kind, n, f, h, device):

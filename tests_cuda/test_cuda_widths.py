@@ -8,7 +8,11 @@ field, through resets with noisy_ags, at a ragged env count too), as the
 templated instances do.  The gradient route is held as the tensor-core
 kernels are: float32 within 1e-4 max|w| + 1e-7 of the plain version in
 float64, bf16 within a quarter of the plain version's bf16 - float32 gap,
-output by output, two launches bitwise equal, one count a call.
+output by output, two launches bitwise equal, one count a call; at ragged
+row counts (one row, part of a warp's 16, part of a block's 128 and 200,003),
+at an input past 1,000 columns (the backward's In-chunk axis) and at
+4,000, and captured in a CUDA graph, whose replay
+equals the eager call bit for bit.
 """
 
 import pytest
@@ -21,6 +25,7 @@ from marlnav_tpu_torch.ops import fused_collect as fc
 from marlnav_tpu_torch.ops import fused_rollout as fr
 from marlnav_tpu_torch.ops import fused_update as fu
 from marlnav_tpu_torch.ops import update_math as um
+from marlnav_tpu_torch.ops.graphs import CountedGraph
 from marlnav_tpu_torch.ops.step_math import StepMath
 from marlnav_tpu_torch.utils.seeding import make_generator
 
@@ -31,8 +36,8 @@ from test_cuda_fused_update import (_margins, _sum_inputs,
 N = 100_003
 # (In, H) of the critic and (F, H) of the un-collapsed actor past the
 # tensor-core instances; the affine actor's obs widths past 255.
-CRITIC_WIDTHS = ((120, 50), (210, 64), (36, 512), (103, 257))
-UNCOLLAPSED_WIDTHS = ((40, 50), (70, 128), (12, 512))
+CRITIC_WIDTHS = ((120, 50), (210, 64), (36, 512), (103, 257), (1040, 64))
+UNCOLLAPSED_WIDTHS = ((40, 50), (70, 128), (12, 512), (1030, 64))
 AFFINE_WIDTHS = (256, 300)
 
 
@@ -164,11 +169,12 @@ def test_affine_past_255_matches_float64(cuda, f):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_in,h", CRITIC_WIDTHS + ((36, 32), (102, 256)))
+@pytest.mark.parametrize("n_in,h", CRITIC_WIDTHS + ((36, 32), (36, 64),
+                                                    (102, 256)))
 def test_critic_runtime_route_bf16(cuda, n_in, h):
     """bf16 at every width: those past the float32 instances, and -hs 32
-    (In 36, H 32) and -no 14 -hs 256 (In 102, H 256), which have float32
-    instances but no bf16 one."""
+    (In 36, H 32), -hs 64 (In 36, H 64) and -no 14 -hs 256 (In 102, H
+    256), which have float32 instances but no bf16 one."""
     before = fu.critic_grad_sums.launches
     _check_bf16(fu.critic_grad_sums, um.critic_grad_sums_reference,
                 (*critic_inputs(N, n_in, h, cuda), 0.2), True,
@@ -183,3 +189,63 @@ def test_uncollapsed_runtime_route_bf16(cuda, f, h):
                 um.actor_grad_sums_uncollapsed_reference,
                 (*_uncollapsed_inputs(N, f, h, cuda), 0.2, 0.001), True,
                 f"un-collapsed F {f} H {h}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 17, 63, 65, 200_003])
+@pytest.mark.parametrize("kind", ["critic", "uncollapsed"])
+def test_runtime_route_ragged_rows_match_float64(cuda, kind, n):
+    """Row counts that leave a warp's 16 rows and a block's tile of 128
+    ragged (critic In 120 / H 50, un-collapsed F 40 / H 50, -no 17)."""
+    if kind == "critic":
+        assert_float64(fu.critic_grad_sums, um.critic_grad_sums_reference,
+                       (*critic_inputs(n, 120, 50, cuda), 0.2))
+    else:
+        assert_float64(fu.actor_grad_uncollapsed_sums,
+                       um.actor_grad_sums_uncollapsed_reference,
+                       (*_uncollapsed_inputs(n, 40, 50, cuda), 0.2, 0.001))
+
+
+@pytest.mark.cuda
+def test_runtime_route_at_input_4000(cuda):
+    """Input width 4,000 (32 In chunks of the backward's grid): the route
+    streams x and W1 through shared memory, so no width has to fit it
+    whole."""
+    assert_float64(fu.critic_grad_sums, um.critic_grad_sums_reference,
+                   (*critic_inputs(5_003, 4000, 50, cuda), 0.2))
+    assert_float64(fu.actor_grad_uncollapsed_sums,
+                   um.actor_grad_sums_uncollapsed_reference,
+                   (*_uncollapsed_inputs(5_003, 4000, 50, cuda), 0.2, 0.001))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_runtime_route_graphed_equals_eager(cuda, bf16):
+    """Both gradients at run-time widths (critic In 120 / H 50, un-collapsed
+    F 70 / H 128) captured in a CountedGraph: each replay equals the eager
+    call bit for bit, on inputs rewritten in place between replays, and
+    counts one launch a wrapper."""
+    critic = (*critic_inputs(N, 120, 50, cuda), 0.2, bf16)
+    actor = (*_uncollapsed_inputs(N, 70, 128, cuda), 0.2, 0.001, bf16)
+
+    def both():
+        return (fu.critic_grad_sums(*critic),
+                fu.actor_grad_uncollapsed_sums(*actor))
+    both()  # warm: the library built, the attributes set
+    graph = CountedGraph()
+    with graph.capture():
+        out = both()
+    for step in range(2):
+        before = (fu.critic_grad_sums.launches,
+                  fu.actor_grad_uncollapsed_sums.launches)
+        graph.replay()
+        assert (fu.critic_grad_sums.launches,
+                fu.actor_grad_uncollapsed_sums.launches) == (
+                    before[0] + 1, before[1] + 1)
+        eager = both()
+        torch.cuda.synchronize()
+        for got, want in zip(out, eager):
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), f"replay {step}"
+        critic[4].mul_(0.5)  # obs: the next replay reads the new rows
+        actor[6].mul_(0.5)
