@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --against DIR [--out OUT]
 
 Run from the root of the repository on a machine with a CUDA card and
 ``nvcc``.  It builds the port's CUDA kernels from the sources in the
@@ -31,7 +32,9 @@ shape, the bench's included) and against the collect kernel, runs the
 bench (``python -m marlnav_tpu_torch.bench --plain`` at 16384 envs x 500
 steps, the rollout kernel's path), holds the collect and rollout kernels'
 run-time instance (9, 17 and 32 obstacles) against their plain versions
-bit for bit and times it, trains 2 short repeats with
+bit for bit at each lane width and times every width, at the main shapes
+and against the env count (the ground of ``rt_lanes``), times the
+templated collect at 1 to 8 obstacles, trains 2 short repeats with
 ``--fused-updates`` at ``-no 8``, ``-hs 128``, ``-hs 256``, ``-no 14``,
 ``-no 17`` and ``-hs 512`` on both actor routes, runs the card tests (``python -m pytest
 tests_cuda``), holds the returns kernel against its plain loops bit for
@@ -57,6 +60,13 @@ object, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  It exits non-zero, printing no result, where CUDA is
 unavailable.  The training artifacts and a JSON record of the run go to
 ``--out`` (default: a temporary directory, removed at exit).
+
+With ``--against DIR`` it runs nothing of the above: it builds the
+checkout at DIR (another commit, unpacked by ``git archive`` into a
+directory ``.gitignore`` lists) beside this one, prints where their
+``ptxas`` lines differ, and times the step kernels' run-time instances
+and a ``-no 17`` graphed repeat of both, in turns, each in a process of
+its own.
 """
 
 import argparse
@@ -307,6 +317,38 @@ def instance_line(log, mangled):
     return "; ".join(found) if found else f"{mangled}: no ptxas line"
 
 
+def least_squares_slope(ms_by_o):
+    """The least-squares slope of {O: ms}, in ms an obstacle."""
+    xs, ys = list(ms_by_o), list(ms_by_o.values())
+    mx, my = statistics.mean(xs), statistics.mean(ys)
+    return (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+            / sum((x - mx) ** 2 for x in xs))
+
+
+SWEEP_ENVS = (1024, 2048, 4096, 8192, 16384)
+
+
+def lane_sweep(label, widths, make, launch):
+    """Medians of 3 of a step kernel's run-time instance at each lane width
+    (``launch(sm, rows, a_comp, c_comp, lanes)``) at O 9, 17, 32 and P in
+    SWEEP_ENVS (``make(p, o)``), each line with its fastest width and
+    rt_lanes's pick marked; returns {"O=o P=p": {lanes: ms}}."""
+    from marlnav_tpu_torch.ops import fused_collect as fc
+
+    sweep = {}
+    for o in (9, 17, 32):
+        for p in SWEEP_ENVS:
+            args = make(p, o)
+            ms = {g: cuda_ms(lambda: launch(*args, g), reps=3, warmup=1)
+                  for g in widths}
+            best, pick = min(ms, key=ms.get), fc.rt_lanes(widths, p, o)
+            print(f"  {label} O={o} P={p} T=200: " + ", ".join(
+                f"{g} {v:.4f} ms" + (" best" if g == best else "")
+                + (" pick" if g == pick else "") for g, v in ms.items()))
+            sweep[f"O={o} P={p}"] = ms
+    return sweep
+
+
 def profile_run(label, fn):
     """Run ``fn()`` once under torch.profiler (its own overhead included)
     and print the device's busy time against the wall time, the largest
@@ -434,14 +476,17 @@ def main(out_dir):
         assert spills and not any(spills), actor_line
         record["actor_ptxas"][label] = actor_line
     # The run-time instances past the templated widths: the step kernels'
-    # past 8 obstacles, the gradient route past the tensor-core instances
-    # (forward and backward, critic and un-collapsed actor, float32 and
-    # bf16).  None may spill.
+    # past 8 obstacles at each lane width they have (collect 8, 16, 32;
+    # rollout 4, 8, 16, 32 in both modes), the gradient route past the
+    # tensor-core instances (forward and backward, critic and un-collapsed
+    # actor, float32 and bf16).  None may spill: the pin of every one of
+    # them is 0 bytes of spill stores.
     record["runtime_ptxas"] = {}
     for lib_name, mangled in (
-            ("fused_collect", "fused_collect_rt_kernel"),
-            ("fused_rollout", "fused_rollout_rt_kernelILb0E"),
-            ("fused_rollout", "fused_rollout_rt_kernelILb1E"),
+            *(("fused_collect", f"fused_collect_rt_kernelILi{g}E")
+              for g in fc.COLLECT_RT_LANES),
+            *(("fused_rollout", f"fused_rollout_rt_kernelILi{g}ELb{mean}E")
+              for g in fr.ROLLOUT_RT_LANES for mean in (0, 1)),
             *(("fused_update", f"rt_{part}_kernelILb{actor}ELb{bf16}E")
               for part in ("forward", "backward") for actor in (0, 1)
               for bf16 in (0, 1))):
@@ -812,44 +857,79 @@ def main(out_dir):
     print("fused_collect_kernel<O=3>: " + instance_line(
         builds["fused_collect"][1]["log"], "fused_collect_kernelILi3E"))
 
-    # Past 8 obstacles the run-time instance (fused_collect_rt_kernel): at
-    # O 9, 17 and 32, every field equal to the plain version through
-    # resets (episode_len 10, noisy_ags, ragged P 1000, T 32, both timed
-    # there), and the kernel timed at the main path's (1024, 1000).
+    # The templated instances at O 1 .. 8 at (1024, 1000): the compile-time
+    # cost of an obstacle a step, the yardstick of the run-time instance's.
+    tmpl_ms = {}
+    for o in range(1, 9):
+        sm, rows, a_comp, c_comp = setup(1024, 1000, o=o)
+        tmpl_ms[o] = cuda_ms(lambda: fc.fused_collect_rows(
+            sm, rows, a_comp, c_comp, 3, 1000), reps=7, warmup=2)
+    tmpl_slope = least_squares_slope(tmpl_ms)
+    record["collect_templated_ms"] = tmpl_ms
+    print("fused_collect_kernel<O> at P=1024 T=1000 (medians of 7): "
+          + ", ".join(f"O {o} {v:.4f} ms" for o, v in tmpl_ms.items())
+          + f"; least-squares slope {tmpl_slope * 1e3:.2f} ns a step an "
+          f"obstacle")
+
+    # Past 8 obstacles the run-time instance (fused_collect_rt_kernel<G>) at
+    # each lane width G it has: at O 9, 17 and 32 every field equal to the
+    # plain version through resets (episode_len 10, noisy_ags, ragged P
+    # 1000, T 16), and each width timed at the main path's (1024, 1000),
+    # the chooser's pick (fc.rt_lanes) marked.  Then the crossover that
+    # rt_lanes's rule rests on: each width at P 1024 .. 16384, T 200.
+    widths = fc.COLLECT_RT_LANES
+    rt_ms = {}
     for o in (9, 17, 32):
-        sm, rows, a_comp, c_comp = setup(1000, 32, episode_len=10, noisy=True,
+        sm, rows, a_comp, c_comp = setup(1000, 16, episode_len=10, noisy=True,
                                          o=o)
-        uniforms = torch.rand((32, sm.n_draws, 1000), device=dev,
+        uniforms = torch.rand((16, sm.n_draws, 1000), device=dev,
                               generator=make_generator(8, dev))
-        k_ms = cuda_ms(lambda: fc.fused_collect_rows(
-            sm, rows, a_comp, c_comp, 3, 32, uniforms), reps=7, warmup=2)
         plain_ms = cuda_ms(lambda: out.update(
             r=fc.collect_rows_reference(sm, rows, a_comp, c_comp, uniforms)))
-        k = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 3, 32, uniforms)
-        torch.cuda.synchronize()
-        errs = collect_errors(k, out["r"])
-        print(f"O={o} P=1000 T=32 resets, same uniforms: max abs err "
-              + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
-              + f"; done frac {k.done.float().mean().item():.4f}")
-        assert all(e == 0.0 for e in errs.values()), (o, errs)
-        assert torch.equal(k.done, out["r"].done) and k.done.any()
-        assert torch.equal(k.stats, out["r"].stats)
-        bound_ms, by, _, _ = collect_bound(sm, rows, 1000, 32)
-        shapes[f"O={o} 1000x32"] = dict(ms=k_ms, plain_ms=plain_ms,
+        for g in widths:
+            k = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 3, 16,
+                                      uniforms, lanes=g)
+            torch.cuda.synchronize()
+            errs = collect_errors(k, out["r"])
+            assert all(e == 0.0 for e in errs.values()), (o, g, errs)
+            assert torch.equal(k.done, out["r"].done) and k.done.any()
+            assert torch.equal(k.stats, out["r"].stats)
+        k_ms = cuda_ms(lambda: fc.fused_collect_rows(
+            sm, rows, a_comp, c_comp, 3, 16, uniforms), reps=7, warmup=2)
+        print(f"O={o} P=1000 T=16 resets, same uniforms: every field equal "
+              f"at lanes {widths}; done frac "
+              f"{out['r'].done.float().mean().item():.4f}")
+        bound_ms, by, _, _ = collect_bound(sm, rows, 1000, 16)
+        shapes[f"O={o} 1000x16"] = dict(ms=k_ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms, bound_by=by)
         sm, rows, a_comp, c_comp = setup(1024, 1000, o=o)
-        main_ms = cuda_ms(lambda: fc.fused_collect_rows(
-            sm, rows, a_comp, c_comp, 3, 1000), reps=7, warmup=2)
+        pick = fc.rt_lanes(widths, 1024, o)
+        by_g = {g: cuda_ms(lambda: fc.fused_collect_rows(
+            sm, rows, a_comp, c_comp, 3, 1000, lanes=g), reps=7, warmup=2)
+            for g in widths}
+        main_ms = by_g[pick]
+        rt_ms[o] = main_ms
         bound_ms, by, nbytes, ops = collect_bound(sm, rows, 1024, 1000)
         shapes[f"O={o} 1024x1000"] = dict(ms=main_ms, bound_ms=bound_ms,
-                                          bound_by=by)
-        print(f"fused_collect O={o}: P=1000 T=32 kernel {k_ms:.4f} ms, "
+                                          bound_by=by, lanes=pick,
+                                          by_lanes=by_g)
+        print(f"fused_collect O={o}: P=1000 T=16 kernel {k_ms:.4f} ms, "
               f"plain version {plain_ms:.1f} ms (1 run); P=1024 T=1000 "
-              f"kernel {main_ms:.4f} ms (medians of 7), "
-              f"{main_ms * 1e3 / 1000:.3f} us a step, bound "
-              f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB; "
+              f"by lanes an env: " + ", ".join(
+                  f"{g} {v:.4f} ms" + (" (the pick)" if g == pick else "")
+                  for g, v in by_g.items())
+              + f" (medians of 7); the pick {main_ms * 1e3 / 1000:.3f} us a "
+              f"step, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB; "
               f"{ops / 1e9:.2f} GFLOP), {bound_ms / main_ms:.1%} of it; "
               f"{1024 * 1000 / main_ms * 1e3:,.0f} env-steps/s")
+    rt_slope = least_squares_slope(rt_ms)
+    print(f"fused_collect run-time instance at its picks: slope "
+          f"{rt_slope * 1e3:.2f} ns a step an obstacle over O 9, 17, 32 "
+          f"(templated O 1 .. 8: {tmpl_slope * 1e3:.2f})")
+    record["collect_rt_sweep"] = lane_sweep(
+        "fused_collect", widths, lambda p, o: setup(p, 200, o=o),
+        lambda sm, rows, a_comp, c_comp, g: fc.fused_collect_rows(
+            sm, rows, a_comp, c_comp, 3, 200, lanes=g))
     times = {"fused_collect": shapes}
     errors = {"fused_collect": max_err}
 
@@ -1348,55 +1428,75 @@ def main(out_dir):
         print(f"fused_rollout_kernel<O=3, {'policy mean' if det else 'sampled'}"
               f">: " + instance_line(builds["fused_rollout"][1]["log"],
                                      f"fused_rollout_kernelILi3ELb{int(det)}E"))
-    # Past 8 obstacles the run-time instance (fused_rollout_rt_kernel): at
-    # O 9, 17 and 32, both modes equal to the plain version through resets
-    # at a ragged P 1000 (T 32, both timed there), the sampled one equal to
-    # the collect kernel from the same Philox seed; the kernel timed at the
-    # bench's (16384, 500).
+    # Past 8 obstacles the run-time instance (fused_rollout_rt_kernel<G,
+    # kMean>) at each lane width G it has: at O 9, 17 and 32, both modes
+    # equal to the plain version through resets at a ragged P 1000 (T 16),
+    # the sampled one equal to the collect kernel at each of its widths from
+    # the same Philox seed; each width timed at the bench's (16384, 500),
+    # both modes, the chooser's pick marked.  Then the crossover: each width
+    # at P 1024 .. 16384, T 200, both modes.
+    widths = fr.ROLLOUT_RT_LANES
     for o in (9, 17, 32):
-        sm, rows, a_comp, c_comp = setup(1000, 32, episode_len=10, noisy=True,
+        sm, rows, a_comp, c_comp = setup(1000, 16, episode_len=10, noisy=True,
                                          o=o)
-        uniforms = torch.rand((32, sm.n_draws, 1000), device=dev,
+        uniforms = torch.rand((16, sm.n_draws, 1000), device=dev,
                               generator=make_generator(9, dev))
         small = {}
         for det in (False, True):
-            k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 32, det,
-                                      uniforms)
             plain = {}
             plain_ms = cuda_ms(lambda: plain.update(
                 r=fr.rollout_rows_reference(sm, rows, a_comp, c_comp,
                                             uniforms, det)))
-            torch.cuda.synchronize()
-            err = same_rollout(k, plain["r"])
-            assert err == 0.0, f"rollout O={o} det={det}: kernel != plain"
+            for g in widths:
+                k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 16,
+                                          det, uniforms, lanes=g)
+                torch.cuda.synchronize()
+                err = same_rollout(k, plain["r"])
+                assert err == 0.0, f"rollout O={o} det={det} lanes {g}: " \
+                    "kernel != plain"
             small[det] = plain_ms
         k_ms = cuda_ms(lambda: fr.fused_rollout_rows(
-            sm, rows, a_comp, c_comp, 11, 32, False, uniforms), reps=7,
+            sm, rows, a_comp, c_comp, 11, 16, False, uniforms), reps=7,
             warmup=2)
-        col = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 11, 32)
-        k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 32, False)
-        torch.cuda.synchronize()
-        assert same_rollout(k, (col.rows, col.rewards)) == 0.0, o
-        assert col.done.any()
-        bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 1000, 32)
-        times["fused_rollout"][f"O={o} 1000x32"] = dict(
+        cols = [fc.fused_collect_rows(sm, rows, a_comp, c_comp, 11, 16,
+                                      lanes=g) for g in fc.COLLECT_RT_LANES]
+        for g in widths:
+            k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 16, False,
+                                      lanes=g)
+            torch.cuda.synchronize()
+            for col in cols:
+                assert same_rollout(k, (col.rows, col.rewards)) == 0.0, (o, g)
+        assert all(col.done.any() for col in cols)
+        bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 1000, 16)
+        times["fused_rollout"][f"O={o} 1000x16"] = dict(
             ms=k_ms, plain_ms=small[False], bound_ms=bound_ms,
             bound_by=bound_by)
         sm, rows, a_comp, c_comp = setup(16384, 500, o=o)
-        ms = {det: cuda_ms(lambda: fr.fused_rollout_rows(
-            sm, rows, a_comp, c_comp, 3, 500, det), reps=7, warmup=2)
-            for det in (False, True)}
+        pick = fc.rt_lanes(widths, 16384, o)
+        ms = {det: {g: cuda_ms(lambda: fr.fused_rollout_rows(
+            sm, rows, a_comp, c_comp, 3, 500, det, lanes=g), reps=7, warmup=2)
+            for g in widths} for det in (False, True)}
         bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 16384, 500)
         times["fused_rollout"][f"O={o} 16384x500"] = dict(
-            ms=ms[False], bound_ms=bound_ms, bound_by=bound_by,
-            policy_mean_ms=ms[True])
-        print(f"fused_rollout O={o}: kernel == plain (both modes) and == "
-              f"collect at P=1000 T=32 (kernel {k_ms:.4f} ms, plain "
-              f"{small[False]:.1f} / {small[True]:.1f} ms); P=16384 T=500: "
-              f"{ms[False]:.4f} ms sampled, {ms[True]:.4f} ms policy mean "
-              f"(medians of 7), bound {bound_ms * 1e3:.1f} us ({bound_by}), "
-              f"{bound_ms / ms[False]:.1%} of it; "
-              f"{16384 * 500 / ms[False] * 1e3:,.0f} env-steps/s")
+            ms=ms[False][pick], bound_ms=bound_ms, bound_by=bound_by,
+            policy_mean_ms=ms[True][pick], lanes=pick, by_lanes=ms)
+        print(f"fused_rollout O={o}: kernel == plain (both modes) at lanes "
+              f"{widths} and == collect at lanes {fc.COLLECT_RT_LANES} at "
+              f"P=1000 T=16 (kernel {k_ms:.4f} ms, plain "
+              f"{small[False]:.1f} / {small[True]:.1f} ms); P=16384 T=500 "
+              f"by lanes an env, sampled / policy mean: " + ", ".join(
+                  f"{g} {ms[False][g]:.4f} / {ms[True][g]:.4f} ms"
+                  + (" (the pick)" if g == pick else "") for g in widths)
+              + f" (medians of 7); bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}), {bound_ms / ms[False][pick]:.1%} of the pick's "
+              f"sampled time; {16384 * 500 / ms[False][pick] * 1e3:,.0f} "
+              f"env-steps/s")
+    record["rollout_rt_sweep"] = {
+        mode: lane_sweep(
+            f"fused_rollout {mode}", widths, lambda p, o: setup(p, 200, o=o),
+            lambda sm, rows, a_comp, c_comp, g: fr.fused_rollout_rows(
+                sm, rows, a_comp, c_comp, 3, 200, det, lanes=g))
+        for mode, det in (("sampled", False), ("policy mean", True))}
 
     # ------------------------------------------------------------------
     phase("8. the bench path: python -m marlnav_tpu_torch.bench --plain, "
@@ -2059,6 +2159,26 @@ def main(out_dir):
                   f"{tm17['device']:.3f} ms, host wall {tm17['wall']:.3f} ms"
                   f" = {1024 * 1000 / tm17['wall'] * 1e3:,.0f} env-steps/s "
                   f"(medians of 3); launches in the 3 replays {counts_}")
+            if route == "fused" and extra == ["-no", "17"]:
+                # The collect's run-time instance inside this repeat: its
+                # device time in a profiled replay, and its own graph's.
+                prof17 = profile_run(f"{label}: profiled graphed repeat (one "
+                                     "replay)", graph17.replay)
+                in_repeat = [t_ for k_, (_, t_) in prof17["ours"].items()
+                             if "fused_collect_rt_kernel" in k_]
+                kgraph = CountedGraph()
+                rcollect.run_kernel(rts, rrows, seed17)  # warm
+                with kgraph.capture():
+                    rcollect.run_kernel(rts, rrows, seed17)
+                k17 = timed(kgraph.replay, reps=5)["device"]
+                print(f"{label}: the collect kernel in the graphed repeat "
+                      + (f"{in_repeat[0]:.3f} ms (the profiled replay)"
+                         if in_repeat else "not listed by the profiler")
+                      + f"; its own graph {k17:.3f} ms (CUDA events, median "
+                      f"of 5) of the repeat's {tm17['device']:.3f}")
+                record["runtime_training"]["-no 17 collect_ms"] = dict(
+                    profiled=in_repeat[0] if in_repeat else None, graph=k17)
+                del kgraph
             del graph17, rmappo, rts, rrows
         print(f"{label}: autograd / fused repeat (host wall) "
               f"{by_route['autograd']['wall'] / by_route['fused']['wall']:.2f}"
@@ -2114,13 +2234,156 @@ def main(out_dir):
         "count": torch.cuda.device_count()}}))
 
 
+# The step kernels' run-time instance and a -no 17 graphed full-size
+# repeat, timed by the checkout on sys.path (--against runs it in each of
+# two checkouts).  Only entry points both the parent commit and this one
+# have.  Prints one JSON line.
+_TIMING_SNIPPET = r"""
+import json, statistics, sys
+import torch
+from marlnav_tpu_torch.__main__ import build_parser
+from marlnav_tpu_torch.algo import make_mappo
+from marlnav_tpu_torch.config import (EnvParams, NormalizerConfig,
+                                      ScalerConfig, TriangleInitConfig,
+                                      resolve_run_config)
+from marlnav_tpu_torch.env import make_env
+from marlnav_tpu_torch.models import Actor
+from marlnav_tpu_torch.ops import fused_collect as fc
+from marlnav_tpu_torch.ops import fused_rollout as fr
+from marlnav_tpu_torch.ops.graphs import CountedGraph
+from marlnav_tpu_torch.ops.step_math import StepMath
+from marlnav_tpu_torch.utils.seeding import make_generator
+
+dev = torch.device("cuda")
+
+def ms(fn, reps=7, warmup=2):
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
+        a.record(); fn(); b.record(); torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+def setup(p, o):
+    ep = EnvParams(num_parallel=p, episode_len=200, num_obstacles=o)
+    ic = TriangleInitConfig(num_parallel=p, num_obstacles=o)
+    rows = fc.env_state_to_rows(make_env(ep, ic, dev).init(
+        make_generator(0, dev)))
+    actor = Actor(ep.obs_size, 50,
+                  generator=torch.Generator().manual_seed(0)).to(dev)
+    a_comp, c_comp = fc._affine_compose(actor)
+    sm = StepMath(ep, ic, NormalizerConfig(num_obstacles=o), ScalerConfig())
+    return sm, rows, a_comp, c_comp
+
+res = {}
+for o in (3, 9, 17, 32):
+    sm, rows, a, c = setup(1024, o)
+    res[f"collect O={o} 1024x1000"] = ms(
+        lambda: fc.fused_collect_rows(sm, rows, a, c, 3, 1000))
+    sm, rows, a, c = setup(16384, o)
+    for det in (False, True):
+        res[f"rollout {'mean' if det else 'sampled'} O={o} 16384x500"] = ms(
+            lambda: fr.fused_rollout_rows(sm, rows, a, c, 3, 500, det))
+rcfg = resolve_run_config(build_parser().parse_args(
+    ["-np", "1024", "-nt", str(1024 * 1000), "-se", "0", "--output-root",
+     sys.argv[1], "--fused-updates", "-no", "17"]))
+rm = rcfg.model
+renv = make_env(rcfg.env, rcfg.init, dev)
+rcollect = fc.make_fused_collect(rm, rcfg.env, rcfg.init, rcfg.normalizer,
+                                 rcfg.scaler)
+rmappo = make_mappo(rm, renv, rcfg.normalizer, rcfg.scaler, False, True)
+rts, res0 = rmappo.init(make_generator(0, dev))
+rrows = fc.env_state_to_rows(res0)
+seed = torch.tensor(400, dtype=torch.int32, device=dev)
+repeat = lambda: rmappo.train_many(
+    rts, rrows, None, 1, lambda ts_, rows_, _: rcollect(ts_, rows_, seed))
+repeat()
+graph = CountedGraph()
+with graph.capture():
+    repeat()
+res["-no 17 graphed repeat"] = ms(graph.replay, reps=3, warmup=1)
+print(json.dumps(res))
+"""
+
+
+def compare_against(other, out_dir):
+    """The step kernels' run-time instance and a -no 17 graphed repeat of
+    the checkout at ``other`` (the parent commit, unpacked by ``git
+    archive``) beside this one's, in one call on one card: both build their
+    libraries at once; then other, this, this, other, each a process of
+    its own.  Prints both builds' ptxas lines where they differ, the times
+    and their ratios."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
+                 "script needs an NVIDIA GPU")
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    print(f"card: {card_line()}")
+    build = ("import json; from marlnav_tpu_torch.ops._build import "
+             "load_libraries; b = load_libraries(['fused_collect', "
+             "'fused_rollout', 'fused_update', 'returns']); "
+             "print(json.dumps({n: v[1]['log'] for n, v in b.items()}))")
+
+    def start(root, code, *args):
+        env = dict(os.environ, PYTHONPATH=root)
+        return subprocess.Popen([sys.executable, "-c", code, *args], cwd=root,
+                                env=env, stdout=subprocess.PIPE, text=True)
+
+    def result(proc):
+        stdout, _ = proc.communicate()
+        assert proc.returncode == 0, proc.returncode
+        return json.loads(stdout.strip().splitlines()[-1])
+
+    t0 = time.perf_counter()
+    logs = [result(proc) for proc in [start(root, build)
+                                      for root in (other, here)]]
+    print(f"both builds: {time.perf_counter() - t0:.1f} s")
+    lines = []  # per build, {kernel: its ptxas figures}
+    for log in logs:
+        by_kernel = {}
+        for name in sorted(log):
+            for line in ptxas_summary(log[name]):
+                kernel, figures = line.strip().split(": ", 1)
+                by_kernel[kernel] = by_kernel.get(kernel, "") + figures + "; "
+        lines.append(by_kernel)
+    same = [k for k in lines[0] if lines[1].get(k) == lines[0][k]]
+    print(f"ptxas lines equal in both builds: {len(same)} of "
+          f"{len(lines[0])} (other) and {len(lines[1])} (this)")
+    for k in sorted(set(lines[0]) | set(lines[1])):
+        if k not in same:
+            print(f"  {k}\n    other: {lines[0].get(k, '-')}\n    this:  "
+                  f"{lines[1].get(k, '-')}")
+    runs = []
+    for label, root in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        runs.append((label, result(start(root, _TIMING_SNIPPET, out_dir))))
+        print(f"{label} ({root}): {json.dumps(runs[-1][1])}", flush=True)
+    for key in runs[0][1]:
+        o_ms = [r[key] for label, r in runs if label == "other"]
+        t_ms = [r[key] for label, r in runs if label == "this"]
+        print(f"{key}: other {o_ms[0]:.4f} / {o_ms[1]:.4f} ms, this "
+              f"{t_ms[0]:.4f} / {t_ms[1]:.4f} ms: "
+              f"{statistics.mean(o_ms) / statistics.mean(t_ms):.2f}x")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory to keep the training "
                         "artifacts and chip_smoke.json in")
-    out = parser.parse_args().out
-    if out:
-        main(out)
-    else:
-        with tempfile.TemporaryDirectory() as tmp:
-            main(tmp)
+    parser.add_argument("--against", metavar="DIR", help="only time the step "
+                        "kernels' run-time instance and a -no 17 graphed "
+                        "repeat beside those of the checkout at DIR")
+    args = parser.parse_args()
+    with contextlib.ExitStack() as stack:
+        out = args.out or stack.enter_context(tempfile.TemporaryDirectory())
+        if args.against:
+            compare_against(args.against, out)
+        else:
+            main(out)

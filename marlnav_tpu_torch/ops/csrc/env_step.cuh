@@ -7,14 +7,17 @@
 // kernels' plain versions share.  Built with -fmad=false like every source
 // here: see step_math.cuh.
 //
-// Lane groups.  Each env is stepped by G consecutive lanes of one warp, G
-// = 4 or 8, so a group never crosses a warp; each kernel fixes its G
-// (kLanes: 8 for the collect, 4 for the rollout; PERF.md has both timed
-// on both).  With A = 3 agents, agent i takes S = G / 4 lanes: its geom
-// calls (alternating between its lanes when S = 2), its actor rows (action
-// component k on its lane k when S = 2), Box-Muller, action and log-prob,
-// its dynamics, its reward term and its reset.  The spare lanes (lane >=
-// A S) repeat the last agent's work and store nothing.  The group's Philox
+// Lane groups.  Each env is stepped by G consecutive lanes of one warp, so
+// a group never crosses a warp.  The templated instances (O <= kMaxObs)
+// fix G = 4 or 8 (kLanes: 8 for the collect, 4 for the rollout; PERF.md
+// has both timed on both).  With A = 3 agents, agent i takes S = G / 4
+// lanes: its geom calls (alternating between its lanes when S = 2), its
+// actor rows (action component k on its lane k when S = 2), Box-Muller,
+// action and log-prob, its dynamics, its reward term and its reset.  The
+// spare lanes (lane >= A S) repeat the last agent's work and store
+// nothing.  The run-time instances (O past kMaxObs) take G = 4 .. 32,
+// chosen at launch, and spread the work that grows with O over every lane
+// of the group instead (see RtLaneState below).  The group's Philox
 // groups (or injected uniforms) are spread over all G lanes and staged in
 // shared memory, where each lane reads the slots it uses.  Values cross
 // lanes by __shfl_sync, which moves bits exactly: every agent's position
@@ -39,6 +42,9 @@ namespace marlnav {
 constexpr int kAgents = 3;  // StepMath raises for A != 3
 constexpr int kMaxObs = 8;  // obstacle counts instantiated: 1 .. kMaxObs
 constexpr int kMaxBlockThreads = 256;
+// Blocks of kMaxBlockThreads an SM the run-time instances keep room for:
+// at most 128 registers a thread, so that 16 warps an SM stay resident.
+constexpr int kRtMinBlocks = 2;
 constexpr int kMaxBlockSmem = 232448;  // bytes a block may take on an H100
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -105,12 +111,13 @@ struct Dims {
 
 // The run-time instance's dynamic shared memory in floats: the actor
 // operator (4 F + 4), then for each of `groups` groups its agents'
-// observation rows (A, F), its obstacles x then y (O each) and its step's
-// uniforms (step_draws), each group's region an even count of floats so
-// that the rows stay on 8 bytes.
+// observation rows (A, F), its obstacles x then y (O each), its step's
+// uniforms (step_draws) and its agents' actor heads (kHeads each), each
+// group's region an even count of floats so that the rows stay on 8 bytes.
+constexpr int kHeads = 4;  // an agent's operator rows: means, variances
 __host__ __device__ inline int rt_group_floats(int num_obstacles, int noisy) {
   const int n = kAgents * obs_width(num_obstacles) + 2 * num_obstacles +
-                step_draws(num_obstacles, noisy);
+                step_draws(num_obstacles, noisy) + kAgents * kHeads;
   return (n + 1) & ~1;
 }
 __host__ __device__ inline int rt_smem_floats(int num_obstacles, int noisy,
@@ -122,7 +129,8 @@ __host__ __device__ inline int rt_smem_floats(int num_obstacles, int noisy,
 // A lane's place in its env's group of G lanes.
 template <int G>
 struct Group {
-  static_assert(G == 4 || G == 8, "a group is 4 or 8 lanes");
+  static_assert(G == 4 || G == 8 || G == 16 || G == 32,
+                "a group is 4, 8, 16 or 32 lanes");
   static constexpr int S = G / 4;  // lanes an agent
 
   int lane;   // 0 .. G-1
@@ -242,21 +250,33 @@ struct LaneState {
 // The run-time instance's LaneState: the same rows, but the obstacles (o of
 // them) are the group's one copy in shared memory, obx then oby, loaded,
 // stored and blended on reset with each obstacle on one lane, a __syncwarp
-// after, and read by every lane of the group.
+// after, and read by every lane of the group.  The obstacle flags spread
+// the obstacles over the group's G lanes, each lane taking its obstacles'
+// distances to all A agents.
+template <int G>
 struct RtLaneState {
   float px, py, hx, hy, sp;
   float bx, by;
   float* obx;
   float* oby;
   int o;
+  int lane, agent;
   float tx, ty, step_num, latch;
 
   __device__ int num_obs() const { return o; }
 
-  template <int G>
-  __device__ __forceinline__ void load(const Rows& r, int P, int p, int i,
+  // The obstacles at obx[0 .. o), oby[0 .. o); the lane's agent's rows and
+  // the group's obstacles, target and counters from r.
+  __device__ __forceinline__ void load(const Rows& r, int P, int p,
                                        const StepParams& c,
-                                       const Group<G>& g) {
+                                       const Group<G>& g, float* obstacles,
+                                       int num_obstacles) {
+    o = num_obstacles;
+    obx = obstacles;
+    oby = obstacles + o;
+    lane = g.lane;
+    agent = g.agent;
+    const int i = agent;
     px = r.px[i * P + p];
     py = r.py[i * P + p];
     hx = r.dx[i * P + p];
@@ -268,7 +288,7 @@ struct RtLaneState {
         bx = c.base_x[j];
         by = c.base_y[j];
       }
-    for (int j = g.lane; j < o; j += G) {
+    for (int j = lane; j < o; j += G) {
       obx[j] = r.obx[j * P + p];
       oby[j] = r.oby[j * P + p];
     }
@@ -279,7 +299,6 @@ struct RtLaneState {
     __syncwarp();
   }
 
-  template <int G>
   __device__ __forceinline__ void store(const Rows& r, int P, int p,
                                         const Group<G>& g) const {
     if (g.owner()) {
@@ -290,7 +309,7 @@ struct RtLaneState {
       r.dy[i * P + p] = hy;
       r.sp[i * P + p] = sp;
     }
-    for (int j = g.lane; j < o; j += G) {
+    for (int j = lane; j < o; j += G) {
       r.obx[j * P + p] = obx[j];
       r.oby[j * P + p] = oby[j];
     }
@@ -302,27 +321,48 @@ struct RtLaneState {
     }
   }
 
+  // The lane's agent's flags at its new position (npx, npy).  Lane l takes
+  // obstacles l, l + G, ..., each against all agents' new positions; a
+  // flag is the maximum of 0/1 terms, an OR, so the bits of the group are
+  // OR-reduced by shuffles in any order and the result is the plain
+  // version's.
   __device__ __forceinline__ void obstacle_flags(float npx, float npy,
                                                  const StepParams& c,
                                                  float& o_risk,
                                                  float& o_coll) const {
-    for (int j = 0; j < o; ++j) {
-      const float odx = obx[j] - npx, ody = oby[j] - npy;
-      const float o_dist = sqrtf(odx * odx + ody * ody);
-      o_risk = fmaxf(o_risk, o_dist < c.ob_risk_dist ? 1.0f : 0.0f);
-      o_coll = fmaxf(o_coll, o_dist < c.ob_coll_dist ? 1.0f : 0.0f);
+    float anpx[kAgents], anpy[kAgents];
+#pragma unroll
+    for (int i = 0; i < kAgents; ++i) {
+      anpx[i] = Group<G>::from_agent(npx, i);
+      anpy[i] = Group<G>::from_agent(npy, i);
     }
+    unsigned bits = 0;  // bit 2 i: agent i's risk, 2 i + 1: its collision
+    for (int j = lane; j < o; j += G) {
+      const float ox = obx[j], oy = oby[j];
+#pragma unroll
+      for (int i = 0; i < kAgents; ++i) {
+        const float odx = ox - anpx[i], ody = oy - anpy[i];
+        const float o_dist = sqrtf(odx * odx + ody * ody);
+        bits |= ((o_dist < c.ob_risk_dist ? 1u : 0u) |
+                 (o_dist < c.ob_coll_dist ? 2u : 0u))
+                << (2 * i);
+      }
+    }
+#pragma unroll
+    for (int m = 1; m < G; m <<= 1)
+      bits |= __shfl_xor_sync(kFullMask, bits, m, G);
+    o_risk = (bits >> (2 * agent)) & 1u ? 1.0f : 0.0f;
+    o_coll = (bits >> (2 * agent)) & 2u ? 1.0f : 0.0f;
   }
 
   // Every lane has read the obstacles of this step (the first __syncwarp)
   // before obstacle j is blended on lane j % G; the second publishes them.
-  template <int G>
   __device__ __forceinline__ void reset_obstacles(float m, float km,
                                                   const float* ur,
                                                   const StepParams& c,
-                                                  const Group<G>& g) {
+                                                  const Group<G>&) {
     __syncwarp();
-    for (int j = g.lane; j < o; j += G) {
+    for (int j = lane; j < o; j += G) {
       obx[j] = m * ((ur[j] - 0.5f) * c.ox_range + c.ox_mean) + km * obx[j];
       oby[j] = m * ((ur[o + j] - 0.5f) * c.oy_range + c.oy_mean) + km * oby[j];
     }
@@ -443,22 +483,34 @@ __device__ __forceinline__ void group_obs(const LaneState<O>& e,
   }
 }
 
-// group_obs for the run-time instance: the agent's lanes take its geom
-// calls k = sub, sub + S, ... and write each call's two features straight
-// into the agent's row x (F floats in shared memory), in the Observations
-// order; spare lanes write nothing.  The caller's __syncwarp publishes x.
+// Agent i's value of a per-agent array: i at run time, so two selects
+// keep the array in registers.
+__device__ __forceinline__ float pick(const float (&a)[kAgents], int i) {
+  return i == 0 ? a[0] : (i == 1 ? a[1] : a[2]);
+}
+
+// group_obs for the run-time instance: lane l takes the geom calls k = l,
+// l + G, ... of the 1 + O + A - 1 an agent makes, each for all A agents
+// (three independent chains), on their positions and headings, which every
+// lane gathers by shuffles; the target and obstacles are points all agents
+// share, loaded once.  Each call writes its two features straight into its
+// agent's row of xs ((A, F) floats in shared memory), in the Observations
+// order.  The caller's __syncwarp publishes the rows.
 template <int G>
-__device__ __forceinline__ void group_obs_rt(const RtLaneState& e,
-                                             const Group<G>& g,
-                                             const float (&apx)[kAgents],
-                                             const float (&apy)[kAgents],
-                                             const StepParams& c, float* x) {
-  constexpr int S = Group<G>::S;
-  if (!g.agent_lane()) return;
-  const int o = e.o, n_geoms = 1 + o + (kAgents - 1);
-  for (int k = g.sub; k < n_geoms; k += S) {
-    float qx, qy, a_, d_;
-    int ia, id;  // the features' indices in the row
+__device__ __forceinline__ void group_obs_rt(const RtLaneState<G>& e,
+                                             const StepParams& c, float* xs) {
+  float apx[kAgents], apy[kAgents], ahx[kAgents], ahy[kAgents];
+#pragma unroll
+  for (int i = 0; i < kAgents; ++i) {
+    apx[i] = Group<G>::from_agent(e.px, i);
+    apy[i] = Group<G>::from_agent(e.py, i);
+    ahx[i] = Group<G>::from_agent(e.hx, i);
+    ahy[i] = Group<G>::from_agent(e.hy, i);
+  }
+  const int o = e.o, F = obs_width(o);
+  for (int k = e.lane; k < 1 + o + (kAgents - 1); k += G) {
+    float qx = 0.0f, qy = 0.0f;
+    int ia, id;  // the features' indices in a row
     if (k == 0) {
       qx = e.tx;
       qy = e.ty;
@@ -470,16 +522,23 @@ __device__ __forceinline__ void group_obs_rt(const RtLaneState& e,
       ia = 2 + (k - 1);
       id = 2 + o + (k - 1);
     } else {
-      const int m = k - 1 - o;
-      const bool before = m < g.agent;
-      qx = before ? apx[m] : apx[m + 1];
-      qy = before ? apy[m] : apy[m + 1];
-      ia = 2 + 2 * o + m;
-      id = 2 + 2 * o + (kAgents - 1) + m;
+      ia = 2 + 2 * o + (k - 1 - o);
+      id = ia + (kAgents - 1);
     }
-    geom(e.px, e.py, e.hx, e.hy, qx, qy, c.cap_distance, a_, d_);
-    x[ia] = a_ * c.inv_pi;
-    x[id] = d_ * c.d_scale - 1.0f;
+#pragma unroll
+    for (int i = 0; i < kAgents; ++i) {
+      float px_ = qx, py_ = qy;
+      if (k > o) {  // agent i's m-th other agent
+        const int m = k - 1 - o;
+        const int j = m < i ? m : m + 1;
+        px_ = pick(apx, j);
+        py_ = pick(apy, j);
+      }
+      float a_, d_;
+      geom(apx[i], apy[i], ahx[i], ahy[i], px_, py_, c.cap_distance, a_, d_);
+      xs[i * F + ia] = a_ * c.inv_pi;
+      xs[i * F + id] = d_ * c.d_scale - 1.0f;
+    }
   }
 }
 
@@ -504,29 +563,17 @@ __device__ __forceinline__ void store_obs_row(const Group<G>& g, float* row,
   }
 }
 
-// store_obs_row for the run-time instance: the row from x in shared
-// memory (on 8 bytes), float2 stores taken in turn by the agent's lanes.
+// The env's A observation rows of the run-time instance, (A, F) floats
+// from xs in shared memory (on 8 bytes) to `rows`, which the buffer lays
+// out just so: float2 stores spread over the group's lanes.
 template <int G>
-__device__ __forceinline__ void store_obs_row_rt(const Group<G>& g,
-                                                 float* row, const float* x,
-                                                 int F) {
-  constexpr int S = Group<G>::S;
-  for (int q = g.sub; q < F / 2; q += S)
-    reinterpret_cast<float2*>(row)[q] =
-        reinterpret_cast<const float2*>(x)[q];
+__device__ __forceinline__ void store_obs_rows_rt(const Group<G>& g,
+                                                  float* rows, const float* xs,
+                                                  int n) {
+  for (int q = g.lane; q < n / 2; q += G)
+    reinterpret_cast<float2*>(rows)[q] =
+        reinterpret_cast<const float2*>(xs)[q];
 }
-
-// A run-time row of features: x[0 .. f) in shared memory.
-struct RtRow {
-  const float* x;
-  int f;
-};
-
-template <int F>
-__device__ __forceinline__ constexpr int row_width(const float (&)[F]) {
-  return F;
-}
-__device__ __forceinline__ int row_width(const RtRow& r) { return r.f; }
 
 // One row of the actor operator, w . x + c, summed in feature order
 // (step_math.actor_affine).
@@ -538,10 +585,52 @@ __device__ __forceinline__ float affine_row(const float* w, float c,
   for (int f = 1; f < F; ++f) acc = acc + w[f] * x[f];
   return acc + c;
 }
-__device__ __forceinline__ float affine_row(const float* w, float c,
-                                            const RtRow& r) {
-  float acc = w[0] * r.x[0];
-  for (int f = 1; f < r.f; ++f) acc = acc + w[f] * r.x[f];
+
+// affine_row for the run-time instance: f (even) features of w and x in
+// shared memory, both on 8 bytes.  The adds stay one chain in feature
+// order; the loads run a block of kAhead float2 pairs ahead of it, so the
+// chain waits on its adds and not on shared memory.  A block read ahead
+// may pass the row's end by up to 2 kAhead floats, never added: an
+// operator row is followed by the next, or by ca and the groups' regions,
+// an observation row by the next, or by the group's obstacles (2 O > 16
+// floats), all in the block's shared memory.
+__device__ __forceinline__ float affine_row_rt(const float* w, float c,
+                                               const float* x, int f) {
+  constexpr int kAhead = 4;
+  const float2* w2 = reinterpret_cast<const float2*>(w);
+  const float2* x2 = reinterpret_cast<const float2*>(x);
+  const int n = f / 2;
+  float2 bw[kAhead], bx[kAhead];
+#pragma unroll
+  for (int q = 0; q < kAhead; ++q) {
+    bw[q] = w2[1 + q];
+    bx[q] = x2[1 + q];
+  }
+  const float2 w0 = w2[0], x0 = x2[0];
+  float acc = w0.x * x0.x;
+  acc = acc + w0.y * x0.y;
+  int q0 = 1;
+  for (; q0 + kAhead <= n; q0 += kAhead) {
+    float pr[2 * kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      pr[2 * q] = bw[q].x * bx[q].x;
+      pr[2 * q + 1] = bw[q].y * bx[q].y;
+    }
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      bw[q] = w2[q0 + kAhead + q];
+      bx[q] = x2[q0 + kAhead + q];
+    }
+#pragma unroll
+    for (int q = 0; q < 2 * kAhead; ++q) acc = acc + pr[q];
+  }
+#pragma unroll
+  for (int q = 0; q < kAhead; ++q)  // the last n - q0 < kAhead pairs
+    if (q0 + q < n) {
+      acc = acc + bw[q].x * bx[q].x;
+      acc = acc + bw[q].y * bx[q].y;
+    }
   return acc + c;
 }
 
@@ -555,15 +644,15 @@ struct Action {
 // / var == z^2).  Rows k and k + 2 of the operator (wa (4, F) row-major,
 // then ca (4,)) give component k's mean and variance; with S = 2
 // component k is computed on the agent's lane k.  x: the features in
-// registers (float[F]) or the run-time instance's row (RtRow).
-template <int G, bool kMean, bool kLogProb, class X>
+// registers.
+template <int G, bool kMean, bool kLogProb, int F>
 __device__ __forceinline__ Action group_action(const Group<G>& g,
                                                const float* wa,
-                                               const float* ca, const X& x,
+                                               const float* ca,
+                                               const float (&x)[F],
                                                const float* u,
                                                const StepParams& c) {
   constexpr int S = Group<G>::S;
-  const int F = row_width(x);
   float mu[2], v[2], lv[2];
 #pragma unroll
   for (int k0 = 0; k0 < 2; k0 += S) {
@@ -593,6 +682,43 @@ __device__ __forceinline__ Action group_action(const Group<G>& g,
   a.ang_raw = mu[0] + sqrtf(v[0]) * z0;
   a.acc_raw = mu[1] + sqrtf(v[1]) * z1;
   a.log_prob = kLogProb ? -0.5f * ((((c.log2pi2 + lv[0]) + lv[1]) + z0 * z0) +
+                                   z1 * z1)
+                        : 0.0f;
+  return a;
+}
+
+// group_action for the run-time instance.  The A agents' operator rows
+// (both means and, unless kMean, both variances: A x 4 rows of F features
+// from xs) spread over the group's lanes, row r = 4 i + k (kMean: 2 i + k)
+// on lane r % G; their pre-activations go through the group's `heads` (A x
+// kHeads floats in shared memory) to every lane of their agent, which then
+// takes tanh, softplus, log and the action as group_action does, on the
+// same values (the same functions on every lane: no divergence).
+template <int G, bool kMean, bool kLogProb>
+__device__ __forceinline__ Action group_action_rt(const Group<G>& g,
+                                                  const float* wa,
+                                                  const float* ca,
+                                                  const float* xs, int F,
+                                                  const float* u,
+                                                  float* heads,
+                                                  const StepParams& c) {
+  constexpr int kRows = kMean ? 2 : 4;  // an agent's
+  for (int r = g.lane; r < kAgents * kRows; r += G) {
+    const int i = r / kRows, k = r % kRows;
+    heads[kHeads * i + k] = affine_row_rt(wa + k * F, ca[k], xs + i * F, F);
+  }
+  __syncwarp();
+  const float* z = heads + kHeads * g.agent;
+  const float mu0 = tanhf(z[0]), mu1 = tanhf(z[1]);
+  if (kMean) return {mu0, mu1, 0.0f};
+  const float v0 = softplus(z[2]), v1 = softplus(z[3]);
+  float z0, z1;
+  box_muller(u[2 * g.agent], u[2 * g.agent + 1], z0, z1);
+  Action a;
+  a.ang_raw = mu0 + sqrtf(v0) * z0;
+  a.acc_raw = mu1 + sqrtf(v1) * z1;
+  a.log_prob = kLogProb ? -0.5f * ((((c.log2pi2 + logf(v0)) + logf(v1)) +
+                                    z0 * z0) +
                                    z1 * z1)
                         : 0.0f;
   return a;

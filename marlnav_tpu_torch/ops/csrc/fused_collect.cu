@@ -50,15 +50,23 @@
 // 200), where its fewer warp-instructions count more than latency.
 // Blocks of 128 threads (32 gave the same time at P = 1024).
 // Past kMaxObs = 8 obstacles (the templated instances' limit) the wrapper
-// launches fused_collect_rt_kernel: the same step with the obstacles, the
-// agents' observation rows and the uniforms in dynamic shared memory, O at
-// run time (env_step.cuh), in blocks of 128, 64 or 32 threads, the most
-// whose groups fit (ops/fused_collect.py block_threads).  It equals its
-// plain version bit for bit as the templated instances do.
-// What limits it now, not profiled per instruction: at P = 1024 the grid
-// is 256 warps, about 2 an SM, so the step's chain (~1.7 us) is most
-// likely still latency-bound, at 3% of the bytes bound; more envs a
-// launch or fewer instructions on the chain would move it.
+// launches fused_collect_rt_kernel<G>: the same step with the obstacles,
+// the agents' observation rows, the uniforms and the actor heads in
+// dynamic shared memory, O at run time, G = 8, 16 or 32 lanes an env
+// chosen at launch from P and O (ops/fused_collect.py rt_lanes), in blocks
+// of 128, 64 or 32 threads, the most whose groups fit (launch_shape).  The
+// work that grows with O is spread over all G lanes, a lane taking a geom
+// call, an obstacle or an operator row for all three agents
+// (env_step.cuh).  It equals its plain version bit for bit as the
+// templated instances do.
+// What the card showed (chip_smoke.py phase 5 and its sweep; H100 80GB
+// HBM3 at 700 W; PERF.md §6 row 1): at P = 1024 the step behaves as
+// latency-bound (256 warps at G = 8, about 2 an SM): the run-time instance
+// at G = 16 or 32 takes 2.60, 3.01 and 3.88 ms at O 9, 17 and 32 against
+// 3.67, 4.58 and 6.22 at G = 8, and about 56 ns a step an obstacle against
+// the templated instances' 215 (O 1 .. 8).  From P = 8192 on G = 8 is the
+// fastest: the grid fills the card and a wider group's repeated per-agent
+// work costs issue slots.  The templated instances keep G = 8.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,6 +76,9 @@
 namespace marlnav {
 
 constexpr int kLanes = 8;  // lanes an env
+// Static shared memory of add_episode_counts, which a run-time instance's
+// dynamic shared memory leaves room for.
+constexpr int kCountsSmem = 3 * (kMaxBlockThreads / 32) * sizeof(int);
 
 // The episode counters of a block: one block reduction, then one atomicAdd
 // each.  Only each group's first lane counts, once per env.
@@ -75,6 +86,7 @@ __device__ __forceinline__ void add_episode_counts(int n_trunc, int n_col,
                                                    int n_tar,
                                                    int32_t* stats_out) {
   __shared__ int s_cnt[3][kMaxBlockThreads / 32];
+  static_assert(sizeof(s_cnt) == kCountsSmem, "kCountsSmem");
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     n_trunc += __shfl_down_sync(kFullMask, n_trunc, off);
@@ -172,12 +184,17 @@ fused_collect_kernel(Rows in, Rows out, const float* __restrict__ w,
   add_episode_counts(n_trunc, n_col, n_tar, stats_out);
 }
 
-// The run-time instance: c.num_obstacles > kMaxObs (env_step.cuh).  The
-// actor operator and each group's observation rows, obstacles and
-// uniforms are dynamic shared memory of rt_smem_floats; the step is the
-// templated kernel's, with RtLaneState, group_obs_rt and RtRow in place of
-// the register arrays.
-__global__ void __launch_bounds__(kMaxBlockThreads)
+// The run-time instance: c.num_obstacles > kMaxObs (env_step.cuh), G
+// lanes an env (G = 8, 16 or 32, chosen at launch: ops/fused_collect.py
+// rt_lanes).  The actor operator and each group's observation rows,
+// obstacles, uniforms and actor heads are dynamic shared memory of
+// rt_smem_floats.  The step is the templated kernel's, with the work that
+// grows with O spread over the group's G lanes: the geom calls
+// (group_obs_rt), the operator rows (group_action_rt), the obstacle
+// distances (RtLaneState::obstacle_flags), the obstacles' loads, stores
+// and reset blend, and the obs rows' stores.
+template <int G>
+__global__ void __launch_bounds__(kMaxBlockThreads, kRtMinBlocks)
 fused_collect_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
                         const float* __restrict__ noise,
                         const int32_t* __restrict__ seed, StepParams c,
@@ -187,7 +204,6 @@ fused_collect_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
                         float* __restrict__ rew_out,
                         uint8_t* __restrict__ done_out,
                         int32_t* __restrict__ stats_out) {
-  constexpr int G = kLanes;
   const int P = c.num_envs, o = c.num_obstacles, F = obs_width(o);
   const int n_draws = step_draws(o, c.noisy);
 
@@ -204,35 +220,27 @@ fused_collect_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
   const int p = valid ? env : P - 1;
   int n_trunc = 0, n_col = 0, n_tar = 0;
 
-  // The group's region: its agents' rows (A, F), obstacles, uniforms.
+  // The group's region: its agents' rows (A, F), obstacles, uniforms,
+  // heads.
   float* xs = s_dyn + 4 * F + 4 +
               static_cast<int>(threadIdx.x / G) * rt_group_floats(o, c.noisy);
-  RtLaneState e;
-  e.obx = xs + kAgents * F;
-  e.oby = e.obx + o;
-  e.o = o;
-  float* u = e.oby + o;
-  e.load(in, P, p, g.agent, c, g);
+  float* u = xs + kAgents * F + 2 * o;
+  float* heads = u + n_draws;
+  RtLaneState<G> e;
+  e.load(in, P, p, c, g, xs + kAgents * F, o);
   const uint2 key =
       make_uint2(static_cast<uint32_t>(*seed), static_cast<uint32_t>(p));
-  float* x = xs + g.agent * F;
 
   for (int t = 0; t < c.num_steps; ++t) {
     group_uniforms<G>(noise, n_draws, n_draws, P, p, t, key, g, u);
-    float apx[kAgents], apy[kAgents];
-#pragma unroll
-    for (int j = 0; j < kAgents; ++j) {
-      apx[j] = Group<G>::from_agent(e.px, j);
-      apy[j] = Group<G>::from_agent(e.py, j);
-    }
-    group_obs_rt(e, g, apx, apy, c, x);
+    group_obs_rt(e, c, xs);
     __syncwarp();
     const size_t tp = static_cast<size_t>(t) * P + p;
-    const size_t row = tp * kAgents + g.agent;
-    if (valid && g.agent_lane()) store_obs_row_rt(g, obs_out + row * F, x, F);
-    const Action a = group_action<G, false, true>(g, wa, ca, RtRow{x, F},
-                                                  u + 2 * g.agent, c);
+    if (valid) store_obs_rows_rt(g, obs_out + tp * kAgents * F, xs, kAgents * F);
+    const Action a =
+        group_action_rt<G, false, true>(g, wa, ca, xs, F, u, heads, c);
     if (valid && g.owner()) {
+      const size_t row = tp * kAgents + g.agent;  // (t, p, agent)
       reinterpret_cast<float2*>(act_out)[row] =
           make_float2(a.ang_raw, a.acc_raw);
       lp_out[row] = a.log_prob;
@@ -252,6 +260,20 @@ fused_collect_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
   add_episode_counts(n_trunc, n_col, n_tar, stats_out);
 }
 
+// The run-time instance for `lanes` lanes an env, or null where it has
+// none.
+using CollectRtKernel = void (*)(Rows, Rows, const float*, const float*,
+                                 const int32_t*, StepParams, float*, float*,
+                                 float*, float*, uint8_t*, int32_t*);
+inline CollectRtKernel collect_rt_kernel(int lanes) {
+  switch (lanes) {
+    case 8: return fused_collect_rt_kernel<8>;
+    case 16: return fused_collect_rt_kernel<16>;
+    case 32: return fused_collect_rt_kernel<32>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace marlnav
 
 extern "C" {
@@ -264,30 +286,39 @@ int marlnav_collect_params_size() {
 int marlnav_collect_max_obstacles() { return marlnav::kMaxObs; }
 int marlnav_collect_lanes() { return marlnav::kLanes; }
 // Bytes of dynamic shared memory of the run-time instance (num_obstacles
-// > kMaxObs) for blocks of `threads`; -1 past what a block may take.
-int marlnav_collect_rt_smem(int num_obstacles, int noisy, int threads) {
+// > kMaxObs) at `lanes` lanes an env, for blocks of `threads`; -1 past
+// what a block may take beside the counters' static bytes, or where no
+// instance has `lanes`.
+int marlnav_collect_rt_smem(int num_obstacles, int noisy, int threads,
+                            int lanes) {
+  if (marlnav::collect_rt_kernel(lanes) == nullptr) return -1;
   const long long bytes =
-      4ll * marlnav::rt_smem_floats(num_obstacles, noisy,
-                                    threads / marlnav::kLanes);
-  return bytes > marlnav::kMaxBlockSmem ? -1 : static_cast<int>(bytes);
+      4ll * marlnav::rt_smem_floats(num_obstacles, noisy, threads / lanes);
+  return bytes + marlnav::kCountsSmem > marlnav::kMaxBlockSmem
+             ? -1
+             : static_cast<int>(bytes);
 }
 
 // Launch `blocks` blocks of `threads` threads (a multiple of 32, at most
-// kMaxBlockThreads, blocks x threads >= kLanes x num_envs; see
-// ops/fused_collect.py launch_geometry) on `stream` (a cudaStream_t from
-// torch.cuda.current_stream()).  Returns cudaGetLastError() after the
-// launch: 0 when it was accepted.
+// kMaxBlockThreads, blocks x threads >= lanes x num_envs; see
+// ops/fused_collect.py launch_geometry), `lanes` an env (kLanes for the
+// templated instances; 8, 16 or 32 for the run-time one), on `stream` (a
+// cudaStream_t from torch.cuda.current_stream()).  Returns
+// cudaGetLastError() after the launch: 0 when it was accepted.
 int marlnav_fused_collect(const marlnav::Rows* in, const marlnav::Rows* out,
                           const float* w, const float* noise,
                           const int32_t* seed,
                           const marlnav::StepParams* params, float* obs,
                           float* act, float* lp, float* rew, uint8_t* done,
-                          int32_t* stats, int blocks, int threads, int device,
-                          void* stream) {
+                          int32_t* stats, int blocks, int threads, int lanes,
+                          int device, void* stream) {
+  const bool rt = params->num_obstacles > marlnav::kMaxObs;
   if (threads % 32 != 0 || threads < 32 ||
       threads > marlnav::kMaxBlockThreads || blocks < 1 ||
+      (rt ? marlnav::collect_rt_kernel(lanes) == nullptr
+          : lanes != marlnav::kLanes) ||
       static_cast<long long>(blocks) * threads <
-          static_cast<long long>(marlnav::kLanes) * params->num_envs)
+          static_cast<long long>(lanes) * params->num_envs)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -308,13 +339,13 @@ int marlnav_fused_collect(const marlnav::Rows* in, const marlnav::Rows* out,
     MARLNAV_LAUNCH(8)
     default: {
       const int smem = marlnav_collect_rt_smem(params->num_obstacles,
-                                               params->noisy, threads);
+                                               params->noisy, threads, lanes);
       if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-      auto* kernel = marlnav::fused_collect_rt_kernel;
+      auto* kernel = marlnav::collect_rt_kernel(lanes);
       if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
+        if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
       }
       kernel<<<blocks, threads, smem, s>>>(*in, *out, w, noise, seed, *params,
                                            obs, act, lp, rew, done, stats);

@@ -41,13 +41,19 @@
 // doubles the warps and has both lanes of an agent repeat the work they
 // share.  G = 8 is faster at P = 1024 (1.56 against 2.11 ms at T = 1000),
 // where latency rules.  Blocks of 128 threads (32 gave the same time).
-// Past kMaxObs = 8 obstacles fused_rollout_rt_kernel takes the step with
-// O at run time, as fused_collect.cu's run-time instance does.
-// What limits it now, not profiled per instruction: with 2,048 warps, 16
-// an SM, most likely the SMs' issue rate, spent in part on the spare lane,
-// on the obstacle blend every lane repeats, and on the IEEE divides and
-// square roots (-fmad=false, no fast-math).  12.5% of its operations
-// bound.
+// Past kMaxObs = 8 obstacles fused_rollout_rt_kernel<G, kMean> takes the
+// step with O at run time and G = 4, 8, 16 or 32 lanes an env chosen at
+// launch, as fused_collect.cu's run-time instance does.
+// What the card showed (chip_smoke.py phase 7 and its sweep; H100 80GB
+// HBM3 at 700 W; PERF.md §6 row 8): at the bench's P = 16384 the step
+// behaves as issue-bound (2,048 warps at G = 4): each width from 4 to 32
+// costs more,
+// 3.50 against 5.14, 7.22 and 13.62 ms at O 9 sampled, because a wider
+// group repeats its per-agent work on more lanes.  Spreading the
+// O-dependent work over all 4 lanes (the spare fourth lane had repeated
+// agent 2's) took the run-time instance from about 3.97, 5.85, 9.43 ms
+// to 3.50, 4.77, 7.20 at O 9, 17, 32 sampled, 11-14% of its operations
+// bound; the templated instances keep the spare lane.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -109,15 +115,16 @@ fused_rollout_kernel(Rows in, Rows out, const float* __restrict__ w,
   if (valid) e.store(out, P, p, g);
 }
 
-// The run-time instance: c.num_obstacles > kMaxObs (env_step.cuh), as
-// fused_collect_rt_kernel: the operator and each group's rows, obstacles
-// and uniforms in dynamic shared memory of rt_smem_floats.
-template <bool kMean>
-__global__ void __launch_bounds__(kMaxBlockThreads)
+// The run-time instance: c.num_obstacles > kMaxObs (env_step.cuh), G
+// lanes an env (G = 4, 8, 16 or 32, chosen at launch: ops/fused_collect.py
+// rt_lanes), as fused_collect_rt_kernel: the operator and each group's
+// rows, obstacles, uniforms and heads in dynamic shared memory of
+// rt_smem_floats, the work that grows with O spread over the G lanes.
+template <int G, bool kMean>
+__global__ void __launch_bounds__(kMaxBlockThreads, kRtMinBlocks)
 fused_rollout_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
                         const float* __restrict__ noise, uint32_t seed,
                         StepParams c, float* __restrict__ rew_out) {
-  constexpr int G = kLanes;
   const int P = c.num_envs, o = c.num_obstacles, F = obs_width(o);
   const int n_draws = step_draws(o, c.noisy);
 
@@ -135,32 +142,41 @@ fused_rollout_rt_kernel(Rows in, Rows out, const float* __restrict__ w,
 
   float* xs = s_dyn + 4 * F + 4 +
               static_cast<int>(threadIdx.x / G) * rt_group_floats(o, c.noisy);
-  RtLaneState e;
-  e.obx = xs + kAgents * F;
-  e.oby = e.obx + o;
-  e.o = o;
-  float* u = e.oby + o;
-  e.load(in, P, p, g.agent, c, g);
+  float* u = xs + kAgents * F + 2 * o;
+  float* heads = u + n_draws;
+  RtLaneState<G> e;
+  e.load(in, P, p, c, g, xs + kAgents * F, o);
   const uint2 key = make_uint2(seed, static_cast<uint32_t>(p));
-  float* x = xs + g.agent * F;
 
   for (int t = 0; t < c.num_steps; ++t) {
     group_uniforms<G>(noise, n_draws, n_draws, P, p, t, key, g, u);
-    float apx[kAgents], apy[kAgents];
-#pragma unroll
-    for (int j = 0; j < kAgents; ++j) {
-      apx[j] = Group<G>::from_agent(e.px, j);
-      apy[j] = Group<G>::from_agent(e.py, j);
-    }
-    group_obs_rt(e, g, apx, apy, c, x);
+    group_obs_rt(e, c, xs);
     __syncwarp();
-    const Action a = group_action<G, kMean, false>(g, wa, ca, RtRow{x, F},
-                                                   u + 2 * g.agent, c);
+    const Action a =
+        group_action_rt<G, kMean, false>(g, wa, ca, xs, F, u, heads, c);
     const StepOutcome s =
         group_advance(e, g, a.ang_raw, a.acc_raw, u + 2 * kAgents, c);
     if (valid && g.leader()) rew_out[static_cast<size_t>(t) * P + p] = s.reward;
   }
   if (valid) e.store(out, P, p, g);
+}
+
+// The run-time instance for `lanes` lanes an env and the mode, or null
+// where it has none.
+using RolloutRtKernel = void (*)(Rows, Rows, const float*, const float*,
+                                 uint32_t, StepParams, float*);
+template <bool kMean>
+RolloutRtKernel rollout_rt_kernel(int lanes) {
+  switch (lanes) {
+    case 4: return fused_rollout_rt_kernel<4, kMean>;
+    case 8: return fused_rollout_rt_kernel<8, kMean>;
+    case 16: return fused_rollout_rt_kernel<16, kMean>;
+    case 32: return fused_rollout_rt_kernel<32, kMean>;
+    default: return nullptr;
+  }
+}
+inline RolloutRtKernel rollout_rt_kernel(int lanes, bool mean) {
+  return mean ? rollout_rt_kernel<true>(lanes) : rollout_rt_kernel<false>(lanes);
 }
 
 }  // namespace marlnav
@@ -174,28 +190,34 @@ int marlnav_rollout_params_size() {
 int marlnav_rollout_max_obstacles() { return marlnav::kMaxObs; }
 int marlnav_rollout_lanes() { return marlnav::kLanes; }
 // Bytes of dynamic shared memory of the run-time instance (num_obstacles
-// > kMaxObs) for blocks of `threads`; -1 past what a block may take.
-int marlnav_rollout_rt_smem(int num_obstacles, int noisy, int threads) {
+// > kMaxObs) at `lanes` lanes an env, for blocks of `threads`; -1 past
+// what a block may take, or where no instance has `lanes`.
+int marlnav_rollout_rt_smem(int num_obstacles, int noisy, int threads,
+                            int lanes) {
+  if (marlnav::rollout_rt_kernel(lanes, false) == nullptr) return -1;
   const long long bytes =
-      4ll * marlnav::rt_smem_floats(num_obstacles, noisy,
-                                    threads / marlnav::kLanes);
+      4ll * marlnav::rt_smem_floats(num_obstacles, noisy, threads / lanes);
   return bytes > marlnav::kMaxBlockSmem ? -1 : static_cast<int>(bytes);
 }
 
 // Launch `blocks` blocks of `threads` threads (a multiple of 32, at most
-// kMaxBlockThreads, blocks x threads >= kLanes x num_envs; see
-// ops/fused_collect.py launch_geometry) on `stream` (a cudaStream_t from
-// torch.cuda.current_stream()).  Returns cudaGetLastError() after the
-// launch: 0 when it was accepted.
+// kMaxBlockThreads, blocks x threads >= lanes x num_envs; see
+// ops/fused_collect.py launch_geometry), `lanes` an env (kLanes for the
+// templated instances; 4, 8, 16 or 32 for the run-time one), on `stream`
+// (a cudaStream_t from torch.cuda.current_stream()).  Returns
+// cudaGetLastError() after the launch: 0 when it was accepted.
 int marlnav_fused_rollout(const marlnav::Rows* in, const marlnav::Rows* out,
                           const float* w, const float* noise, uint32_t seed,
                           const marlnav::StepParams* params, int deterministic,
-                          float* rew, int blocks, int threads, int device,
-                          void* stream) {
+                          float* rew, int blocks, int threads, int lanes,
+                          int device, void* stream) {
+  const bool rt = params->num_obstacles > marlnav::kMaxObs;
   if (threads % 32 != 0 || threads < 32 ||
       threads > marlnav::kMaxBlockThreads || blocks < 1 ||
+      (rt ? marlnav::rollout_rt_kernel(lanes, false) == nullptr
+          : lanes != marlnav::kLanes) ||
       static_cast<long long>(blocks) * threads <
-          static_cast<long long>(marlnav::kLanes) * params->num_envs)
+          static_cast<long long>(lanes) * params->num_envs)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -220,16 +242,13 @@ int marlnav_fused_rollout(const marlnav::Rows* in, const marlnav::Rows* out,
     MARLNAV_LAUNCH(8)
     default: {
       const int smem = marlnav_rollout_rt_smem(params->num_obstacles,
-                                               params->noisy, threads);
+                                               params->noisy, threads, lanes);
       if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-      auto* kernel =
-          deterministic
-              ? marlnav::fused_rollout_rt_kernel<true>
-              : marlnav::fused_rollout_rt_kernel<false>;
+      auto* kernel = marlnav::rollout_rt_kernel(lanes, deterministic != 0);
       if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
+        if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
       }
       kernel<<<blocks, threads, smem, s>>>(*in, *out, w, noise, seed, *params,
                                            rew);

@@ -3,7 +3,8 @@
 Port of ``marlnav_tpu/ops/fused_collect.py`` (plus the ``RowState`` layout
 of ``ops/fused_rollout.py``).  The kernel (``ops/csrc/fused_collect.cu``)
 steps each env through all T steps on a group of ``COLLECT_LANES`` lanes
-of one warp (two an agent), with the env state in registers, and writes
+of one warp (two an agent; past 8 obstacles ``COLLECT_RT_LANES``, chosen at
+launch by ``rt_lanes``), with the env state in registers, and writes
 the training buffer — normalized observations, raw sampled actions,
 per-agent log-probs, rewards, done flags and the episode counters — in
 the canonical ``Buffer`` layout.  The actor runs in-kernel
@@ -305,11 +306,16 @@ def _kernel_params(sm: StepMath, num_envs: int,
     return kp
 
 
-# Lanes of one warp that step one env together (kLanes in
-# ops/csrc/fused_collect.cu; the wrapper checks the library's), and the
-# threads of a block of either rollout kernel.
+# Lanes of one warp that step one env together in the templated instances
+# (kLanes in ops/csrc/fused_collect.cu; the wrapper checks the library's),
+# the widths the run-time instance has (fused_collect_rt_kernel<G>), and
+# the threads of a block of either rollout kernel.
 COLLECT_LANES = 8
+COLLECT_RT_LANES = (8, 16, 32)
 BLOCK_THREADS = 128
+# Warps of a run-time instance's grid that rt_lanes allows (about 15.5 an
+# SM on an H100's 132), half of them for groups of 32 lanes.
+RT_WARPS = 2048
 
 
 def launch_geometry(num_envs: int, lanes: int,
@@ -322,19 +328,60 @@ def launch_geometry(num_envs: int, lanes: int,
     return -(-lanes * num_envs // threads), threads
 
 
-def block_threads(what: str, sm: StepMath, max_obstacles: int,
-                  rt_smem) -> int:
-    """Threads a block of a rollout kernel: ``BLOCK_THREADS`` for the
-    templated instances (1 .. ``max_obstacles`` obstacles); for the
-    run-time instance past them, the most of 128, 64 and 32 whose groups'
-    observation rows, obstacles and uniforms fit one block's shared memory
-    (``rt_smem(o, noisy, threads)``: its bytes, or -1).  Raises
-    ``ValueError`` where not even one warp's groups fit."""
+def rt_lanes(widths, num_envs: int, num_obstacles: int) -> int:
+    """Lanes an env for a step kernel's run-time instance (past 8
+    obstacles), one of ``widths`` (its instances, narrowest first).
+
+    Rule: the widest width that is at most the least power of two holding
+    the 1 + O + 2 geom calls of an agent (a lane takes one call for all
+    three agents, so a wider group leaves lanes idle) and whose grid holds
+    at most ``RT_WARPS`` warps (``num_envs * lanes / 32``; half as many for
+    groups of 32, a whole warp an env); else the narrowest.  A wider group
+    shortens each env's chain of dependent steps, which bounds a small
+    grid; a narrower one repeats the per-agent work on fewer lanes, which
+    counts once the grid fills the card.  Measured on an H100 (PERF.md §6,
+    PR 12: each width at P 1,024 to 16,384 and O 9, 17, 32): the best
+    grids held 1,024 warps at P up to 2,048 and 2,048 at P 4,096 to 16,384;
+    groups of 32 lost to 16 at 2,048 warps."""
+    useful = 1 << (num_obstacles + 2).bit_length()  # >= O + 3
+    for width in sorted(widths, reverse=True):
+        warps = RT_WARPS // 2 if width == 32 else RT_WARPS
+        if width <= useful and num_envs * width <= 32 * warps:
+            return width
+    return min(widths)
+
+
+def launch_shape(what: str, sm: StepMath, num_envs: int, max_obstacles: int,
+                 rt_smem, templated_lanes: int, rt_widths,
+                 lanes: Optional[int] = None):
+    """``(lanes, threads)``: lanes an env and threads a block of a rollout
+    kernel's launch.  The templated instances (1 .. ``max_obstacles``
+    obstacles) take ``templated_lanes`` and ``BLOCK_THREADS``.  Past them
+    the run-time instance takes ``lanes`` when given (one of
+    ``rt_widths``), else ``rt_lanes``'s pick, or the narrowest wider width
+    whose groups fit where the pick's do not; and threads the most of 128,
+    64 and 32 whose groups' observation rows, obstacles, uniforms and heads
+    fit one block's shared memory (``rt_smem(o, noisy, threads, lanes)``:
+    its bytes, or -1).  Raises ``ValueError`` for a width without an
+    instance, and where not even one warp's groups fit."""
     if sm.o <= max_obstacles:
-        return BLOCK_THREADS
-    for threads in (BLOCK_THREADS, 64, 32):
-        if rt_smem(sm.o, int(sm.noisy), threads) >= 0:
-            return threads
+        if lanes not in (None, templated_lanes):
+            raise ValueError(f"{what} kernel: {sm.o} obstacles take the "
+                             f"templated instance, {templated_lanes} lanes "
+                             f"an env, not {lanes}")
+        return templated_lanes, BLOCK_THREADS
+    if lanes is None:
+        pick = rt_lanes(rt_widths, num_envs, sm.o)
+        candidates = [w for w in rt_widths if w >= pick]
+    elif lanes in rt_widths:
+        candidates = [lanes]
+    else:
+        raise ValueError(f"{what} kernel: no run-time instance has {lanes} "
+                         f"lanes an env (it has {rt_widths})")
+    for width in candidates:
+        for threads in (BLOCK_THREADS, 64, 32):
+            if rt_smem(sm.o, int(sm.noisy), threads, width) >= 0:
+                return width, threads
     raise ValueError(
         f"{what} kernel: the observation rows, obstacles and uniforms of "
         f"one warp's envs at {sm.o} obstacles do not fit one block's "
@@ -348,10 +395,10 @@ def _library():
     # Every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and cuts the pointer.
     fn = lib.marlnav_fused_collect
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.marlnav_collect_rt_smem.argtypes = [ctypes.c_int] * 3
+    lib.marlnav_collect_rt_smem.argtypes = [ctypes.c_int] * 4
     lib.marlnav_collect_rt_smem.restype = ctypes.c_int
     for getter in (lib.marlnav_collect_params_size,
                    lib.marlnav_collect_max_obstacles,
@@ -363,6 +410,10 @@ def _library():
     if lib.marlnav_collect_lanes() != COLLECT_LANES:
         raise RuntimeError("kLanes of fused_collect.cu differs from "
                            "COLLECT_LANES")
+    if any(lib.marlnav_collect_rt_smem(9, 0, 32, w) < 0
+           for w in COLLECT_RT_LANES):
+        raise RuntimeError("fused_collect.cu lacks a run-time instance of "
+                           "COLLECT_RT_LANES")
     return lib, record
 
 
@@ -382,7 +433,7 @@ def _check_launch(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     inputs: rows (r, P), the actor operator and the optional uniforms,
     float32, contiguous, on the rows' device.  Every obstacle count >= 1
     has an instance: 1 .. 8 templated, past 8 the run-time one
-    (``block_threads`` checks its shared memory)."""
+    (``launch_shape`` checks its shared memory)."""
     device = rows.px.device
     a, o, num_envs = sm.a, sm.o, rows.px.shape[-1]
     if o < 1:
@@ -420,8 +471,8 @@ def seed_tensor(seed, device) -> torch.Tensor:
 
 def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
                        c_comp: torch.Tensor, seed, num_steps: int,
-                       noise: Optional[torch.Tensor] = None
-                       ) -> CollectOutput:
+                       noise: Optional[torch.Tensor] = None,
+                       lanes: Optional[int] = None) -> CollectOutput:
     """Run ``num_steps`` collect steps from ``rows``.
 
     ``seed`` is an int or one int32 on the rows' device.  On CUDA tensors
@@ -429,7 +480,9 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     on the seed, which the kernel reads from device memory, or from
     ``noise`` (T, n_draws, P) when given) and raises on anything it cannot
     launch.  On CPU tensors it runs the plain version on ``noise``, or on
-    uniforms drawn from a generator seeded with ``seed``.
+    uniforms drawn from a generator seeded with ``seed``.  ``lanes`` forces
+    the run-time instance's lanes an env (one of ``COLLECT_RT_LANES``;
+    ``launch_shape``), for tests and timings; the plain version ignores it.
     ``fused_collect_rows.launches`` counts kernel launches."""
     device = rows.px.device
     a, num_envs = sm.a, rows.px.shape[-1]
@@ -443,9 +496,9 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
 
     lib, _ = _library()
     _check_launch(sm, rows, a_comp, c_comp, num_steps, noise)
-    threads = block_threads("fused collect", sm,
-                            lib.marlnav_collect_max_obstacles(),
-                            lib.marlnav_collect_rt_smem)
+    lanes, threads = launch_shape(
+        "fused collect", sm, num_envs, lib.marlnav_collect_max_obstacles(),
+        lib.marlnav_collect_rt_smem, COLLECT_LANES, COLLECT_RT_LANES, lanes)
     seed = seed_tensor(seed, device)
     f32 = torch.float32
     weights = torch.cat([a_comp.reshape(-1), c_comp])
@@ -463,14 +516,14 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     ptrs_out = _Rows(*(x.data_ptr() for x in out_rows.fields()))
     params = _kernel_params(sm, num_envs, num_steps)
     stream = torch.cuda.current_stream(device).cuda_stream
-    blocks, threads = launch_geometry(num_envs, COLLECT_LANES, threads)
+    blocks, threads = launch_geometry(num_envs, lanes, threads)
     err = lib.marlnav_fused_collect(
         ctypes.byref(ptrs_in), ctypes.byref(ptrs_out), weights.data_ptr(),
         None if noise is None else noise.data_ptr(), seed.data_ptr(),
         ctypes.byref(params),
         out.obs.data_ptr(), out.actions.data_ptr(), out.log_probs.data_ptr(),
         out.rewards.data_ptr(), out.done.data_ptr(), out.stats.data_ptr(),
-        blocks, threads, device.index if device.index is not None
+        blocks, threads, lanes, device.index if device.index is not None
         else torch.cuda.current_device(), stream)
     if err != 0:
         raise RuntimeError(f"fused collect kernel launch failed: CUDA error "

@@ -2,8 +2,10 @@
 
 Port of ``marlnav_tpu/ops/fused_rollout.py``, the bench kernel.  The kernel
 (``ops/csrc/fused_rollout.cu``) steps each env through all T steps on a
-group of ``ROLLOUT_LANES`` lanes of one warp (one an agent), with the env
-state in registers — observations, the actor as its (4, obs) affine
+group of ``ROLLOUT_LANES`` lanes of one warp (one an agent; past 8
+obstacles ``ROLLOUT_RT_LANES``, chosen at launch by
+``fused_collect.rt_lanes``), with the env state in registers —
+observations, the actor as its (4, obs) affine
 operator, the action (a Gaussian sample, or the policy mean with
 ``deterministic_actions``), dynamics, rewards and the auto-reset — and
 writes only the (T, P) rewards and the final state: no training buffer and
@@ -39,9 +41,9 @@ from marlnav_tpu_torch.ops.fused_collect import (  # noqa: F401
     _kernel_params,
     _KernelParams,
     _Rows,
-    block_threads,
     env_state_to_rows,
     launch_geometry,
+    launch_shape,
     roll_rows,
     rows_to_env_arrays,
     rows_to_env_state,
@@ -64,9 +66,12 @@ def rollout_rows_reference(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     return final, torch.stack(rewards)
 
 
-# Lanes of one warp that step one env together (kLanes in
-# ops/csrc/fused_rollout.cu; the wrapper checks the library's).
+# Lanes of one warp that step one env together in the templated instances
+# (kLanes in ops/csrc/fused_rollout.cu; the wrapper checks the library's),
+# and the widths the run-time instance has (fused_rollout_rt_kernel<G,
+# kMean>).
 ROLLOUT_LANES = 4
+ROLLOUT_RT_LANES = (4, 8, 16, 32)
 
 
 def _library():
@@ -78,9 +83,9 @@ def _library():
     ptr = ctypes.c_void_p
     fn = lib.marlnav_fused_rollout
     fn.argtypes = [ptr] * 4 + [ctypes.c_uint32, ptr, ctypes.c_int, ptr] \
-        + [ctypes.c_int] * 3 + [ptr]
+        + [ctypes.c_int] * 4 + [ptr]
     fn.restype = ctypes.c_int
-    lib.marlnav_rollout_rt_smem.argtypes = [ctypes.c_int] * 3
+    lib.marlnav_rollout_rt_smem.argtypes = [ctypes.c_int] * 4
     lib.marlnav_rollout_rt_smem.restype = ctypes.c_int
     for getter in (lib.marlnav_rollout_params_size,
                    lib.marlnav_rollout_max_obstacles,
@@ -92,13 +97,18 @@ def _library():
     if lib.marlnav_rollout_lanes() != ROLLOUT_LANES:
         raise RuntimeError("kLanes of fused_rollout.cu differs from "
                            "ROLLOUT_LANES")
+    if any(lib.marlnav_rollout_rt_smem(9, 0, 32, w) < 0
+           for w in ROLLOUT_RT_LANES):
+        raise RuntimeError("fused_rollout.cu lacks a run-time instance of "
+                           "ROLLOUT_RT_LANES")
     return lib
 
 
 def fused_rollout_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
                        c_comp: torch.Tensor, seed: int, num_steps: int,
                        deterministic: bool,
-                       noise: Optional[torch.Tensor] = None
+                       noise: Optional[torch.Tensor] = None,
+                       lanes: Optional[int] = None
                        ) -> Tuple[RowState, torch.Tensor]:
     """Run ``num_steps`` rollout steps from ``rows``; returns ``(final rows,
     rewards (T, P))``.
@@ -107,8 +117,10 @@ def fused_rollout_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     Philox stream keyed on ``seed``, or from ``noise`` (T, n_draws, P) when
     given) and raises on anything it cannot launch.  On CPU tensors it runs
     the plain version on ``noise``, or on uniforms drawn from a generator
-    seeded with ``seed``.  ``fused_rollout_rows.launches`` counts kernel
-    launches."""
+    seeded with ``seed``.  ``lanes`` forces the run-time instance's lanes
+    an env (one of ``ROLLOUT_RT_LANES``; ``launch_shape``), for tests and
+    timings; the plain version ignores it.  ``fused_rollout_rows.launches``
+    counts kernel launches."""
     device = rows.px.device
     num_envs = rows.px.shape[-1]
     if device.type == "cpu":
@@ -122,21 +134,21 @@ def fused_rollout_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
 
     lib = _library()
     _check_launch(sm, rows, a_comp, c_comp, num_steps, noise)
-    threads = block_threads("fused rollout", sm,
-                            lib.marlnav_rollout_max_obstacles(),
-                            lib.marlnav_rollout_rt_smem)
+    lanes, threads = launch_shape(
+        "fused rollout", sm, num_envs, lib.marlnav_rollout_max_obstacles(),
+        lib.marlnav_rollout_rt_smem, ROLLOUT_LANES, ROLLOUT_RT_LANES, lanes)
     weights = torch.cat([a_comp.reshape(-1), c_comp])
     out_rows = RowState(*(torch.empty_like(x) for x in rows.fields()))
     rewards = torch.empty((num_steps, num_envs), dtype=torch.float32,
                           device=device)
-    blocks, threads = launch_geometry(num_envs, ROLLOUT_LANES, threads)
+    blocks, threads = launch_geometry(num_envs, lanes, threads)
     err = lib.marlnav_fused_rollout(
         ctypes.byref(_Rows(*(x.data_ptr() for x in rows.fields()))),
         ctypes.byref(_Rows(*(x.data_ptr() for x in out_rows.fields()))),
         weights.data_ptr(), None if noise is None else noise.data_ptr(),
         ctypes.c_uint32(seed & 0xFFFFFFFF),
         ctypes.byref(_kernel_params(sm, num_envs, num_steps)),
-        int(deterministic), rewards.data_ptr(), blocks, threads,
+        int(deterministic), rewards.data_ptr(), blocks, threads, lanes,
         device.index if device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(device).cuda_stream)

@@ -294,20 +294,122 @@ def test_step_sources_keep_plain_arithmetic():
 def test_launch_geometry_gives_each_env_one_group_in_one_warp(kernel,
                                                               num_envs):
     """The rollout kernels' grid (fc.launch_geometry) steps env p on threads
-    G p .. G p + G - 1 (env = thread // G, G the kernel's lanes an env):
-    every env gets exactly one group of G lanes, the groups past P are
-    fewer than a block's, and no group crosses a warp or a block."""
+    G p .. G p + G - 1 (env = thread // G, G the lanes an env: the templated
+    instances' and every width the run-time instance has, in blocks of 128,
+    64 or 32 threads): every env gets exactly one group of G lanes, the
+    groups past P are fewer than a block's, and no group crosses a warp or
+    a block."""
     from marlnav_tpu_torch.ops import fused_rollout as fr
 
-    lanes = {"collect": fc.COLLECT_LANES, "rollout": fr.ROLLOUT_LANES}[kernel]
-    blocks, threads = fc.launch_geometry(num_envs, lanes)
-    assert 32 % lanes == 0 and threads % 32 == 0
-    assert threads <= 256  # kMaxBlockThreads in ops/csrc/env_step.cuh
-    tid = np.arange(blocks * threads)
-    env = tid // lanes
-    counts = np.bincount(env[env < num_envs], minlength=num_envs)
-    assert counts.shape == (num_envs,) and (counts == lanes).all()
-    assert (env >= num_envs).sum() < threads
-    # each group's lanes share one warp
-    for group_first in range(0, blocks * threads, lanes):
-        assert group_first // 32 == (group_first + lanes - 1) // 32
+    widths = {"collect": (fc.COLLECT_LANES, *fc.COLLECT_RT_LANES),
+              "rollout": (fr.ROLLOUT_LANES, *fr.ROLLOUT_RT_LANES)}[kernel]
+    for lanes in widths:
+        for block in (fc.BLOCK_THREADS, 64, 32):
+            blocks, threads = fc.launch_geometry(num_envs, lanes, block)
+            assert 32 % lanes == 0 and threads % 32 == 0
+            assert threads <= 256  # kMaxBlockThreads in ops/csrc/env_step.cuh
+            tid = np.arange(blocks * threads)
+            env = tid // lanes
+            counts = np.bincount(env[env < num_envs], minlength=num_envs)
+            assert counts.shape == (num_envs,) and (counts == lanes).all()
+            assert (env >= num_envs).sum() < threads
+            # each group's lanes share one warp
+            first = np.arange(0, blocks * threads, lanes)
+            assert (first // 32 == (first + lanes - 1) // 32).all()
+
+
+def _widths(kernel):
+    from marlnav_tpu_torch.ops import fused_rollout as fr
+
+    return {"collect": fc.COLLECT_RT_LANES,
+            "rollout": fr.ROLLOUT_RT_LANES}[kernel]
+
+
+@pytest.mark.parametrize("kernel", ["collect", "rollout"])
+@pytest.mark.parametrize("num_envs", [1, 7, 1000, 1024, 2048, 4096, 8192,
+                                      16384, 100_000])
+def test_rt_lanes_picks_an_instance_by_its_rule(kernel, num_envs):
+    """fc.rt_lanes, at every (P, O) the card tests and times use: a width
+    the run-time instance has; the widest at most the least power of two
+    >= O + 3 whose grid holds at most RT_WARPS warps (half for 32 lanes),
+    else the narrowest; no wider at more envs, no narrower at more
+    obstacles."""
+    widths = _widths(kernel)
+    picks = []
+    for o in (9, 13, 14, 17, 29, 30, 32, 655, 1205, 3223):
+        pick = fc.rt_lanes(widths, num_envs, o)
+        assert pick in widths
+        useful = 1
+        while useful < o + 3:
+            useful *= 2
+        fits = [w for w in widths if w <= useful and num_envs * w <= 32 * (
+            fc.RT_WARPS // 2 if w == 32 else fc.RT_WARPS)]
+        assert pick == (max(fits) if fits else min(widths)), o
+        assert fc.rt_lanes(widths, 2 * num_envs, o) <= pick
+        picks.append(pick)
+    assert picks == sorted(picks)
+    # the picks the card times: the collect at P 1024, the rollout at 16384
+    if (kernel, num_envs) == ("collect", 1024):
+        assert picks[:4] == [16, 16, 32, 32]
+    if (kernel, num_envs) == ("rollout", 16384):
+        assert set(picks) == {4}
+
+
+def _rt_smem(heads=True, static=0):
+    """ops/csrc/env_step.cuh rt_smem_floats in bytes, as the C
+    marlnav_*_rt_smem returns it (-1 past 232,448 bytes with the kernel's
+    ``static`` bytes: the collect's episode counters take 96); ``heads``
+    False gives the layout before the actor heads had their slots."""
+    def rt_smem(o, noisy, threads, lanes):
+        f = 6 + 2 * o
+        n = 3 * f + 2 * o + 6 + 2 * o + (9 if noisy else 0) + (12 if heads
+                                                               else 0)
+        nbytes = 4 * (4 * f + 4 + threads // lanes * ((n + 1) & ~1))
+        return -1 if nbytes + static > 232448 else nbytes
+    return rt_smem
+
+
+@pytest.mark.parametrize("kernel", ["collect", "rollout"])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_launch_shape_takes_every_obstacle_count_it_took(kernel, noisy):
+    """fc.launch_shape with the kernels' shared-memory rule: the templated
+    instances (O <= 8) keep their lanes and 128 threads and refuse another
+    width; past them a forced width stays or raises; the chooser's pick
+    widens where its groups do not fit, so every obstacle count that fit
+    the run-time instance at 8 (collect) or 4 (rollout) lanes before the
+    actor heads took shared memory still launches, at P 1 to 16384; past
+    the widest width's limit it raises the ValueError that names the shared
+    memory."""
+    import types
+
+    widths, templated = _widths(kernel), {"collect": 8, "rollout": 4}[kernel]
+    rt_smem = _rt_smem(static=96 if kernel == "collect" else 0)
+    before = _rt_smem(heads=False)
+
+    def shape(o, p, lanes=None):
+        sm = types.SimpleNamespace(o=o, noisy=noisy)
+        return fc.launch_shape(kernel, sm, p, 8, rt_smem, templated, widths,
+                               lanes)
+
+    assert shape(3, 1024) == (templated, fc.BLOCK_THREADS)
+    with pytest.raises(ValueError, match="templated"):
+        shape(3, 1024, 16)
+    with pytest.raises(ValueError, match="no run-time instance"):
+        shape(17, 1024, 2)
+    assert shape(17, 1024, widths[0]) == (widths[0], fc.BLOCK_THREADS)
+    most = max(o for o in range(9, 1300) if before(o, noisy, 32, templated)
+               >= 0)
+    assert most == {"collect": 1207, "rollout": 656}[kernel] + (not noisy)
+    for o in range(9, most + 1):
+        for p in (1, 1024, 16384):
+            lanes, threads = shape(o, p)
+            assert lanes >= fc.rt_lanes(widths, p, o)
+            assert rt_smem(o, noisy, threads, lanes) >= 0
+    last = max(o for o in range(9, 4000) if rt_smem(o, noisy, 32, 32) >= 0)
+    assert shape(last, 16384) == (32, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        shape(last + 1, 1)
+    narrowest = max(o for o in range(9, 1300)
+                    if rt_smem(o, noisy, 32, widths[0]) >= 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        shape(narrowest + 1, 1, widths[0])  # a forced width does not widen

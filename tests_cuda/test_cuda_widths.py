@@ -4,8 +4,10 @@ the critic and the un-collapsed actor gradients (float32 and bf16), and
 the affine actor past obs 255.
 
 The step kernels equal their plain versions bit for bit (every output
-field, through resets with noisy_ags, at a ragged env count too), as the
-templated instances do.  The gradient route is held as the tensor-core
+field, through resets with noisy_ags, at one env, part of a warp, a ragged
+and a whole count), at every lane width their run-time instance has and
+at the chooser's, as the templated instances do; at the most obstacles a
+warp's groups take, and one past it raises.  The gradient route is held as the tensor-core
 kernels are: float32 within 1e-4 max|w| + 1e-7 of the plain version in
 float64, bf16 within a quarter of the plain version's bf16 - float32 gap,
 output by output, two launches bitwise equal, one count a call; at ragged
@@ -41,10 +43,13 @@ UNCOLLAPSED_WIDTHS = ((40, 50), (70, 128), (12, 512), (1030, 64))
 AFFINE_WIDTHS = (256, 300)
 
 
-def step_setup(o, p, device, t=16):
-    """An env state of p envs with o obstacles (episode_len 10, noisy
-    resets), an actor operator and t steps of uniforms."""
-    ep = EnvParams(num_parallel=p, num_obstacles=o, episode_len=10)
+STEP_ENVS = (1, 7, 1000, 1024)
+
+
+def step_setup(o, p, device, t=16, episode_len=10):
+    """An env state of p envs with o obstacles (noisy resets), an actor
+    operator and t steps of uniforms."""
+    ep = EnvParams(num_parallel=p, num_obstacles=o, episode_len=episode_len)
     ic = TriangleInitConfig(num_parallel=p, num_obstacles=o, noisy_ags=True)
     sm = StepMath(ep, ic, NormalizerConfig(num_obstacles=o), ScalerConfig())
     rows = fc.env_state_to_rows(make_env(ep, ic, device).init(
@@ -56,24 +61,55 @@ def step_setup(o, p, device, t=16):
     return sm, rows, a_comp, c_comp, noise
 
 
+def assert_collect_equal(out, ref, what):
+    for name in ("obs", "actions", "log_probs", "rewards", "done", "stats"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), \
+            (what, name)
+    for x, y in zip(out.rows.fields(), ref.rows.fields()):
+        assert torch.equal(x, y), what
+
+
+def assert_rollout_equal(got, want, what):
+    assert torch.equal(got[1], want[1]), what
+    for x, y in zip(got[0].fields(), want[0].fields()):
+        assert torch.equal(x, y), what
+
+
+def slice_rows(rows, p):
+    return fc.RowState(*(x[:, :p].contiguous() for x in rows.fields()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("o", [9, 17, 32])
-@pytest.mark.parametrize("num_envs", [2048, 1000])
-def test_collect_any_obstacle_count_matches_plain(cuda, o, num_envs):
+def test_collect_any_obstacle_count_matches_plain(cuda, o):
     """The collect kernel's run-time instance against
-    collect_rows_reference: every field equal, one count a launch."""
-    sm, rows, a_comp, c_comp, noise = step_setup(o, num_envs, cuda)
-    before = fc.fused_collect_rows.launches
-    out = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, noise.shape[0],
-                                noise)
-    assert fc.fused_collect_rows.launches == before + 1
+    collect_rows_reference at each lane width (forced through ``lanes``)
+    and at the chooser's, at P 1, 7, 1000 and 1024: every field equal, one
+    count a launch.  The plain version steps each env on its own, so one
+    run at P 1024 holds the smaller P on its first envs (the episode
+    counters, sums over the envs, at P 1024)."""
+    sm, rows, a_comp, c_comp, noise = step_setup(o, max(STEP_ENVS), cuda)
     ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
-    torch.cuda.synchronize()
-    assert out.done.any()  # premise: resets fired
-    for name in ("obs", "actions", "log_probs", "rewards", "done", "stats"):
-        assert torch.equal(getattr(out, name), getattr(ref, name)), name
-    for x, y in zip(out.rows.fields(), ref.rows.fields()):
-        assert torch.equal(x, y)
+    for p in STEP_ENVS:
+        rows_p, noise_p = slice_rows(rows, p), noise[..., :p].contiguous()
+        for lanes in (None, *fc.COLLECT_RT_LANES):
+            before = fc.fused_collect_rows.launches
+            out = fc.fused_collect_rows(sm, rows_p, a_comp, c_comp, 9,
+                                        noise.shape[0], noise_p, lanes=lanes)
+            assert fc.fused_collect_rows.launches == before + 1
+            torch.cuda.synchronize()
+            what = f"P {p} lanes {lanes}"
+            assert out.done.any(), what  # premise: resets fired
+            t = noise.shape[0]
+            for name in ("obs", "actions", "rewards", "done"):
+                assert torch.equal(getattr(out, name),
+                                   getattr(ref, name)[:, :p]), (what, name)
+            assert torch.equal(out.log_probs, ref.log_probs.reshape(
+                t, -1, 3)[:, :p].reshape(t, -1)), what
+            for x, y in zip(out.rows.fields(), ref.rows.fields()):
+                assert torch.equal(x, y[:, :p]), what
+            if p == max(STEP_ENVS):
+                assert torch.equal(out.stats, ref.stats), what
 
 
 @pytest.mark.cuda
@@ -82,30 +118,128 @@ def test_collect_any_obstacle_count_matches_plain(cuda, o, num_envs):
                          ids=["sampled", "mean"])
 def test_rollout_any_obstacle_count_matches_plain(cuda, o, deterministic):
     """The rollout kernel's run-time instance against
-    rollout_rows_reference, at a ragged env count: rewards and the final
-    rows equal."""
-    sm, rows, a_comp, c_comp, noise = step_setup(o, 1000, cuda)
-    got = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 9, noise.shape[0],
-                                deterministic, noise)
+    rollout_rows_reference at each lane width and at the chooser's, at P 1,
+    7, 1000 and 1024 (the first envs of one plain run): rewards and the
+    final rows equal."""
+    sm, rows, a_comp, c_comp, noise = step_setup(o, max(STEP_ENVS), cuda)
     want = fr.rollout_rows_reference(sm, rows, a_comp, c_comp, noise,
                                      deterministic)
-    torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1])
-    for x, y in zip(got[0].fields(), want[0].fields()):
-        assert torch.equal(x, y)
+    for p in STEP_ENVS:
+        rows_p, noise_p = slice_rows(rows, p), noise[..., :p].contiguous()
+        for lanes in (None, *fr.ROLLOUT_RT_LANES):
+            got = fr.fused_rollout_rows(sm, rows_p, a_comp, c_comp, 9,
+                                        noise.shape[0], deterministic,
+                                        noise_p, lanes=lanes)
+            torch.cuda.synchronize()
+            assert_rollout_equal(
+                got, (slice_rows(want[0], p), want[1][:, :p]),
+                f"P {p} lanes {lanes}")
 
 
 @pytest.mark.cuda
-def test_rollout_and_collect_share_their_philox_stream_past_8(cuda):
+@pytest.mark.parametrize("o", [9, 17, 32])
+def test_rollout_and_collect_share_their_philox_stream_past_8(cuda, o):
     """A sampled rollout and a collect from the same seed give the same
-    rewards and final rows at 17 obstacles, as at 1 .. 8."""
-    sm, rows, a_comp, c_comp, _ = step_setup(17, 1000, cuda)
+    rewards and final rows, at every lane width of either, as at 1 .. 8."""
+    sm, rows, a_comp, c_comp, _ = step_setup(o, 1000, cuda)
     col = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 5, 16)
-    ro = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 5, 16, False)
-    torch.cuda.synchronize()
-    assert torch.equal(col.rewards, ro[1])
-    for x, y in zip(col.rows.fields(), ro[0].fields()):
-        assert torch.equal(x, y)
+    assert col.done.any()
+    for lanes in fc.COLLECT_RT_LANES:
+        other = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 5, 16,
+                                      lanes=lanes)
+        assert_collect_equal(other, col, f"collect lanes {lanes}")
+    for lanes in fr.ROLLOUT_RT_LANES:
+        ro = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 5, 16, False,
+                                   lanes=lanes)
+        torch.cuda.synchronize()
+        assert_rollout_equal(ro, (col.rows, col.rewards),
+                             f"rollout lanes {lanes}")
+
+
+def most_obstacles(rt_smem, lanes, noisy=1):
+    """The most obstacles whose groups of one warp at ``lanes`` lanes an env
+    fit a block's shared memory (``rt_smem``: the library's)."""
+    lo, hi = 9, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if rt_smem(mid, noisy, 32, lanes) >= 0 else \
+            (lo, mid - 1)
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["collect", "rollout"])
+def test_step_kernels_at_their_shared_memory_limit(cuda, kind):
+    """At the most obstacles the narrowest width's warp takes (1,205 for
+    the collect, 655 for the rollout with noisy resets), that width equals
+    its plain version through resets (a reset every step); the chooser
+    widens the groups past it, so the counts the kernels took before their
+    run-time widths (up to 1,207 and 656) still run; one obstacle past what
+    the widest width takes raises the ValueError that names the shared
+    memory."""
+    if kind == "collect":
+        lib, widths = fc._library()[0], fc.COLLECT_RT_LANES
+        rt_smem = lib.marlnav_collect_rt_smem
+    else:
+        lib, widths = fr._library(), fr.ROLLOUT_RT_LANES
+        rt_smem = lib.marlnav_rollout_rt_smem
+    o = most_obstacles(rt_smem, widths[0])
+    sm, rows, a_comp, c_comp, noise = step_setup(o, 7, cuda, t=2,
+                                                 episode_len=1)
+    if kind == "collect":
+        got = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, 2, noise,
+                                    lanes=widths[0])
+        ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
+        torch.cuda.synchronize()
+        assert got.done.all()
+        assert_collect_equal(got, ref, f"O {o}")
+    else:
+        got = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 9, 2, False,
+                                    noise, lanes=widths[0])
+        want = fr.rollout_rows_reference(sm, rows, a_comp, c_comp, noise,
+                                         False)
+        torch.cuda.synchronize()
+        assert_rollout_equal(got, want, f"O {o}")
+    limits = [most_obstacles(rt_smem, w) for w in widths]
+    assert limits == sorted(limits) and limits[0] >= (1205 if kind ==
+                                                      "collect" else 655)
+    for o, p in ((1207 if kind == "collect" else 656, 16384),
+                 (limits[-1], 7)):
+        sm = step_setup(o, 1, "cpu", t=1)[0]
+        lanes, _ = fc.launch_shape(kind, sm, p, 8, rt_smem, 0, widths)
+        assert lanes > widths[0] and rt_smem(o, 1, 32, lanes) >= 0
+    sm, rows, a_comp, c_comp, _ = step_setup(limits[-1] + 1, 7, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        if kind == "collect":
+            fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9, 2)
+        else:
+            fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 9, 2, False)
+
+
+@pytest.mark.cuda
+def test_graphed_collect_past_8_equals_eager(cuda):
+    """The collect at 17 obstacles, at each lane width and the chooser's,
+    captured in a CountedGraph: each replay equals the eager launch bit for
+    bit, also after its device seed is rewritten, and counts one launch."""
+    sm, rows, a_comp, c_comp, _ = step_setup(17, 1024, cuda)
+    for lanes in (None, *fc.COLLECT_RT_LANES):
+        seed = fc.seed_tensor(5, cuda)
+
+        def run():
+            return fc.fused_collect_rows(sm, rows, a_comp, c_comp, seed, 16,
+                                         lanes=lanes)
+        run()
+        graph = CountedGraph()
+        with graph.capture():
+            out = run()
+        for new_seed in (5, 6):
+            seed.fill_(new_seed)
+            before = fc.fused_collect_rows.launches
+            graph.replay()
+            assert fc.fused_collect_rows.launches == before + 1
+            eager = run()
+            torch.cuda.synchronize()
+            assert_collect_equal(out, eager, f"lanes {lanes} seed {new_seed}")
 
 
 def critic_inputs(n, n_in, h, device, seed=7):
