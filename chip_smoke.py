@@ -1,7 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--out DIR]
-    python3 chip_smoke.py --against DIR [--out OUT]
 
 Run from the root of the repository on a machine with a CUDA card and
 ``nvcc``.  It builds the port's CUDA kernels from the sources in the
@@ -60,13 +59,6 @@ object, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  It exits non-zero, printing no result, where CUDA is
 unavailable.  The training artifacts and a JSON record of the run go to
 ``--out`` (default: a temporary directory, removed at exit).
-
-With ``--against DIR`` it runs nothing of the above: it builds the
-checkout at DIR (another commit, unpacked by ``git archive`` into a
-directory ``.gitignore`` lists) beside this one, prints where their
-``ptxas`` lines differ, and times the step kernels' run-time instances
-and a ``-no 17`` graphed repeat of both, in turns, each in a process of
-its own.
 """
 
 import argparse
@@ -85,6 +77,9 @@ import tempfile
 import time
 
 import torch
+
+from marlnav_tpu_torch.timing import (cuda_ms, ptxas_summary, step_case,
+                                      training_repeat)
 
 # Float operations of one env-step of the collect kernel (A=3, O=3, F=12),
 # counted from ops/csrc/fused_collect.cu, each mul/add/compare/select and
@@ -209,26 +204,6 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=1, warmup=0):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events.
-    Each run is enqueued behind a ~5 ms spin of the device
-    (``torch.cuda._sleep``), so the events time the device's work and not
-    the host's gaps between a wrapper's launches."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(10_000_000)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def timed(fn, reps=3):
     """Medians over ``reps`` runs of ``fn()``, in ms: the device time (CUDA
     events), the host's time to enqueue the work (until ``fn`` returns),
@@ -286,18 +261,6 @@ def rt_hmma_counts(sass):
     return sass_hmma(sass, r"rt_(forward|backward)_kernelILb(\d)ELb(\d)E",
                      lambda m: (m.group(1), int(m.group(2)),
                                 int(m.group(3))))
-
-
-def ptxas_summary(log):
-    """One line per kernel of a build log: its name and ptxas -v's
-    register, stack and spill figures."""
-    lines, entry = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif entry and ("registers" in line or "spill" in line):
-            lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
-    return lines
 
 
 def collect_errors(k, r):
@@ -427,7 +390,6 @@ def main(out_dir):
     from marlnav_tpu_torch.ops._build import (BUILD_DIR, find_nvcc,
                                               load_libraries)
     from marlnav_tpu_torch.ops.graphs import CountedGraph, kernel_wrappers
-    from marlnav_tpu_torch.ops.step_math import StepMath
     from marlnav_tpu_torch.train import train
     from marlnav_tpu_torch.utils.seeding import make_generator
 
@@ -559,25 +521,10 @@ def main(out_dir):
     else:
         print("cuobjdump not found: HMMA count not measured")
 
-    def setup(p, t, episode_len=200, noisy=False, tame=False, seed=0, o=3):
-        """Step math, start rows and the actor operator for one case, with
-        o obstacles."""
-        ep = EnvParams(num_parallel=p, episode_len=episode_len,
-                       num_obstacles=o)
-        ic = TriangleInitConfig(num_parallel=p, noisy_ags=noisy,
-                                num_obstacles=o)
-        env = make_env(ep, ic, dev)
-        rows = fc.env_state_to_rows(env.init(make_generator(seed, dev)))
-        actor = Actor(ep.obs_size, 50,
-                      generator=torch.Generator().manual_seed(seed)).to(dev)
-        if tame:  # tests/test_fused_collect.py tame_policy
-            with torch.no_grad():
-                actor.fc_mu.weight.mul_(1e-3)
-                actor.fc_mu.bias.mul_(1e-3)
-                actor.fc_var.bias.sub_(20.0)
-        a_comp, c_comp = fc._affine_compose(actor)
-        return (StepMath(ep, ic, NormalizerConfig(num_obstacles=o), scal),
-                rows, a_comp, c_comp)
+    def setup(p, t, **case):
+        """Step math, start rows and the actor operator of a step kernel
+        over p envs (timing.step_case; t steps are the caller's)."""
+        return step_case(p, device=dev, **case)
 
     # ------------------------------------------------------------------
     phase("2. kernel against its plain version, same uniforms")
@@ -874,20 +821,22 @@ def main(out_dir):
     # Past 8 obstacles the run-time instance (fused_collect_rt_kernel<G>) at
     # each lane width G it has: at O 9, 17 and 32 every field equal to the
     # plain version through resets (episode_len 10, noisy_ags, ragged P
-    # 1000, T 16), and each width timed at the main path's (1024, 1000),
-    # the chooser's pick (fc.rt_lanes) marked.  Then the crossover that
-    # rt_lanes's rule rests on: each width at P 1024 .. 16384, T 200.
+    # 1000, T 32: three truncation resets an env), and each width timed at
+    # the main path's (1024, 1000), the chooser's pick (fc.rt_lanes) marked,
+    # where every width's output also equals the pick's bit for bit.  Then
+    # the crossover that rt_lanes's rule rests on: each width at P 1024 ..
+    # 16384, T 200.
     widths = fc.COLLECT_RT_LANES
     rt_ms = {}
     for o in (9, 17, 32):
-        sm, rows, a_comp, c_comp = setup(1000, 16, episode_len=10, noisy=True,
+        sm, rows, a_comp, c_comp = setup(1000, 32, episode_len=10, noisy=True,
                                          o=o)
-        uniforms = torch.rand((16, sm.n_draws, 1000), device=dev,
+        uniforms = torch.rand((32, sm.n_draws, 1000), device=dev,
                               generator=make_generator(8, dev))
         plain_ms = cuda_ms(lambda: out.update(
             r=fc.collect_rows_reference(sm, rows, a_comp, c_comp, uniforms)))
         for g in widths:
-            k = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 3, 16,
+            k = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 3, 32,
                                       uniforms, lanes=g)
             torch.cuda.synchronize()
             errs = collect_errors(k, out["r"])
@@ -895,12 +844,12 @@ def main(out_dir):
             assert torch.equal(k.done, out["r"].done) and k.done.any()
             assert torch.equal(k.stats, out["r"].stats)
         k_ms = cuda_ms(lambda: fc.fused_collect_rows(
-            sm, rows, a_comp, c_comp, 3, 16, uniforms), reps=7, warmup=2)
-        print(f"O={o} P=1000 T=16 resets, same uniforms: every field equal "
+            sm, rows, a_comp, c_comp, 3, 32, uniforms), reps=7, warmup=2)
+        print(f"O={o} P=1000 T=32 resets, same uniforms: every field equal "
               f"at lanes {widths}; done frac "
               f"{out['r'].done.float().mean().item():.4f}")
-        bound_ms, by, _, _ = collect_bound(sm, rows, 1000, 16)
-        shapes[f"O={o} 1000x16"] = dict(ms=k_ms, plain_ms=plain_ms,
+        bound_ms, by, _, _ = collect_bound(sm, rows, 1000, 32)
+        shapes[f"O={o} 1000x32"] = dict(ms=k_ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms, bound_by=by)
         sm, rows, a_comp, c_comp = setup(1024, 1000, o=o)
         pick = fc.rt_lanes(widths, 1024, o)
@@ -909,13 +858,22 @@ def main(out_dir):
             for g in widths}
         main_ms = by_g[pick]
         rt_ms[o] = main_ms
+        outs = {g: fc.fused_collect_rows(sm, rows, a_comp, c_comp, 3, 1000,
+                                         lanes=g) for g in widths}
+        torch.cuda.synchronize()
+        assert outs[pick].done.any()
+        for g in widths:
+            errs = collect_errors(outs[g], outs[pick])
+            assert all(e == 0.0 for e in errs.values()), (o, g, errs)
+            assert torch.equal(outs[g].done, outs[pick].done), (o, g)
+            assert torch.equal(outs[g].stats, outs[pick].stats), (o, g)
         bound_ms, by, nbytes, ops = collect_bound(sm, rows, 1024, 1000)
         shapes[f"O={o} 1024x1000"] = dict(ms=main_ms, bound_ms=bound_ms,
                                           bound_by=by, lanes=pick,
                                           by_lanes=by_g)
-        print(f"fused_collect O={o}: P=1000 T=16 kernel {k_ms:.4f} ms, "
+        print(f"fused_collect O={o}: P=1000 T=32 kernel {k_ms:.4f} ms, "
               f"plain version {plain_ms:.1f} ms (1 run); P=1024 T=1000 "
-              f"by lanes an env: " + ", ".join(
+              f"(every width == the pick) by lanes an env: " + ", ".join(
                   f"{g} {v:.4f} ms" + (" (the pick)" if g == pick else "")
                   for g, v in by_g.items())
               + f" (medians of 7); the pick {main_ms * 1e3 / 1000:.3f} us a "
@@ -1430,16 +1388,17 @@ def main(out_dir):
                                      f"fused_rollout_kernelILi3ELb{int(det)}E"))
     # Past 8 obstacles the run-time instance (fused_rollout_rt_kernel<G,
     # kMean>) at each lane width G it has: at O 9, 17 and 32, both modes
-    # equal to the plain version through resets at a ragged P 1000 (T 16),
-    # the sampled one equal to the collect kernel at each of its widths from
-    # the same Philox seed; each width timed at the bench's (16384, 500),
-    # both modes, the chooser's pick marked.  Then the crossover: each width
-    # at P 1024 .. 16384, T 200, both modes.
+    # equal to the plain version through resets at a ragged P 1000 (T 32,
+    # episode_len 10), the sampled one equal to the collect kernel at each of
+    # its widths from the same Philox seed; each width timed at the bench's
+    # (16384, 500), both modes, the chooser's pick marked, where every
+    # width's output also equals the pick's bit for bit.  Then the
+    # crossover: each width at P 1024 .. 16384, T 200, both modes.
     widths = fr.ROLLOUT_RT_LANES
     for o in (9, 17, 32):
-        sm, rows, a_comp, c_comp = setup(1000, 16, episode_len=10, noisy=True,
+        sm, rows, a_comp, c_comp = setup(1000, 32, episode_len=10, noisy=True,
                                          o=o)
-        uniforms = torch.rand((16, sm.n_draws, 1000), device=dev,
+        uniforms = torch.rand((32, sm.n_draws, 1000), device=dev,
                               generator=make_generator(9, dev))
         small = {}
         for det in (False, True):
@@ -1448,7 +1407,7 @@ def main(out_dir):
                 r=fr.rollout_rows_reference(sm, rows, a_comp, c_comp,
                                             uniforms, det)))
             for g in widths:
-                k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 16,
+                k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 32,
                                           det, uniforms, lanes=g)
                 torch.cuda.synchronize()
                 err = same_rollout(k, plain["r"])
@@ -1456,19 +1415,19 @@ def main(out_dir):
                     "kernel != plain"
             small[det] = plain_ms
         k_ms = cuda_ms(lambda: fr.fused_rollout_rows(
-            sm, rows, a_comp, c_comp, 11, 16, False, uniforms), reps=7,
+            sm, rows, a_comp, c_comp, 11, 32, False, uniforms), reps=7,
             warmup=2)
-        cols = [fc.fused_collect_rows(sm, rows, a_comp, c_comp, 11, 16,
+        cols = [fc.fused_collect_rows(sm, rows, a_comp, c_comp, 11, 32,
                                       lanes=g) for g in fc.COLLECT_RT_LANES]
         for g in widths:
-            k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 16, False,
+            k = fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 11, 32, False,
                                       lanes=g)
             torch.cuda.synchronize()
             for col in cols:
                 assert same_rollout(k, (col.rows, col.rewards)) == 0.0, (o, g)
         assert all(col.done.any() for col in cols)
-        bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 1000, 16)
-        times["fused_rollout"][f"O={o} 1000x16"] = dict(
+        bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 1000, 32)
+        times["fused_rollout"][f"O={o} 1000x32"] = dict(
             ms=k_ms, plain_ms=small[False], bound_ms=bound_ms,
             bound_by=bound_by)
         sm, rows, a_comp, c_comp = setup(16384, 500, o=o)
@@ -1476,15 +1435,22 @@ def main(out_dir):
         ms = {det: {g: cuda_ms(lambda: fr.fused_rollout_rows(
             sm, rows, a_comp, c_comp, 3, 500, det, lanes=g), reps=7, warmup=2)
             for g in widths} for det in (False, True)}
+        for det in (False, True):
+            outs = {g: fr.fused_rollout_rows(sm, rows, a_comp, c_comp, 3, 500,
+                                             det, lanes=g) for g in widths}
+            torch.cuda.synchronize()
+            for g in widths:
+                assert same_rollout(outs[g], outs[pick]) == 0.0, (o, det, g)
         bound_ms, bound_by, _, _ = rollout_bound(sm, rows, 16384, 500)
         times["fused_rollout"][f"O={o} 16384x500"] = dict(
             ms=ms[False][pick], bound_ms=bound_ms, bound_by=bound_by,
             policy_mean_ms=ms[True][pick], lanes=pick, by_lanes=ms)
         print(f"fused_rollout O={o}: kernel == plain (both modes) at lanes "
               f"{widths} and == collect at lanes {fc.COLLECT_RT_LANES} at "
-              f"P=1000 T=16 (kernel {k_ms:.4f} ms, plain "
+              f"P=1000 T=32 (kernel {k_ms:.4f} ms, plain "
               f"{small[False]:.1f} / {small[True]:.1f} ms); P=16384 T=500 "
-              f"by lanes an env, sampled / policy mean: " + ", ".join(
+              f"(every width == the pick) by lanes an env, sampled / policy "
+              f"mean: " + ", ".join(
                   f"{g} {ms[False][g]:.4f} / {ms[True][g]:.4f} ms"
                   + (" (the pick)" if g == pick else "") for g in widths)
               + f" (medians of 7); bound {bound_ms * 1e3:.1f} us "
@@ -2115,37 +2081,20 @@ def main(out_dir):
     # by the wall).  Then -no 17 through the CLI: 4 eager repeats against
     # --jit-repeats 2 (an eager block, then a graphed one), bit for bit.
     record["runtime_training"] = {}
-    seed17 = torch.tensor(400, dtype=torch.int32, device=dev)
     for extra in (["-no", "17"], ["-hs", "512"],
                   ["--bf16-updates", "-hs", "64"]):
-        rcfg = resolve_run_config(build_parser().parse_args(
-            ["-np", "1024", "-nt", str(1024 * 1000), "-se", "0",
-             "--output-root", out_dir, "--fused-updates"] + extra))
-        rm = rcfg.model
-        assert not lib.marlnav_critic_warps(rm.num_agents * rm.obs_size,
-                                            rm.hidden_size,
-                                            int(rm.bf16_updates))
-        renv = make_env(rcfg.env, rcfg.init, dev)
-        rcollect = fc.make_fused_collect(rm, rcfg.env, rcfg.init,
-                                         rcfg.normalizer, rcfg.scaler)
         label = " ".join(extra)
         by_route = {}
         for route in ("fused", "autograd"):
-            mcfg_ = (rm if route == "fused" else
-                     dataclasses.replace(rm, fused_updates=False))
-            rmappo = make_mappo(mcfg_, renv, rcfg.normalizer, rcfg.scaler,
-                                False, True)
-            rts, res = rmappo.init(make_generator(0, dev))
-            rrows = fc.env_state_to_rows(res)
-
-            def repeat17():
-                return rmappo.train_many(
-                    rts, rrows, None, 1,
-                    lambda ts_, rows_, _: rcollect(ts_, rows_, seed17))
-            repeat17()  # warm
+            rep = training_repeat(extra, out_dir, route == "fused", dev)
+            rm = rep.cfg.model
+            assert not lib.marlnav_critic_warps(rm.num_agents * rm.obs_size,
+                                                rm.hidden_size,
+                                                int(rm.bf16_updates))
+            rep.run()  # warm
             graph17 = CountedGraph()
             with graph17.capture():
-                repeat17()
+                rep.run()
             reset_counts()
             tm17 = timed(graph17.replay, reps=3)
             counts_ = read_counts()
@@ -2167,9 +2116,9 @@ def main(out_dir):
                 in_repeat = [t_ for k_, (_, t_) in prof17["ours"].items()
                              if "fused_collect_rt_kernel" in k_]
                 kgraph = CountedGraph()
-                rcollect.run_kernel(rts, rrows, seed17)  # warm
+                rep.collect.run_kernel(rep.ts, rep.rows, rep.seed)  # warm
                 with kgraph.capture():
-                    rcollect.run_kernel(rts, rrows, seed17)
+                    rep.collect.run_kernel(rep.ts, rep.rows, rep.seed)
                 k17 = timed(kgraph.replay, reps=5)["device"]
                 print(f"{label}: the collect kernel in the graphed repeat "
                       + (f"{in_repeat[0]:.3f} ms (the profiled replay)"
@@ -2179,7 +2128,7 @@ def main(out_dir):
                 record["runtime_training"]["-no 17 collect_ms"] = dict(
                     profiled=in_repeat[0] if in_repeat else None, graph=k17)
                 del kgraph
-            del graph17, rmappo, rts, rrows
+            del graph17, rep
         print(f"{label}: autograd / fused repeat (host wall) "
               f"{by_route['autograd']['wall'] / by_route['fused']['wall']:.2f}"
               f"x")
@@ -2234,156 +2183,11 @@ def main(out_dir):
         "count": torch.cuda.device_count()}}))
 
 
-# The step kernels' run-time instance and a -no 17 graphed full-size
-# repeat, timed by the checkout on sys.path (--against runs it in each of
-# two checkouts).  Only entry points both the parent commit and this one
-# have.  Prints one JSON line.
-_TIMING_SNIPPET = r"""
-import json, statistics, sys
-import torch
-from marlnav_tpu_torch.__main__ import build_parser
-from marlnav_tpu_torch.algo import make_mappo
-from marlnav_tpu_torch.config import (EnvParams, NormalizerConfig,
-                                      ScalerConfig, TriangleInitConfig,
-                                      resolve_run_config)
-from marlnav_tpu_torch.env import make_env
-from marlnav_tpu_torch.models import Actor
-from marlnav_tpu_torch.ops import fused_collect as fc
-from marlnav_tpu_torch.ops import fused_rollout as fr
-from marlnav_tpu_torch.ops.graphs import CountedGraph
-from marlnav_tpu_torch.ops.step_math import StepMath
-from marlnav_tpu_torch.utils.seeding import make_generator
-
-dev = torch.device("cuda")
-
-def ms(fn, reps=7, warmup=2):
-    for _ in range(warmup):
-        fn()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(10_000_000)
-        a.record(); fn(); b.record(); torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
-
-def setup(p, o):
-    ep = EnvParams(num_parallel=p, episode_len=200, num_obstacles=o)
-    ic = TriangleInitConfig(num_parallel=p, num_obstacles=o)
-    rows = fc.env_state_to_rows(make_env(ep, ic, dev).init(
-        make_generator(0, dev)))
-    actor = Actor(ep.obs_size, 50,
-                  generator=torch.Generator().manual_seed(0)).to(dev)
-    a_comp, c_comp = fc._affine_compose(actor)
-    sm = StepMath(ep, ic, NormalizerConfig(num_obstacles=o), ScalerConfig())
-    return sm, rows, a_comp, c_comp
-
-res = {}
-for o in (3, 9, 17, 32):
-    sm, rows, a, c = setup(1024, o)
-    res[f"collect O={o} 1024x1000"] = ms(
-        lambda: fc.fused_collect_rows(sm, rows, a, c, 3, 1000))
-    sm, rows, a, c = setup(16384, o)
-    for det in (False, True):
-        res[f"rollout {'mean' if det else 'sampled'} O={o} 16384x500"] = ms(
-            lambda: fr.fused_rollout_rows(sm, rows, a, c, 3, 500, det))
-rcfg = resolve_run_config(build_parser().parse_args(
-    ["-np", "1024", "-nt", str(1024 * 1000), "-se", "0", "--output-root",
-     sys.argv[1], "--fused-updates", "-no", "17"]))
-rm = rcfg.model
-renv = make_env(rcfg.env, rcfg.init, dev)
-rcollect = fc.make_fused_collect(rm, rcfg.env, rcfg.init, rcfg.normalizer,
-                                 rcfg.scaler)
-rmappo = make_mappo(rm, renv, rcfg.normalizer, rcfg.scaler, False, True)
-rts, res0 = rmappo.init(make_generator(0, dev))
-rrows = fc.env_state_to_rows(res0)
-seed = torch.tensor(400, dtype=torch.int32, device=dev)
-repeat = lambda: rmappo.train_many(
-    rts, rrows, None, 1, lambda ts_, rows_, _: rcollect(ts_, rows_, seed))
-repeat()
-graph = CountedGraph()
-with graph.capture():
-    repeat()
-res["-no 17 graphed repeat"] = ms(graph.replay, reps=3, warmup=1)
-print(json.dumps(res))
-"""
-
-
-def compare_against(other, out_dir):
-    """The step kernels' run-time instance and a -no 17 graphed repeat of
-    the checkout at ``other`` (the parent commit, unpacked by ``git
-    archive``) beside this one's, in one call on one card: both build their
-    libraries at once; then other, this, this, other, each a process of
-    its own.  Prints both builds' ptxas lines where they differ, the times
-    and their ratios."""
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
-                 "script needs an NVIDIA GPU")
-    here = os.path.dirname(os.path.abspath(__file__))
-    other = os.path.abspath(other)
-    print(f"card: {card_line()}")
-    build = ("import json; from marlnav_tpu_torch.ops._build import "
-             "load_libraries; b = load_libraries(['fused_collect', "
-             "'fused_rollout', 'fused_update', 'returns']); "
-             "print(json.dumps({n: v[1]['log'] for n, v in b.items()}))")
-
-    def start(root, code, *args):
-        env = dict(os.environ, PYTHONPATH=root)
-        return subprocess.Popen([sys.executable, "-c", code, *args], cwd=root,
-                                env=env, stdout=subprocess.PIPE, text=True)
-
-    def result(proc):
-        stdout, _ = proc.communicate()
-        assert proc.returncode == 0, proc.returncode
-        return json.loads(stdout.strip().splitlines()[-1])
-
-    t0 = time.perf_counter()
-    logs = [result(proc) for proc in [start(root, build)
-                                      for root in (other, here)]]
-    print(f"both builds: {time.perf_counter() - t0:.1f} s")
-    lines = []  # per build, {kernel: its ptxas figures}
-    for log in logs:
-        by_kernel = {}
-        for name in sorted(log):
-            for line in ptxas_summary(log[name]):
-                kernel, figures = line.strip().split(": ", 1)
-                by_kernel[kernel] = by_kernel.get(kernel, "") + figures + "; "
-        lines.append(by_kernel)
-    same = [k for k in lines[0] if lines[1].get(k) == lines[0][k]]
-    print(f"ptxas lines equal in both builds: {len(same)} of "
-          f"{len(lines[0])} (other) and {len(lines[1])} (this)")
-    for k in sorted(set(lines[0]) | set(lines[1])):
-        if k not in same:
-            print(f"  {k}\n    other: {lines[0].get(k, '-')}\n    this:  "
-                  f"{lines[1].get(k, '-')}")
-    runs = []
-    for label, root in (("other", other), ("this", here), ("this", here),
-                        ("other", other)):
-        runs.append((label, result(start(root, _TIMING_SNIPPET, out_dir))))
-        print(f"{label} ({root}): {json.dumps(runs[-1][1])}", flush=True)
-    for key in runs[0][1]:
-        o_ms = [r[key] for label, r in runs if label == "other"]
-        t_ms = [r[key] for label, r in runs if label == "this"]
-        print(f"{key}: other {o_ms[0]:.4f} / {o_ms[1]:.4f} ms, this "
-              f"{t_ms[0]:.4f} / {t_ms[1]:.4f} ms: "
-              f"{statistics.mean(o_ms) / statistics.mean(t_ms):.2f}x")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-
-
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory to keep the training "
                         "artifacts and chip_smoke.json in")
-    parser.add_argument("--against", metavar="DIR", help="only time the step "
-                        "kernels' run-time instance and a -no 17 graphed "
-                        "repeat beside those of the checkout at DIR")
     args = parser.parse_args()
     with contextlib.ExitStack() as stack:
         out = args.out or stack.enter_context(tempfile.TemporaryDirectory())
-        if args.against:
-            compare_against(args.against, out)
-        else:
-            main(out)
+        main(out)

@@ -84,32 +84,21 @@ def slice_rows(rows, p):
 def test_collect_any_obstacle_count_matches_plain(cuda, o):
     """The collect kernel's run-time instance against
     collect_rows_reference at each lane width (forced through ``lanes``)
-    and at the chooser's, at P 1, 7, 1000 and 1024: every field equal, one
-    count a launch.  The plain version steps each env on its own, so one
-    run at P 1024 holds the smaller P on its first envs (the episode
-    counters, sums over the envs, at P 1024)."""
-    sm, rows, a_comp, c_comp, noise = step_setup(o, max(STEP_ENVS), cuda)
-    ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
+    and at the chooser's, at P 1, 7, 1000 and 1024, each P its own plain
+    run: every field equal, the episode counters included (at a ragged P
+    the groups past it count nothing), one count a launch."""
     for p in STEP_ENVS:
-        rows_p, noise_p = slice_rows(rows, p), noise[..., :p].contiguous()
+        sm, rows, a_comp, c_comp, noise = step_setup(o, p, cuda)
+        ref = fc.collect_rows_reference(sm, rows, a_comp, c_comp, noise)
         for lanes in (None, *fc.COLLECT_RT_LANES):
             before = fc.fused_collect_rows.launches
-            out = fc.fused_collect_rows(sm, rows_p, a_comp, c_comp, 9,
-                                        noise.shape[0], noise_p, lanes=lanes)
+            out = fc.fused_collect_rows(sm, rows, a_comp, c_comp, 9,
+                                        noise.shape[0], noise, lanes=lanes)
             assert fc.fused_collect_rows.launches == before + 1
             torch.cuda.synchronize()
             what = f"P {p} lanes {lanes}"
             assert out.done.any(), what  # premise: resets fired
-            t = noise.shape[0]
-            for name in ("obs", "actions", "rewards", "done"):
-                assert torch.equal(getattr(out, name),
-                                   getattr(ref, name)[:, :p]), (what, name)
-            assert torch.equal(out.log_probs, ref.log_probs.reshape(
-                t, -1, 3)[:, :p].reshape(t, -1)), what
-            for x, y in zip(out.rows.fields(), ref.rows.fields()):
-                assert torch.equal(x, y[:, :p]), what
-            if p == max(STEP_ENVS):
-                assert torch.equal(out.stats, ref.stats), what
+            assert_collect_equal(out, ref, what)
 
 
 @pytest.mark.cuda
