@@ -51,7 +51,14 @@ with it (graphed equal to eager bit for bit), at -bs 250, packed, -hs 256,
 a graphed bf16 repeat beside their float32 counterparts; runs the
 diagnostics on the card (phase 16: -rc against the goldens and the CPU,
 the trained actor's trajectory and its env-steps/s, -re
---save-animation or its error without matplotlib); and times every
+--save-animation or its error without matplotlib); uses the profiling
+hooks (``utils/profiling.py``: a graphed repeat metered by
+``Throughput``, a ``trace`` of one replay, ``checked_step`` on an env
+step); trains the main path with ``--num-data 1`` (phase 18: NCCL at one
+rank, eager and graphed, bit for bit against the runs without it, the
+collectives counted and their cost timed) and on two ranks of this card
+over gloo (phase 19: against one rank, and the sharded bench rollout
+against one-process rollouts of each rank's envs); and times every
 kernel.  Each path's launch
 counts are set to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
@@ -346,6 +353,8 @@ def profile_run(label, fn):
               "device time: busy share not measured")
     ours = {e.key.split("(")[0]: (e.count, e.self_device_time_total / 1e3)
             for e in on_device if "marlnav" in e.key}
+    nccl = {e.key[:70]: (e.count, e.self_device_time_total / 1e3)
+            for e in on_device if "nccl" in e.key.lower()}
     print("  the port's kernels (count, ms): " + "; ".join(
         f"{k[:60]} {c}, {t:.3f}" for k, (c, t) in sorted(ours.items())))
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
@@ -356,9 +365,82 @@ def profile_run(label, fn):
     for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6}"
               f" {e.key[:70]}")
+    host_nccl = {e.key: e.count for e in on_host
+                 if e.key.startswith(("nccl:", "gloo:"))}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_ops": sum(e.count for e in on_device),
-            "launch_calls": launches, "ours": ours}
+            "launch_calls": launches, "ours": ours, "nccl": nccl,
+            "host_collectives": host_nccl}
+
+
+# Phase 19: the fused route at (P19, T19), 5 + 5 epochs, on uniforms drawn
+# from a seeded generator on the card; the bench rollout at its headline.
+P19, T19, ROLL19 = 2048, 100, (16384, 500)
+
+
+def phase19_fused(mesh, dev):
+    """collect -> actor -> critic on the fused route with injected noise,
+    on ``mesh`` (None: one process); the results on the host."""
+    from marlnav_tpu_torch.__main__ import build_parser
+    from marlnav_tpu_torch.algo import make_mappo
+    from marlnav_tpu_torch.config import resolve_run_config
+    from marlnav_tpu_torch.env import make_env
+    from marlnav_tpu_torch.ops import fused_collect as fc
+    from marlnav_tpu_torch.ops.step_math import StepMath
+    from marlnav_tpu_torch.utils.seeding import make_generator
+
+    cfg = resolve_run_config(build_parser().parse_args(
+        ["-np", str(P19), "-bl", str(T19), "-bs", str(T19), "-ne", "5",
+         "-nt", str(P19 * T19), "-se", "0", "--fused-updates"]))
+    env = make_env(cfg.env, cfg.init, dev, mesh=mesh)
+    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler, mesh=mesh)
+    ts, es = mappo.init(make_generator(0, dev))
+    collect = fc.make_fused_collect(cfg.model, cfg.env, cfg.init,
+                                    cfg.normalizer, cfg.scaler, mesh)
+    n_draws = StepMath(cfg.env, cfg.init, cfg.normalizer, cfg.scaler).n_draws
+    noise = torch.rand((T19, n_draws, P19), device=dev,
+                       generator=torch.Generator(dev).manual_seed(19))
+    rows, buf, met = collect(ts, fc.env_state_to_rows(es), 7, noise)
+    ts, al = mappo.train_actor(ts, buf)
+    ts, cl = mappo.train_critic(ts, buf)
+    return {"rows": [x.cpu() for x in rows.fields()], "al": al.cpu(),
+            "cl": cl.cpu(), "mean_rew": float(met.mean_rew),
+            "weights": [q.detach().cpu() for q in
+                        (*ts.actor.parameters(), *ts.critic.parameters())]}
+
+
+def phase19_rollout_inputs(dev):
+    """The bench's rows at its headline and its actor (bench.py)."""
+    from marlnav_tpu_torch import bench
+    from marlnav_tpu_torch.env import make_env
+    from marlnav_tpu_torch.ops import fused_collect as fc
+    from marlnav_tpu_torch.utils.seeding import make_generator
+
+    ep, icfg = bench._configs(ROLL19[0])
+    rows = fc.env_state_to_rows(make_env(ep, icfg, dev).init(
+        make_generator(0, dev)))
+    return ep, icfg, rows, bench._actor(ep.obs_size, dev)
+
+
+def phase19_rank(rank, world, out_dir):
+    """A rank of phase 19: both ranks on cuda:0 over gloo."""
+    from marlnav_tpu_torch.config import NormalizerConfig, ScalerConfig
+    from marlnav_tpu_torch.ops.graphs import kernel_wrappers
+    from marlnav_tpu_torch.ops.sharded import make_sharded_fused_rollout
+    from marlnav_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cuda:0")
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = phase19_fused(mesh, mesh.device)
+    out["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+    ep, icfg, rows, actor = phase19_rollout_inputs(mesh.device)
+    roll = make_sharded_fused_rollout(ep, icfg, NormalizerConfig(),
+                                      ScalerConfig(), ROLL19[1], mesh)
+    final, rewards = roll(rows, actor, 9)
+    out["rollout"] = (rewards.cpu(), [x.cpu() for x in final.fields()])
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def main(out_dir):
@@ -391,7 +473,10 @@ def main(out_dir):
                                               load_libraries)
     from marlnav_tpu_torch.ops.graphs import CountedGraph, kernel_wrappers
     from marlnav_tpu_torch.train import train
+    from marlnav_tpu_torch.utils import (Throughput, annotate, checked_step,
+                                         trace)
     from marlnav_tpu_torch.utils.seeding import make_generator
+    from torch.autograd import DeviceType
 
     dev = torch.device("cuda")
     norm, scal = NormalizerConfig(), ScalerConfig()
@@ -1677,6 +1762,7 @@ def main(out_dir):
             same_run(graph_runs["eager"], result, label)
             print(f"{label}: weights, Adam states, env rows and logs equal "
                   f"the eager run bit for bit")
+    eager4 = graph_runs["eager"]  # phase 18 holds --num-data 1 against it
     del graph_runs, result
 
     # ------------------------------------------------------------------
@@ -1740,6 +1826,48 @@ def main(out_dir):
                               "busy_ms": busy_g, "share": share}
     assert all(math.isfinite(v) for v in
                (prof_g["wall_ms"], wall_g, graph_times["repeat"]["device"]))
+
+    # The profiling hooks (utils/profiling.py) in use: 5 graphed replays
+    # metered by Throughput beside the CUDA-event timing above, one trace
+    # of a replay written under --out with its kernels printed by name,
+    # and checked_step on one eager plain env step at P 1024 (passes) and
+    # on the same step from a state holding an injected NaN (raises).
+    with Throughput() as meter:
+        for _ in range(5):
+            graphs["repeat"].replay()
+            meter.tick(1024 * 1000, rows.px)
+    print(f"Throughput, 5 graphed replays: {meter.rate:,.0f} env-steps/s; "
+          f"by the replays' median host wall above "
+          f"{1024 * 1000 / wall_g * 1e3:,.0f}")
+    trace_dir = os.path.join(out_dir, "trace")
+    with trace(trace_dir) as prof_t:
+        with annotate("graphed repeat"):
+            graphs["repeat"].replay()
+            torch.cuda.synchronize()
+    traced = sorted(os.listdir(trace_dir))
+    kernels_t = sorted({e.key.split("(")[0][:60] for e in
+                        prof_t.key_averages()
+                        if e.device_type == DeviceType.CUDA})
+    print(f"trace of one replay: {traced} under {trace_dir}; its "
+          f"{len(kernels_t)} device operations by name: {kernels_t}")
+    assert traced and any(k.endswith(".pt.trace.json") for k in traced)
+    env_c = make_env(cfg.env, cfg.init, dev)
+    state_c = env_c.init(make_generator(0, dev))
+    still = torch.zeros((1024, 3, 2), device=dev)
+    err, (_, out_c) = checked_step(env_c.step)(state_c, still)
+    assert err.get() is None and bool(torch.isfinite(out_c.rewards).all())
+    bad = dataclasses.replace(state_c, states=state_c.states.clone())
+    bad.states[5, 1, 0] = float("nan")
+    err, _ = checked_step(env_c.step)(bad, still)
+    try:
+        err.throw()
+        raise AssertionError("checked_step let an injected NaN through")
+    except FloatingPointError as caught:
+        print(f"checked_step: a clean env step at P 1024 passes; with a NaN "
+              f"injected into one agent's x: {caught}")
+    record["profiling_hooks"] = {"throughput_env_steps_s": meter.rate,
+                                 "trace_files": traced,
+                                 "trace_device_ops": kernels_t}
     del graphs
 
     # ------------------------------------------------------------------
@@ -2148,6 +2276,196 @@ def main(out_dir):
           "bit (weights, Adam states, env rows, logs); launches 4 / 200 / "
           "200 / 0 / 0 / 4 each")
     del runs17
+
+    # ------------------------------------------------------------------
+    phase("18. --num-data 1 on the card: the main path over NCCL at one "
+          "rank, eager and graphed, against the runs without it; the "
+          "collectives counted and their cost timed")
+    import torch.distributed as dist
+
+    from marlnav_tpu_torch.parallel import init_distributed, make_mesh
+
+    print(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+    # 4 repeats through the CLI, eager and with --jit-repeats 2 (an eager
+    # block, which creates NCCL's communicator, then a graphed one holding
+    # the collectives), each bit for bit against phase 12's eager run
+    # without --num-data, with its launch counts.
+    for label, extra in (("eager", []),
+                         ("--jit-repeats 2", ["--jit-repeats", "2"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli(main_argv + ["-nt", str(4 * 1024 * 1000),
+                                  "--num-data", "1"] + extra)
+        torch.cuda.synchronize()
+        counts_ = read_counts()
+        print(f"--num-data 1, {label}: 4 repeats in "
+              f"{time.perf_counter() - t0:.2f} s; kernel launches {counts_}")
+        assert counts_ == expect(fused_collect=4, fused_actor_grad=200,
+                                 fused_critic_grad=200, returns=4), counts_
+        same_run(eager4, result, f"--num-data 1 {label}")
+        print(f"--num-data 1, {label}: weights, Adam states, env rows and "
+              f"logs equal phase 12's eager run without it bit for bit")
+    del result, eager4
+    # One repeat on the autograd update route, with and without it.
+    auto_argv = ["-np", "1024", "-se", "0", "--output-root", out_dir,
+                 "--fused-collect", "-nt", str(1024 * 1000)]
+    reset_counts()
+    auto = [cli(auto_argv + extra) for extra in ([], ["--num-data", "1"])]
+    torch.cuda.synchronize()
+    counts_ = read_counts()
+    assert counts_ == expect(fused_collect=2, returns=2), counts_
+    same_run(auto[0], auto[1], "autograd --num-data 1")
+    print(f"autograd route, 1 repeat: --num-data 1 equals the run without "
+          f"it bit for bit; launches of both {counts_}")
+    del auto
+    # A repeat through the mesh's functions and phase 13's repeat without
+    # a mesh, eager and as graphs, timed in turns here (medians of 5 eager
+    # and of 7 graphed runs, the two alternated); the host's time of one
+    # all-reduce; the collectives counted in a profiled eager repeat (the
+    # host's calls) and a profiled replay (NCCL's device work).
+    def in_turns(fns, reps):
+        runs = {name: [] for name in fns}
+        for _ in range(reps):
+            for name, fn in fns.items():
+                runs[name].append(timed(fn, reps=1))
+        return {name: {k: statistics.median(r[k] for r in rs)
+                       for k in rs[0]} for name, rs in runs.items()}
+
+    mappo_n = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler)
+    ts_n, es_n = mappo_n.init(make_generator(0, dev))
+    rows_n = fc.env_state_to_rows(es_n)
+    seed_m = torch.tensor(200, dtype=torch.int32, device=dev)
+
+    def repeat_n():
+        return mappo_n.train_many(ts_n, rows_n, None, 1,
+                                  lambda t_, r_, _: collect(t_, r_, seed_m))
+
+    repeat_n()
+    graph_n = CountedGraph()
+    with graph_n.capture():
+        repeat_n()
+    with tempfile.TemporaryDirectory() as rendezvous:
+        init_distributed(num_processes=1, process_id=0, backend="nccl",
+                         init_method="file://" + os.path.join(rendezvous,
+                                                              "store"))
+        try:
+            mesh = make_mesh(device="cuda", local_rank=0, local_world=1)
+            env_m = make_env(cfg.env, cfg.init, dev, mesh=mesh)
+            mappo_m = make_mappo(cfg.model, env_m, cfg.normalizer,
+                                 cfg.scaler, mesh=mesh)
+            collect_m = fc.make_fused_collect(cfg.model, cfg.env, cfg.init,
+                                              cfg.normalizer, cfg.scaler,
+                                              mesh)
+            ts_m, es_m = mappo_m.init(make_generator(0, dev))
+            rows_m = fc.env_state_to_rows(es_m)
+
+            def repeat_m():
+                return mappo_m.train_many(
+                    ts_m, rows_m, None, 1,
+                    lambda t_, r_, _: collect_m(t_, r_, seed_m))
+
+            repeat_m()  # warm: NCCL's communicator exists from here on
+            graph_m = CountedGraph()
+            with graph_m.capture():
+                repeat_m()
+            eager_tm = in_turns({"mesh": repeat_m, "none": repeat_n}, 5)
+            graph_tm = in_turns({"mesh": graph_m.replay,
+                                 "none": graph_n.replay}, 7)
+            one = torch.zeros((), device=dev)
+            reduce_100 = timed(lambda: [dist.all_reduce(one)
+                                        for _ in range(100)], reps=3)
+            prof_e = profile_run("profiled eager repeat, --num-data 1",
+                                 repeat_m)
+            prof_r = profile_run("profiled graphed repeat, --num-data 1 "
+                                 "(one replay)", graph_m.replay)
+            del graph_m, graph_n
+        finally:
+            dist.destroy_process_group()
+    print(f"collectives a repeat: the host's calls in the eager repeat "
+          f"{prof_e['host_collectives'] or 'not recorded by the profiler'};"
+          f" NCCL's device work in the replay "
+          f"{prof_r['nccl'] or 'none (one rank: in-place sums copy nothing)'}"
+          f"; one all-reduce of a scalar: host "
+          f"{reduce_100['enqueue'] * 10:.1f} us (100 in turn: enqueue "
+          f"{reduce_100['enqueue']:.3f} ms, device {reduce_100['device']:.3f}"
+          f" ms)")
+    for label, tm_ in (("eager", eager_tm), ("graphed", graph_tm)):
+        now, before = tm_["mesh"], tm_["none"]
+        print(f"{label} repeat, --num-data 1: device {now['device']:.3f} ms, "
+              f"host enqueue {now['enqueue']:.3f}, host wall "
+              f"{now['wall']:.3f}; without a mesh, in turns with it: device "
+              f"{before['device']:.3f}, enqueue {before['enqueue']:.3f}, "
+              f"wall {before['wall']:.3f}; the collectives' cost at one "
+              f"rank: device {now['device'] - before['device']:+.3f} ms, "
+              f"wall {now['wall'] - before['wall']:+.3f} ms")
+    print(f"phase 13 (without a mesh): eager repeat wall "
+          f"{record['graphs_ms']['eager']['repeat']['wall']:.3f} ms, graphed "
+          f"{record['graphs_ms']['graphed']['repeat']['wall']:.3f}; phase 4's "
+          f"eager fused repeat (its phases' sum) wall "
+          f"{record['phases_ms']['fused']['repeat']['wall']:.3f}")
+    record["num_data_1"] = {"eager": eager_tm, "graphed": graph_tm,
+                            "all_reduce_100": reduce_100,
+                            "host_collectives": prof_e["host_collectives"],
+                            "replay_nccl": prof_r["nccl"],
+                            "replay_busy_ms": prof_r["device_busy_ms"]}
+    assert all(math.isfinite(v) for tm_ in (eager_tm, graph_tm)
+               for d in tm_.values() for v in d.values())
+
+    # ------------------------------------------------------------------
+    phase("19. two ranks on this card over gloo: the fused route with "
+          "injected noise against one rank, the sharded bench rollout "
+          "against one-process rollouts of each rank's envs")
+    from marlnav_tpu_torch.ops.fused_collect import shard_seed
+    from marlnav_tpu_torch.parallel.launch import run_local_ranks
+
+    dir19 = os.path.join(out_dir, "phase19")
+    os.makedirs(dir19, exist_ok=True)
+    one = phase19_fused(None, dev)
+    t0 = time.perf_counter()
+    run_local_ranks(2, "gloo", phase19_rank, dir19)
+    print(f"2 ranks (rank 1 spawned) over gloo on {dev}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    ranks19 = [torch.load(os.path.join(dir19, f"rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+    err19 = {}
+    for i, want in enumerate(one["rows"]):
+        got = torch.cat([r["rows"][i] for r in ranks19], -1)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        err19["rows"] = max(err19.get("rows", 0.0),
+                            (got - want).abs().max().item())
+    for rank, r in enumerate(ranks19):
+        print(f"rank {rank}: kernel launches {r['launches']}; mean_rew "
+              f"{r['mean_rew']} (one rank: {one['mean_rew']})")
+        assert r["launches"] == expect(fused_collect=1, fused_actor_grad=5,
+                                       fused_critic_grad=5, returns=1)
+        for key in ("al", "cl"):
+            torch.testing.assert_close(r[key], one[key], rtol=1e-4,
+                                       atol=1e-5)
+            err19[key] = (r[key] - one[key]).abs().max().item()
+        for got, want in zip(r["weights"], one["weights"]):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+            err19["weights"] = max(err19.get("weights", 0.0),
+                                   (got - want).abs().max().item())
+    print(f"2 ranks against 1 at P {P19}, T {T19}, 5 + 5 epochs: largest "
+          f"differences {err19} (rows rtol 1e-5 / atol 1e-3; losses and "
+          f"weights rtol 1e-4 / atol 1e-5)")
+    ep19, icfg19, rows19, actor19 = phase19_rollout_inputs(dev)
+    roll19 = fr.make_fused_rollout(ep19, icfg19, norm, scal, ROLL19[1])
+    half = ROLL19[0] // 2
+    for rank, r in enumerate(ranks19):
+        cols = fc.RowState(*(x[:, rank * half:(rank + 1) * half]
+                             .contiguous() for x in rows19.fields()))
+        final, rewards = roll19(cols, actor19, shard_seed(9, rank))
+        got_rewards, got_rows = r["rollout"]
+        assert torch.equal(got_rewards, rewards.cpu()), rank
+        assert all(torch.equal(x, y.cpu()) for x, y in
+                   zip(got_rows, final.fields())), rank
+    print(f"sharded rollout {ROLL19[0]} x {ROLL19[1]}, {half} envs a rank: "
+          f"each rank's rewards and final rows equal a one-process rollout "
+          f"of its envs at seed 9 + (rank << 20) bit for bit")
+    record["two_ranks_gloo"] = {"max_abs_err": err19,
+                                "launches": [r["launches"] for r in ranks19]}
+    del ranks19, one
     print(f"(phase took {time.perf_counter() - _PHASE_START[0]:.1f} s)")
 
     def shape_key(key):

@@ -19,11 +19,29 @@ dispatches them):
   ``--save-animation <file>``.
 
 ``cli`` returns the mode's result: ``train()``'s tuple, the series, or
-the ``Animation``.  Flags whose features are not ported yet raise
-``NotImplementedError`` naming ROADMAP.md instead of being ignored:
-``--num-data``, ``--num-model`` and ``--multihost``.  ``--allow-interpret``
-has no counterpart (the port has no kernel interpreter: ``--device cpu``
-runs the kernels' plain PyTorch versions) and raises as well.
+the ``Animation``.  ``--num-model`` (tensor parallelism) is not ported yet
+and raises ``NotImplementedError`` naming ROADMAP.md instead of being
+ignored.  ``--allow-interpret`` has no counterpart (the port has no kernel
+interpreter: ``--device cpu`` runs the kernels' plain PyTorch versions)
+and raises as well.
+
+Data-parallel training (marlnav_tpu/__main__.py:148-174), over
+``torch.distributed``, NCCL on the card and gloo on ``--device cpu``:
+
+* ``--multihost``, or a process group that already exists: one process a
+  rank.  ``--multihost`` initializes the group from
+  ``--coordinator-address`` (``tcp://``), ``--num-processes`` and
+  ``--process-id``, or from the environment (``env://``, as ``torchrun``
+  sets it).  ``--num-data`` must equal the world size (its default).
+* otherwise ``--num-data N``: the calling process is rank 0 and spawns
+  ranks 1 .. N-1 on this host (``torch.multiprocessing``, start method
+  ``spawn``, a ``file://`` rendezvous in a temporary directory), as one
+  JAX process drives N local devices; rank r takes ``cuda:r``.
+
+``cli`` returns rank 0's result; only rank 0 writes weights, logs and
+checkpoints.  A rank that fails makes the run fail.  With ``--num-data 1``
+the mesh and its collectives exist at world size 1; without ``--num-data``
+or ``--multihost`` there is no mesh.
 
 ``--fused-collect`` and ``--fused-updates`` route the rollout and the PPO
 gradients through the port's CUDA kernels (ops/csrc/); on ``--device cpu``
@@ -96,11 +114,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=str,
                         help="load the full run config from a JSON file")
     parser.add_argument("--num-data", type=int, default=None,
-                        help="data-parallel mesh axis (not ported)")
+                        help="data-parallel ranks (without --multihost: "
+                             "spawned on this host, one a card)")
     parser.add_argument("--num-model", type=int, default=1,
                         help="tensor-parallel mesh axis (not ported)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported)")
+                        help="one process a rank: initialize "
+                             "torch.distributed from the next three flags "
+                             "or the environment (torchrun)")
     parser.add_argument("--coordinator-address", type=str, default=None,
                         help="host:port of process 0 for --multihost")
     parser.add_argument("--num-processes", type=int, default=None,
@@ -158,9 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is-it-set) for every flag whose feature is not ported yet.
 _UNPORTED = (
-    ("--num-data", lambda a: a.num_data is not None),
     ("--num-model", lambda a: a.num_model != 1),
-    ("--multihost", lambda a: a.multihost),
 )
 
 
@@ -178,15 +197,16 @@ def reject_unported(args) -> None:
             "plain PyTorch versions")
 
 
-def main(cfg: RunConfig, mode: str, args=None):
+def main(cfg: RunConfig, mode: str, args=None, mesh=None):
     """Mode dispatch (marlnav_tpu/__main__.py:148-210, reference
-    __main__.py:12-40); returns the mode's result."""
+    __main__.py:12-40); returns the mode's result.  ``mesh`` (a
+    ``parallel.DataMesh``) makes the training data-parallel."""
     device = getattr(args, "device", "cuda") if args is not None else "cuda"
     if mode == "training":
         from marlnav_tpu_torch.train import train
 
         return train(
-            cfg, device=device,
+            cfg, device=device, mesh=mesh,
             fused_collect=getattr(args, "fused_collect", False),
             checkpoint_dir=getattr(args, "checkpoint_dir", None),
             checkpoint_interval=getattr(args, "checkpoint_interval", 10),
@@ -217,6 +237,42 @@ def main(cfg: RunConfig, mode: str, args=None):
     raise ValueError(f"unknown mode {mode!r}")
 
 
+def train_rank(cfg: RunConfig, args, local_rank=None, local_world=None):
+    """Train as this rank of the initialized process group."""
+    from marlnav_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(num_data=args.num_data, num_model=args.num_model,
+                     device=args.device, local_rank=local_rank,
+                     local_world=local_world)
+    return main(cfg, "training", args, mesh)
+
+
+def train_data_parallel(cfg: RunConfig, args):
+    """Data-parallel training as the module docstring sets out; returns
+    this process's (rank 0's, where it spawns the others) ``train``
+    result."""
+    import torch.distributed as dist
+
+    from marlnav_tpu_torch.parallel import default_backend, init_distributed
+    from marlnav_tpu_torch.parallel.launch import (cli_training_rank,
+                                                   run_local_ranks)
+    from marlnav_tpu_torch.utils.seeding import resolve_device
+
+    resolve_device(args.device)  # raises where CUDA is asked for but absent
+    backend = default_backend(args.device)
+    if dist.is_initialized():
+        return train_rank(cfg, args)
+    if not args.multihost:
+        return run_local_ranks(args.num_data, backend, cli_training_rank,
+                               cfg, args)
+    init_distributed(args.coordinator_address, args.num_processes,
+                     args.process_id, backend)
+    try:
+        return train_rank(cfg, args)
+    finally:
+        dist.destroy_process_group()
+
+
 def cli(argv=None):
     """Parse ``argv`` and run its mode; returns the mode's result:
     ``train.train``'s (train state, final env state, stats logger), the
@@ -229,6 +285,8 @@ def cli(argv=None):
            else resolve_run_config(args))
     mode = ("rendering" if args.rendering
             else "reward_check" if args.reward_check else "training")
+    if mode == "training" and (args.num_data is not None or args.multihost):
+        return train_data_parallel(cfg, args)
     return main(cfg, mode, args)
 
 

@@ -35,6 +35,20 @@ goes through its affine operator, or, with ``uncollapsed_actor``, through
 the network itself (the JAX package's "packed" and "undilated" kernels;
 ``train.py`` decides when).
 
+Under a data-parallel mesh (``make_mappo(..., mesh=...)``, a
+``parallel.DataMesh``; marlnav_tpu/algo/mappo.py:292-305) each rank
+collects and trains on its share of the envs with replicated networks,
+and what the JAX package's partitioner makes global is reduced over the
+ranks: the returns normalization (global mean, then the global sum of
+squared deviations over N - 1), the GAE ``mean_rew``, the episode
+counters, the faithful advantage pairing (``pair_rows_sharded``, once a
+phase), and each minibatch's loss and gradients (one sum all-reduce of a
+flat buffer a step; shards are equal, so the global mean is the ranks'
+mean).  The plain collect draws its action noise at the global shape and
+keeps its rows (``DiagGaussian.sample``'s ``shard``), so a run over N
+ranks equals the run without a mesh up to the order of its sums; at one
+rank it equals it bit for bit.
+
 ``bf16_updates`` rounds the update products' operands to bf16 (float32
 sums) on every route, where the JAX route it stands for rounds them: the
 losses through ``Actor`` / ``Critic`` with ``compute_dtype``, the fused
@@ -58,6 +72,8 @@ from marlnav_tpu_torch.config import MAPPOConfig, NormalizerConfig, ScalerConfig
 from marlnav_tpu_torch.env.env import Env
 from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
 from marlnav_tpu_torch.models import Actor, Critic, DiagGaussian
+from marlnav_tpu_torch.parallel.sharding import (all_gather_envs,
+                                                 all_reduce_sum)
 from marlnav_tpu_torch.utils.transforms import (make_action_scaler,
                                                 make_obs_normalizer)
 
@@ -110,10 +126,25 @@ class MAPPO:
 # Returns (reference models.py:131-148)
 # ----------------------------------------------------------------------
 
-def _sample_std(x: torch.Tensor) -> torch.Tensor:
-    """Unbiased (N-1) std — torch.std_mean default (reference models.py:140)."""
+def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``x`` over every rank's shard (equal shards: the mean of
+    the ranks' means); ``torch.mean(x)`` without a mesh, and bit for bit
+    that at one rank."""
     mean = torch.mean(x)
-    return torch.sqrt(torch.sum((x - mean) ** 2) / (x.numel() - 1))
+    if mesh is None:
+        return mean
+    return all_reduce_sum(mean, mesh) / mesh.world
+
+
+def _sample_std(x: torch.Tensor, mean: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """Unbiased (N-1) std — torch.std_mean default (reference models.py:140)
+    — of ``x`` over every rank's shard, about its ``global_mean``
+    ``mean``."""
+    squares, n = torch.sum((x - mean) ** 2), x.numel()
+    if mesh is not None:
+        squares, n = all_reduce_sum(squares, mesh), n * mesh.world
+    return torch.sqrt(squares / (n - 1))
 
 
 def discounted_returns(rewards: torch.Tensor, done: torch.Tensor,
@@ -129,10 +160,12 @@ def discounted_returns(rewards: torch.Tensor, done: torch.Tensor,
 
 
 def reference_returns(rewards: torch.Tensor, done: torch.Tensor,
-                      cfg: MAPPOConfig):
+                      cfg: MAPPOConfig, mesh=None):
     """Zero-at-done discounted returns + whole-buffer z-normalization
     (reference models.py:131-148).  Returns ``(normalized (T, P) float32,
-    mean of unnormalized returns)``.
+    mean of unnormalized returns)``; with a ``mesh`` the buffer is every
+    rank's (T, P/world) shard together (two all-reduces: the mean, then
+    the squared deviations).
 
     With ``cfg.returns_f64`` the accumulation, mean and std run in float64,
     the reference's ``dtype=float`` accumulator (reference models.py:133;
@@ -140,8 +173,8 @@ def reference_returns(rewards: torch.Tensor, done: torch.Tensor,
     normalized returns are cast back to float32 for the buffer."""
     dtype = torch.float64 if cfg.returns_f64 else torch.float32
     rets = discounted_returns(rewards, done, cfg.gamma, dtype)
-    mean_rew = torch.mean(rets)
-    normed = (rets - mean_rew) / (_sample_std(rets) + 1e-12)
+    mean_rew = global_mean(rets, mesh)
+    normed = (rets - mean_rew) / (_sample_std(rets, mean_rew, mesh) + 1e-12)
     return normed.to(torch.float32), mean_rew
 
 
@@ -194,10 +227,42 @@ def _pair_per_agent(x: torch.Tensor, cfg: MAPPOConfig) -> torch.Tensor:
     return torch.repeat_interleave(x, cfg.num_agents)
 
 
-def minibatch_advantages(mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
+def pair_rows_sharded(d: torch.Tensor, num_agents: int, faithful: bool,
+                      mesh) -> torch.Tensor:
+    """This rank's rows of the per-agent pairing over the GLOBAL env batch
+    (marlnav_tpu/ops/fused_update.py:200-222 ``_pair_rows_sharded``).
+
+    ``d`` is this rank's (size, P_local) returns - values.  The fixed
+    (repeat-interleave) pairing is local: global row (t, p, a) reads d[t,
+    p], which the rank holds for its own rows.  The faithful pairing is
+    the reference's flat tile over the global (size*P,) vector: global row
+    j = (t*P + p)*A + a reads d_flat[j mod size*P], across shard
+    boundaries, so d is all-gathered and the rank takes its own rows'
+    entries.  Returns the rank's (size*P_local*A,) advantages in its local
+    (t, p_local, a) row order."""
+    if not faithful:
+        return torch.repeat_interleave(d.reshape(-1), num_agents)
+    size, p_local = d.shape
+    d_global = all_gather_envs(d, mesh, dim=1)
+    p_global = d_global.shape[1]
+    dev = d.device
+    j = ((torch.arange(size, device=dev)[:, None, None] * p_global
+          + (mesh.rank * p_local
+             + torch.arange(p_local, device=dev))[None, :, None]) * num_agents
+         + torch.arange(num_agents, device=dev)[None, None, :])
+    return d_global.reshape(-1)[j.reshape(-1) % (size * p_global)]
+
+
+def minibatch_advantages(mb: Buffer, cfg: MAPPOConfig,
+                         mesh=None) -> torch.Tensor:
     """(size*P*A,) advantages in the minibatch's (step, env, agent) row
     order: returns - values paired per agent within the slice, so the
-    faithful tiling wraps modulo size*P (reference models.py:285-286)."""
+    faithful tiling wraps modulo size*P (reference models.py:285-286).
+    With a ``mesh``, this rank's rows of the pairing over every rank's
+    envs (``pair_rows_sharded``)."""
+    if mesh is not None:
+        return pair_rows_sharded(mb.returns - mb.values[..., 0],
+                                 cfg.num_agents, cfg.faithful, mesh)
     _, _, _, values, returns = _flatten_minibatch(mb, cfg)
     return _pair_per_agent(returns, cfg) - _pair_per_agent(values, cfg)
 
@@ -208,16 +273,19 @@ def _compute_dtype(cfg: MAPPOConfig):
     return torch.bfloat16 if cfg.bf16_updates else None
 
 
-def actor_loss(actor: Actor, mb: Buffer, cfg: MAPPOConfig) -> torch.Tensor:
+def actor_loss(actor: Actor, mb: Buffer, cfg: MAPPOConfig,
+               advantages: torch.Tensor = None) -> torch.Tensor:
     """Negated PPO-clip + entropy objective (the reference *maximizes* it,
-    reference models.py:71-72, 270-299)."""
+    reference models.py:71-72, 270-299); ``advantages`` default to
+    ``minibatch_advantages(mb, cfg)``."""
     obs, actions, old_log_probs, _, _ = _flatten_minibatch(mb, cfg)
     mean, var = actor(obs, _compute_dtype(cfg))
     dist = DiagGaussian(mean, var)
     new_log_probs = dist.log_prob(actions)
     entropies = dist.entropy()
 
-    advantages = minibatch_advantages(mb, cfg)
+    if advantages is None:
+        advantages = minibatch_advantages(mb, cfg)
     ratios = torch.exp(new_log_probs - old_log_probs)
     clip_obj = torch.mean(torch.minimum(
         ratios * advantages,
@@ -256,6 +324,30 @@ def minibatch_slices(buffer: Buffer, cfg: MAPPOConfig):
 # The MAPPO bundle
 # ----------------------------------------------------------------------
 
+def global_stats(stats: EpisodeStats, mesh=None) -> EpisodeStats:
+    """The episode counters summed over the ranks (one all-reduce);
+    ``stats`` itself without a mesh."""
+    if mesh is None:
+        return stats
+    counters = torch.stack([stats.num_trunc, stats.num_col, stats.num_tar])
+    return EpisodeStats(*all_reduce_sum(counters, mesh).unbind(0))
+
+
+def _mean_over_ranks(loss: torch.Tensor, params, mesh) -> torch.Tensor:
+    """Average a minibatch's loss and its parameters' gradients over the
+    ranks in one all-reduce of a flat buffer; the gradients become views of
+    it.  Returns the averaged loss."""
+    params = list(params)
+    flat = torch.cat([loss.reshape(1)]
+                     + [q.grad.reshape(-1) for q in params])
+    flat = all_reduce_sum(flat, mesh) / mesh.world
+    start = 1
+    for q in params:
+        q.grad = flat[start:start + q.numel()].view_as(q)
+        start += q.numel()
+    return flat[0]
+
+
 def make_adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
     """Adam over ``module``'s parameters at torch's defaults (betas
     0.9/0.999, eps 1e-8: optax.adam's).  On the card it is capturable (its
@@ -269,20 +361,38 @@ def make_adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(module.parameters(), lr=lr)
 
 
+def local_config(cfg: MAPPOConfig, mesh) -> MAPPOConfig:
+    """``cfg`` as one rank of ``mesh`` sees it: its share of the envs and
+    of ``num_total``, so ``num_repeats`` stays the run's."""
+    if mesh is None:
+        return cfg
+    _, count = mesh.env_slice(cfg.num_parallel)
+    return dataclasses.replace(cfg, num_parallel=count,
+                               num_total=cfg.num_total // mesh.world)
+
+
 def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
                scaler_cfg: ScalerConfig, uncollapsed_actor: bool = False,
-               tiled_actor: bool = False) -> MAPPO:
+               tiled_actor: bool = False, mesh=None) -> MAPPO:
     """Build the MAPPO function bundle on ``env.device``.  The train
     functions update the networks and optimizers of ``ts`` in place.
     With ``cfg.fused_updates``, the actor's gradient goes through its
     affine operator, or through the network itself where
     ``uncollapsed_actor``; with ``cfg.bf16_updates`` too, the affine one
     rounds as the JAX package's tiled kernel where ``tiled_actor``, else
-    as its staged one."""
+    as its staged one.  With a ``mesh`` (``parallel.DataMesh``) ``cfg``
+    is the whole run's and ``env`` this rank's (``make_env(...,
+    mesh=mesh)``); the bundle's ``cfg`` is the rank's
+    (``local_config``)."""
     device = env.device
     normalize = make_obs_normalizer(normalizer_cfg, device)
     scale_up = make_action_scaler(scaler_cfg, device)
+    p_global = cfg.num_parallel
+    cfg = local_config(cfg, mesh)
     p, a = cfg.num_parallel, cfg.num_agents
+    # The plain collect's action noise: the global draw, this rank's rows.
+    noise_shard = None if mesh is None else (
+        p_global * a, mesh.env_slice(p_global)[0] * a)
 
     def init(generator: torch.Generator):
         """Networks drawn from a CPU generator seeded from ``generator``'s
@@ -311,7 +421,7 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         for _ in range(cfg.buffer_len):
             mean, var = ts.actor(obs)
             dist = DiagGaussian(mean, var)
-            flat_actions = dist.sample(generator)  # (P*A, 2) in ~[-1, 1]
+            flat_actions = dist.sample(generator, noise_shard)  # (P*A, 2)
             log_probs = dist.log_prob(flat_actions)  # (P*A,)
             actions = flat_actions.reshape(p, a, cfg.action_size)
             env_state, out = env.step(env_state, scale_up(actions))
@@ -325,14 +435,17 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         if cfg.use_gae:
             # Bootstrapped GAE advantages stored as "returns" = advantage +
             # value, so the losses still read returns - values.
-            mean_rew = torch.mean(discounted_returns(rewards, done, cfg.gamma))
+            mean_rew = global_mean(discounted_returns(rewards, done,
+                                                      cfg.gamma), mesh)
             last_value = ts.critic(obs)[:, 0]
             adv = gae_advantages(rewards, done, values[..., 0], last_value,
                                  cfg.gamma, cfg.gae_lambda)
             rets = adv + values[..., 0]
         else:
-            rets, mean_rew = reference_returns(rewards, done, cfg)
+            rets, mean_rew = reference_returns(rewards, done, cfg, mesh)
 
+        env_state = dataclasses.replace(
+            env_state, stats=global_stats(env_state.stats, mesh))
         buffer = Buffer(obs_b, actions, log_probs, values, rets, done)
         return env_state, buffer, RolloutMetrics(mean_rew, env_state.stats)
 
@@ -343,10 +456,11 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         # (module, minibatch, staged) -> (loss, grads by parameter name)
         def actor_step(m, mb, adv):
             if uncollapsed_actor:
-                return actor_grad_uncollapsed(m, mb, adv, cfg)
-            return actor_grad(m, mb, adv, cfg, tiled_actor)
+                return actor_grad_uncollapsed(m, mb, adv, cfg, mesh)
+            return actor_grad(m, mb, adv, cfg, tiled_actor, mesh)
 
-        critic_step = lambda m, mb, _: critic_grad(m, mb, cfg)  # noqa: E731
+        def critic_step(m, mb, _):
+            return critic_grad(m, mb, cfg, mesh)
     else:
         actor_step = critic_step = None
 
@@ -354,20 +468,22 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         def train(ts: TrainState, buffer: Buffer):
             """Epochs x minibatches of Adam steps (reference
             models.py:160-198); returns ``(ts, losses)``, the per-minibatch
-            losses as one (epochs * minibatches,) tensor.  Fused: each
-            slice's advantages are staged once per phase, not per epoch."""
+            losses as one (epochs * minibatches,) tensor.  Each slice's
+            advantages are staged once per phase, not per epoch."""
             module, opt = get_module(ts), get_opt(ts)
             slices = minibatch_slices(buffer, cfg)
             params = dict(module.named_parameters())
-            if grad_fn is not None:
-                staged = [stage_fn(mb) for mb in slices]
+            staged = [stage_fn(mb) for mb in slices]
             losses = []
             for _ in range(cfg.num_epochs):
                 for i, mb in enumerate(slices):
                     if grad_fn is None:
-                        loss = loss_fn(module, mb, cfg)
+                        loss = loss_fn(module, mb, staged[i])
                         opt.zero_grad(set_to_none=True)
                         loss.backward()
+                        if mesh is not None:
+                            loss = _mean_over_ranks(loss.detach(),
+                                                    params.values(), mesh)
                     else:
                         loss, grads = grad_fn(module, mb, staged[i])
                         for name, g in grads.items():
@@ -379,11 +495,12 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         return train
 
     train_actor = _train_phase(
-        actor_loss, actor_step, lambda mb: minibatch_advantages(mb, cfg),
+        lambda m, mb, adv: actor_loss(m, mb, cfg, adv), actor_step,
+        lambda mb: minibatch_advantages(mb, cfg, mesh),
         lambda ts: ts.actor, lambda ts: ts.actor_opt)
     train_critic = _train_phase(
-        critic_loss, critic_step, lambda mb: None, lambda ts: ts.critic,
-        lambda ts: ts.critic_opt)
+        lambda m, mb, _: critic_loss(m, mb, cfg), critic_step,
+        lambda mb: None, lambda ts: ts.critic, lambda ts: ts.critic_opt)
 
     def train_many(ts: TrainState, env_state, generator: torch.Generator,
                    num_repeats: int, collect_fn: Callable = None):

@@ -10,8 +10,13 @@ exact ordering (reference environment.py:92-107):
 
 The fresh draw consumes the ``torch.Generator`` carried in
 ``EnvState.generator``.  ``step`` returns a new ``EnvState``; it writes
-into no tensor it was given.  ``sample_actions`` is the scripted sampler
-of ``sampler_cfg`` (env/samplers.py), or None where a policy acts.
+into no tensor it was given.  Under a data-parallel mesh (``make_env(...,
+mesh=...)``) each rank steps its own envs, but every draw keeps the global
+shape and the rank keeps its rows of it: a run over N ranks draws what a
+run without a mesh draws, as partitionable ``jax.random`` with a
+replicated key does in the JAX package (parallel/sharding.py:44).
+``sample_actions`` is the scripted sampler of ``sampler_cfg``
+(env/samplers.py), or None where a policy acts.
 """
 
 from __future__ import annotations
@@ -71,16 +76,26 @@ def compute_observations(states, obstacles, target, params: EnvParams,
 
 
 def make_env(params: EnvParams, init_cfg, device="cuda", *,
-             sampler_cfg=None) -> Env:
+             sampler_cfg=None, mesh=None) -> Env:
     """Build the environment function bundle on ``device``; ``init_cfg``
     selects the reset distribution (triangle or mock), ``sampler_cfg`` the
     scripted actions of ``Env.sample_actions`` (None: a policy acts).
     ``device`` defaults to CUDA and raises when CUDA is absent; pass
-    ``"cpu"`` to run on the CPU."""
-    device = resolve_device(device)
+    ``"cpu"`` to run on the CPU.  With a ``parallel.DataMesh`` the env
+    holds this rank's share of ``params.num_parallel`` envs, on the mesh's
+    device."""
+    device = resolve_device(device) if mesh is None else mesh.device
     init_fn = make_initializer(init_cfg, device)
     others_idx = geometry.others_indices(params.num_agents, device)
     p = params.num_parallel
+    keep = slice(None)
+    if mesh is not None:
+        offset, count = mesh.env_slice(p)
+        keep = slice(offset, offset + count)
+        draw_global = init_fn
+
+        def init_fn(generator):
+            return tuple(x[keep] for x in draw_global(generator))
     # Mock initializers need the reference's aliasing-bug emulation (see
     # EnvState in types.py).
     mock_aliasing = isinstance(init_cfg, MockInitConfig)
@@ -92,15 +107,16 @@ def make_env(params: EnvParams, init_cfg, device="cuda", *,
             # the batch (EnvParams.staggered_resets).
             step_num = torch.randint(0, params.episode_len, (p,),
                                      generator=generator, device=device,
-                                     dtype=torch.int32)
+                                     dtype=torch.int32)[keep]
         else:
-            step_num = torch.zeros((p,), dtype=torch.int32, device=device)
+            step_num = torch.zeros((p,), dtype=torch.int32,
+                                   device=device)[keep]
         return EnvState(
             states=states,
             obstacles=obstacles,
             target=target,
             step_num=step_num,
-            terminates=torch.zeros((p,), dtype=torch.bool, device=device),
+            terminates=torch.zeros_like(step_num, dtype=torch.bool),
             stats=EpisodeStats.zeros(device),
             generator=generator,
             reset_states=states if mock_aliasing else None,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,9 +25,20 @@ class DiagGaussian:
     mean: torch.Tensor
     var: torch.Tensor
 
-    def sample(self, generator: torch.Generator) -> torch.Tensor:
-        eps = torch.randn(self.mean.shape, generator=generator,
-                          dtype=self.mean.dtype, device=self.mean.device)
+    def sample(self, generator: torch.Generator,
+               shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """A sample of every Gaussian.  ``shard = (rows, first)``: these
+        Gaussians are rows ``first ..`` of ``rows`` along the leading axis
+        (a rank's envs under a data-parallel mesh); the noise of all
+        ``rows`` is drawn, as a run without a mesh draws it, and this
+        shard's rows of it kept."""
+        shape = self.mean.shape
+        if shard is not None:
+            shape = (shard[0],) + tuple(shape[1:])
+        eps = torch.randn(shape, generator=generator, dtype=self.mean.dtype,
+                          device=self.mean.device)
+        if shard is not None:
+            eps = eps[shard[1]:shard[1] + self.mean.shape[0]]
         return self.mean + torch.sqrt(self.var) * eps
 
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Kernels (CUDA C++ under csrc/) and their plain PyTorch versions: the
-fused collect, the fused bench rollout, the actor- and critic-gradient
+fused collect, the fused bench rollout (over a data-parallel mesh:
+``sharded.py``), the actor- and critic-gradient
 kernels of the fused updates, and the returns kernel (``returns.py``);
 ``graphs.py`` holds CUDA graphs that count their kernels' launches.
 
@@ -21,6 +22,7 @@ from marlnav_tpu_torch.ops.fused_rollout import (
     make_fused_rollout,
     rollout_rows_reference,
 )
+from marlnav_tpu_torch.ops.sharded import make_sharded_fused_rollout
 from marlnav_tpu_torch.ops.fused_update import (
     actor_grad,
     actor_grad_sums,
@@ -52,6 +54,7 @@ __all__ = [
     "fused_rollout_rows",
     "make_fused_collect",
     "make_fused_rollout",
+    "make_sharded_fused_rollout",
     "rollout_rows_reference",
     "rows_to_env_arrays",
     "rows_to_env_state",

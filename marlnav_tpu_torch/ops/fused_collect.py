@@ -18,6 +18,13 @@ sequential order), and for GAE the bootstrap value of the final state.
 Nothing in the collect reads the device back, so a CUDA graph can hold
 it; the kernel's seed lives in device memory for that reason.
 
+Data parallelism (``make_fused_collect(..., mesh=...)``; marlnav_tpu/ops/
+fused_collect.py:375-399): each rank runs the kernel on its own envs with
+the seed ``seed + (rank << 20)`` (int32 arithmetic, as the JAX package's
+shards), and the normalization of the returns, the GAE ``mean_rew`` and
+the episode counters are reduced over the ranks.  The kernel takes any P,
+so P needs only to split over the ranks.
+
 Routing, with no fallback: CPU tensors run the plain version
 ``collect_rows_reference`` (uniforms drawn from a generator seeded with
 ``seed``); CUDA tensors launch the kernel or raise.
@@ -41,6 +48,7 @@ from marlnav_tpu_torch.algo.mappo import (
     RolloutMetrics,
     discounted_returns,
     gae_advantages,
+    global_mean,
     reference_returns,
 )
 from marlnav_tpu_torch.config import MAPPOConfig, TriangleInitConfig
@@ -48,6 +56,7 @@ from marlnav_tpu_torch.env import geometry
 from marlnav_tpu_torch.env.env import compute_observations
 from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
 from marlnav_tpu_torch.ops.step_math import StepMath, box_muller
+from marlnav_tpu_torch.parallel.sharding import all_reduce_sum
 from marlnav_tpu_torch.utils.seeding import make_generator
 from marlnav_tpu_torch.utils.transforms import make_obs_normalizer
 
@@ -452,6 +461,18 @@ def _check_launch(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
         _check("noise", noise, (num_steps, sm.n_draws, num_envs), f32, device)
 
 
+def shard_seed(seed, rank: int):
+    """Rank ``rank``'s kernel seed: ``seed + (rank << 20)`` in int32
+    arithmetic (marlnav_tpu/ops/fused_collect.py:375), for an int or for
+    one int32 on the device; ``seed`` itself at rank 0."""
+    if rank == 0:
+        return seed
+    if torch.is_tensor(seed):
+        return seed + (rank << 20)
+    low = (int(seed) + (rank << 20)) & 0xFFFFFFFF
+    return low - (1 << 32) if low >= 1 << 31 else low
+
+
 def seed_tensor(seed, device) -> torch.Tensor:
     """The collect kernel's seed as the one int32 it reads from device
     memory: ``seed`` itself where it is such a tensor on ``device``, else a
@@ -540,12 +561,16 @@ fused_collect_rows.launches = 0
 # ----------------------------------------------------------------------
 
 def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
-                       normalizer_cfg, scaler_cfg):
+                       normalizer_cfg, scaler_cfg, mesh=None):
     """Build ``collect(ts, rows, seed, noise=None) -> (rows', Buffer,
     RolloutMetrics)``, the fused counterpart of ``MAPPO.collect`` on the
     RowState layout.  ``seed`` is the kernel's Philox key, an int or one
     int32 on the rows' device (``seed_tensor``); ``noise`` optionally
-    injects the uniforms (T, n_draws, P)."""
+    injects the uniforms (T, n_draws, P).  With a ``mesh``
+    (``parallel.DataMesh``) ``rows`` are this rank's envs, the kernel runs
+    at ``shard_seed(seed, rank)``, ``noise`` is the whole run's (T,
+    n_draws, P) and the rank takes its columns, and the buffer's returns
+    and the metrics are normalized and counted over every rank."""
     if not isinstance(init_cfg, TriangleInitConfig):
         raise NotImplementedError(
             "the fused collect covers the triangle scenario family; use "
@@ -556,6 +581,11 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
     def run_kernel(ts, rows: RowState, seed, noise=None):
         """The kernel alone (no critic / returns tail)."""
         a_comp, c_comp = _affine_compose(ts.actor)
+        if mesh is not None:
+            seed = shard_seed(seed, mesh.rank)
+            if noise is not None:
+                offset, count = mesh.env_slice(noise.shape[-1])
+                noise = noise[..., offset:offset + count].contiguous()
         return fused_collect_rows(sm, rows, a_comp, c_comp, seed, num_steps,
                                   noise)
 
@@ -583,14 +613,17 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
         values = ts.critic(out.obs.reshape(num_steps * num_envs, a, f)
                            ).reshape(num_steps, num_envs, 1)
         if cfg.use_gae:
-            mean_rew = torch.mean(discounted_returns(out.rewards, out.done,
-                                                     cfg.gamma))
+            mean_rew = global_mean(discounted_returns(out.rewards, out.done,
+                                                      cfg.gamma), mesh)
             last_value = ts.critic(final_obs(out.rows))[:, 0]
             adv = gae_advantages(out.rewards, out.done, values[..., 0],
                                  last_value, cfg.gamma, cfg.gae_lambda)
             rets = adv + values[..., 0]
         else:
-            rets, mean_rew = reference_returns(out.rewards, out.done, cfg)
+            rets, mean_rew = reference_returns(out.rewards, out.done, cfg,
+                                               mesh)
+        if mesh is not None:
+            all_reduce_sum(out.stats, mesh)
         stats = EpisodeStats(*out.stats.unbind(0))
         buffer = Buffer(out.obs, out.actions, out.log_probs, values, rets,
                         out.done)

@@ -52,6 +52,13 @@ Routing, with no fallback: CPU tensors run the plain versions of
 ``ops/update_math.py``; CUDA tensors launch the kernel or raise (in bf16
 mode, the kernel's bf16 variant).  Each wrapper counts its launches in
 ``.launches``.
+
+Data parallelism (marlnav_tpu/ops/fused_update.py:544-548,
+fused_update_tiled.py:244-245, 369-370): each wrapper's ``mesh`` sums the
+kernel's flat vector of sums, the loss with it, over the ranks in one
+all-reduce before it is cut into the gradients, and the minibatch
+functions scale by the global row count, ``n_local * world``.  At one
+rank this is the run without a mesh bit for bit.
 """
 
 from __future__ import annotations
@@ -127,8 +134,14 @@ def _actor_resident_blocks(index: int, obs_size: int, mode: int) -> int:
     return blocks
 
 
-def _split(sums: torch.Tensor, shapes) -> Tuple[torch.Tensor, ...]:
-    """Cut the kernel's flat vector of sums into views of these shapes."""
+def _split(sums: torch.Tensor, shapes, mesh=None) -> Tuple[torch.Tensor, ...]:
+    """Cut the kernel's flat vector of sums into views of these shapes,
+    after summing it over ``mesh``'s ranks (in place) where one is
+    given."""
+    if mesh is not None:
+        from marlnav_tpu_torch.parallel.sharding import all_reduce_sum
+
+        all_reduce_sum(sums, mesh)
     out, start = [], 0
     for shape in shapes:
         n = math.prod(shape)
@@ -193,6 +206,14 @@ def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
     return out
 
 
+def _reduced_reference(sums, shapes, mesh):
+    """A plain version's sums, summed over ``mesh``'s ranks through one
+    flat vector as the kernels' are; unchanged without a mesh."""
+    if mesh is None:
+        return sums
+    return _split(torch.cat([x.reshape(-1) for x in sums]), shapes, mesh)
+
+
 def _check_rows(device, n_rows, named):
     if device.type != "cuda":
         raise ValueError(f"fused update: unsupported device {device}")
@@ -203,18 +224,21 @@ def _check_rows(device, n_rows, named):
 
 
 def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
-                    eps: float, ent_c: float, bf16=None):
+                    eps: float, ent_c: float, bf16=None, mesh=None):
     """``(loss_sum (), Σ g_z xᵀ (4, F), Σ g_z (4,))`` of the PPO actor
     objective over all rows (``update_math.actor_grad_sums_reference``).
     obs (N, F), actions (N, 2), log_probs and adv (N,).  ``bf16``: None,
-    or the route's rounding, "tiled" or "staged"."""
+    or the route's rounding, "tiled" or "staged".  ``mesh``: the sums over
+    every rank's rows."""
     if bf16 not in (None, *AFFINE_BF16):
         raise ValueError(f"affine actor: bf16 rounding {bf16!r} not in "
                          f"{AFFINE_BF16}")
-    if obs.device.type == "cpu":
-        return actor_grad_sums_reference(a_comp, c_comp, obs, actions,
-                                         log_probs, adv, eps, ent_c, bf16)
     n, f = obs.shape
+    shapes = ((), (4, f), (4,))
+    if obs.device.type == "cpu":
+        return _reduced_reference(actor_grad_sums_reference(
+            a_comp, c_comp, obs, actions, log_probs, adv, eps, ent_c, bf16),
+            shapes, mesh)
     _check_rows(obs.device, n, (
         ("a_comp", a_comp, (4, f)), ("c_comp", c_comp, (4,)),
         ("obs", obs, (n, f)), ("actions", actions, (n, 2)),
@@ -238,23 +262,25 @@ def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
     if err != 0:
         raise RuntimeError(f"actor grad kernel launch failed: CUDA error {err}")
     actor_grad_sums.launches += 1
-    return _split(scratch[:n_out], ((), (4, f), (4,)))
+    return _split(scratch[:n_out], shapes, mesh)
 
 
 actor_grad_sums.launches = 0
 
 
 def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
-                     bf16: bool = False):
+                     bf16: bool = False, mesh=None):
     """``(loss_sum (), dW1 (H, In), db1 (H,), dW2 (1, H), db2 (1,))`` of
     the clipped-value loss over all rows
     (``update_math.critic_grad_sums_reference``).  obs (N, In), vold and
-    ret (N,); weights in ``nn.Linear`` layout."""
-    if obs.device.type == "cpu":
-        return critic_grad_sums_reference(w1, b1, w2, b2, obs, vold, ret, eps,
-                                          bf16)
+    ret (N,); weights in ``nn.Linear`` layout.  ``mesh``: the sums over
+    every rank's rows."""
     n, n_in = obs.shape
     h = w1.shape[0]
+    shapes = ((), (h, n_in), (h,), (1, h), (1,))
+    if obs.device.type == "cpu":
+        return _reduced_reference(critic_grad_sums_reference(
+            w1, b1, w2, b2, obs, vold, ret, eps, bf16), shapes, mesh)
     _check_rows(obs.device, n, (
         ("w1", w1, (h, n_in)), ("b1", b1, (h,)), ("w2", w2, (1, h)),
         ("b2", b2, (1,)), ("obs", obs, (n, n_in)), ("vold", vold, (n,)),
@@ -268,7 +294,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
                             (w2, b2, None, None), n_in, h, eps, (0.0,) * 4,
                             bf16, n_out)
         critic_grad_sums.launches += 1
-        return _split(out, ((), (h, n_in), (h,), (1, h), (1,)))
+        return _split(out, shapes, mesh)
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
@@ -281,7 +307,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
         raise RuntimeError(f"critic grad kernel launch failed: CUDA error "
                            f"{err}")
     critic_grad_sums.launches += 1
-    return _split(out, ((), (h, n_in), (h,), (1, h), (1,)))
+    return _split(out, shapes, mesh)
 
 
 critic_grad_sums.launches = 0
@@ -289,19 +315,20 @@ critic_grad_sums.launches = 0
 
 def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
                                 log_probs, adv, eps: float, ent_c: float,
-                                bf16: bool = False):
+                                bf16: bool = False, mesh=None):
     """``(loss_sum, dW1 (H, F), db1 (H,), dWmu (2, H), dbmu (2,), dWvar
     (2, H), dbvar (2,))`` of the PPO actor objective through the network
     itself over all rows
     (``update_math.actor_grad_sums_uncollapsed_reference``).  obs (N, F),
     actions (N, 2), log_probs and adv (N,); weights in ``nn.Linear``
-    layout."""
-    if obs.device.type == "cpu":
-        return actor_grad_sums_uncollapsed_reference(
-            w1, b1, wmu, bmu, wvar, bvar, obs, actions, log_probs, adv, eps,
-            ent_c, bf16)
+    layout.  ``mesh``: the sums over every rank's rows."""
     n, f = obs.shape
     h = w1.shape[0]
+    shapes = ((), (h, f), (h,), (2, h), (2,), (2, h), (2,))
+    if obs.device.type == "cpu":
+        return _reduced_reference(actor_grad_sums_uncollapsed_reference(
+            w1, b1, wmu, bmu, wvar, bvar, obs, actions, log_probs, adv, eps,
+            ent_c, bf16), shapes, mesh)
     _check_rows(obs.device, n, (
         ("w1", w1, (h, f)), ("b1", b1, (h,)), ("wmu", wmu, (2, h)),
         ("bmu", bmu, (2,)), ("wvar", wvar, (2, h)), ("bvar", bvar, (2,)),
@@ -309,7 +336,6 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         ("log_probs", log_probs, (n,)), ("adv", adv, (n,))))
     lib = _library()
     n_out = 1 + h * f + 5 * h + 4
-    shapes = ((), (h, f), (h,), (2, h), (2,), (2, h), (2,))
     # 16 rows a warp at a time; 0: no instance at these widths
     warps = lib.marlnav_uncollapsed_warps(f, h, int(bf16))
     if not warps:
@@ -318,7 +344,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
                             (1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5), bf16,
                             n_out)
         actor_grad_uncollapsed_sums.launches += 1
-        return _split(out, shapes)
+        return _split(out, shapes, mesh)
     blocks, index, stream = _launch_setup(
         obs.device, n, 16 * warps,
         lib.marlnav_uncollapsed_blocks_per_sm(f, h, int(bf16)))
@@ -335,7 +361,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
         raise RuntimeError(f"un-collapsed actor grad kernel launch failed: "
                            f"CUDA error {err}")
     actor_grad_uncollapsed_sums.launches += 1
-    return _split(out, shapes)
+    return _split(out, shapes, mesh)
 
 
 actor_grad_uncollapsed_sums.launches = 0
@@ -345,29 +371,34 @@ actor_grad_uncollapsed_sums.launches = 0
 # Loss and gradients of a minibatch (the JAX package's grad(params, ...))
 # ----------------------------------------------------------------------
 
+def _world(mesh) -> int:
+    return 1 if mesh is None else mesh.world
+
+
 @torch.no_grad()
-def actor_grad(actor, mb, adv: torch.Tensor, cfg, tiled: bool = False
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def actor_grad(actor, mb, adv: torch.Tensor, cfg, tiled: bool = False,
+               mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mean actor loss of a ``Buffer`` slice ``mb`` and its gradients
     keyed as ``actor.named_parameters()``; ``adv`` (N,) holds the slice's
     per-agent advantages in its (t, p, a) row order
     (``algo.mappo.minibatch_advantages``).  With ``cfg.bf16_updates`` the
     sums round as the JAX package's tiled kernel where ``tiled`` (its
-    full-batch route with the fused collect), else as its staged one."""
+    full-batch route with the fused collect), else as its staged one.
+    With a ``mesh``: the mean over every rank's slice."""
     n = adv.shape[0]
     a_comp, c_comp = _affine_compose(actor)
     bf16 = ("tiled" if tiled else "staged") if cfg.bf16_updates else None
     loss, dz, dzs = actor_grad_sums(
         a_comp, c_comp, mb.obs.reshape(n, -1), mb.actions.reshape(n, -1),
-        mb.log_probs.reshape(n), adv, cfg.epsilon, cfg.ent_const, bf16)
+        mb.log_probs.reshape(n), adv, cfg.epsilon, cfg.ent_const, bf16, mesh)
     grads = affine_recompose(actor, dz, dzs)
-    inv_n = 1.0 / n
+    inv_n = 1.0 / (n * _world(mesh))
     return loss * inv_n, {k: g * inv_n for k, g in grads.items()}
 
 
 @torch.no_grad()
-def actor_grad_uncollapsed(actor, mb, adv: torch.Tensor,
-                           cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def actor_grad_uncollapsed(actor, mb, adv: torch.Tensor, cfg, mesh=None
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``actor_grad`` through the network itself instead of its affine
     operator: the counterpart of the JAX package's "packed" and
     "undilated" actor layouts (``MARLNAV_ACTOR_LAYOUT``)."""
@@ -377,23 +408,24 @@ def actor_grad_uncollapsed(actor, mb, adv: torch.Tensor,
     loss, *grads = actor_grad_uncollapsed_sums(
         *(p.detach() for p in actor.parameters()), mb.obs.reshape(n, -1),
         mb.actions.reshape(n, -1), mb.log_probs.reshape(n), adv, cfg.epsilon,
-        cfg.ent_const, cfg.bf16_updates)
-    inv_n = 1.0 / n
+        cfg.ent_const, cfg.bf16_updates, mesh)
+    inv_n = 1.0 / (n * _world(mesh))
     return loss * inv_n, {name: g * inv_n for (name, _), g in
                           zip(actor.named_parameters(), grads)}
 
 
 @torch.no_grad()
-def critic_grad(critic, mb, cfg) -> Tuple[torch.Tensor,
-                                          Dict[str, torch.Tensor]]:
+def critic_grad(critic, mb, cfg, mesh=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mean clipped-value loss of a ``Buffer`` slice ``mb`` and its
-    gradients keyed as ``critic.named_parameters()``."""
+    gradients keyed as ``critic.named_parameters()`` (with a ``mesh``, over
+    every rank's slice)."""
     n = mb.returns.numel()
     loss, dw1, db1, dw2, db2 = critic_grad_sums(
         critic.fc1.weight, critic.fc1.bias, critic.fc2.weight,
         critic.fc2.bias, mb.obs.reshape(n, -1), mb.values.reshape(n),
-        mb.returns.reshape(n), cfg.epsilon, cfg.bf16_updates)
-    inv_n = 1.0 / n
+        mb.returns.reshape(n), cfg.epsilon, cfg.bf16_updates, mesh)
+    inv_n = 1.0 / (n * _world(mesh))
     grads = {"fc1.weight": dw1, "fc1.bias": db1, "fc2.weight": dw2,
              "fc2.bias": db2}
     return loss * inv_n, {k: g * inv_n for k, g in grads.items()}

@@ -1,0 +1,30 @@
+"""Data parallelism over ``torch.distributed``: the mesh and the sharding
+layer (port of ``marlnav_tpu/parallel/``)."""
+
+from marlnav_tpu_torch.parallel.mesh import (DataMesh, default_backend,
+                                             init_distributed, make_mesh)
+from marlnav_tpu_torch.parallel.sharding import (
+    all_gather_envs,
+    all_reduce_sum,
+    check_replicated,
+    gather_env_state,
+    shard,
+    shard_buffer,
+    shard_env_state,
+    shard_rows,
+)
+
+__all__ = [
+    "DataMesh",
+    "all_gather_envs",
+    "all_reduce_sum",
+    "check_replicated",
+    "default_backend",
+    "gather_env_state",
+    "init_distributed",
+    "make_mesh",
+    "shard",
+    "shard_buffer",
+    "shard_env_state",
+    "shard_rows",
+]

@@ -1,7 +1,7 @@
 """Training entry point: the outer repeat loop with stats, weights and
 checkpoints.
 
-Port of ``marlnav_tpu/train.py`` for one device:
+Port of ``marlnav_tpu/train.py``:
 ``num_repeats = num_total // (buffer_len * num_parallel)`` repeats of
 (collect rollout -> train actor -> train critic), then the artifact dump.
 The rollout runs either as the plain T-step loop over ``env.step``
@@ -38,6 +38,16 @@ device type resumes on the other, as the JAX package restores onto any
 device: the running Adam keeps its own settings (``restore_adam``), and a
 generator state of the other device's kind seeds the running generator
 (``restore_generator``).
+
+Data parallelism (``mesh``, a ``parallel.DataMesh``; marlnav_tpu/train.py
+:38, 82-86): each rank trains on its share of the envs with replicated
+networks (checked at set-up), and the collectives of ``algo.mappo`` and
+``ops`` keep the run global.  Only rank 0 writes weights, logs, plots and
+checkpoints.  A checkpoint holds the global env state, gathered from every
+rank, and every rank takes its share on resume, so a run resumes at
+another world size.  Graphed blocks hold the collectives (NCCL); the
+first full block runs eagerly, so NCCL's communicator exists before any
+capture.  Over gloo (several ranks on one card) every block runs eagerly.
 
 The reference's save-every-rollout weights quirk (its best-reward gate
 never updates, reference models.py:93, 127-129) is kept: weights are
@@ -278,6 +288,7 @@ def train(
     verbose: bool = True,
     jit_repeats: int = 1,
     pipeline: bool = False,
+    mesh=None,
 ):
     """Run full MAPPO training per ``cfg`` on ``device``; returns
     ``(TrainState, final env state, StatsLogger)``.  The env state is an
@@ -290,19 +301,33 @@ def train(
     graphs on the card (``pipeline``: one repeat's graph replayed); with
     ``checkpoint_dir`` the complete state checkpoints every
     ``checkpoint_interval`` repeats, and ``resume`` continues from the
-    latest checkpoint there."""
+    latest checkpoint there.  With a ``mesh`` the run is data-parallel,
+    on the mesh's device (of ``device``'s type), and the returned env
+    state is this rank's."""
     if cfg.model is None:
         raise ValueError("train requires a model config")
     if jit_repeats < 1:
         raise ValueError(f"jit_repeats must be >= 1, got {jit_repeats}")
     t_start = time.perf_counter()
     dev = resolve_device(device)
-    env = make_env(cfg.env, cfg.init, dev)
+    rank0 = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        if mesh.device.type != dev.type:
+            raise ValueError(f"device {device!r} but the mesh is on "
+                             f"{mesh.device}")
+        dev = mesh.device
+    env = make_env(cfg.env, cfg.init, dev, mesh=mesh)
     mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler,
                        uncollapsed_actor(cfg.model, fused_collect),
-                       tiled_route(cfg.model, fused_collect))
+                       tiled_route(cfg.model, fused_collect), mesh)
     generator = make_generator(cfg.seed, dev)
     ts, state = mappo.init(generator)
+    if mesh is not None:
+        from marlnav_tpu_torch.parallel import (check_replicated,
+                                                gather_env_state,
+                                                shard_env_state)
+
+        check_replicated([ts.actor, ts.critic], mesh)
     # The fused route's kernel seeds of a block, in device memory.
     seeds = torch.zeros(jit_repeats, dtype=torch.int32, device=dev)
     offsets = torch.arange(jit_repeats, dtype=torch.int32, device=dev)
@@ -313,10 +338,11 @@ def train(
                                            rows_to_env_state)
 
         fc = make_fused_collect(cfg.model, cfg.env, cfg.init, cfg.normalizer,
-                                cfg.scaler)
+                                cfg.scaler, mesh)
         # Kernel seeds as in the JAX package (train.py:178-182): spread the
         # run seed, bounded below 2**30 so base_seed + repeat stays in
-        # int32; the kernel keys Philox on (seed, env index).
+        # int32; the kernel keys Philox on (seed, env index), and under a
+        # mesh ``fc`` adds the rank's ``rank << 20``.
         base_seed = ((cfg.seed if cfg.seed is not None else 0)
                      * 1_000_003) % (1 << 30)
 
@@ -338,23 +364,38 @@ def train(
         def from_canonical(es):
             return es
 
-    logger = StatsLogger(root=output_root)
+    verbose = verbose and rank0
+    logger = StatsLogger(root=output_root, writes=rank0)
     start_repeat = 0
     ckpt = None
     if checkpoint_dir is not None:
         from marlnav_tpu_torch.utils.checkpoint import Checkpointer
 
-        ckpt = Checkpointer(checkpoint_dir, save_interval=checkpoint_interval)
+        ckpt = Checkpointer(checkpoint_dir, save_interval=checkpoint_interval,
+                            writes=rank0)
         if resume and ckpt.latest_step() is not None:
             # The canonical EnvState layout whatever the route, so a resume
-            # works across a --fused-collect flip.
+            # works across a --fused-collect flip; the global env state,
+            # of which each rank takes its share.
             step, tree, host = ckpt.restore()
-            state = from_canonical(restore_tree(tree, ts, generator, dev))
+            restored = restore_tree(tree, ts, generator, dev)
+            if mesh is not None:
+                restored = shard_env_state(restored, mesh)
+            state = from_canonical(restored)
             start_repeat = step + 1
             if host:
                 logger.load_state_dict(host)
             if verbose:
                 print(f"resumed from checkpoint at repeat {step}")
+
+    def save_checkpoint(step: int) -> None:
+        """Checkpoint after repeat ``step`` (every rank gathers; rank 0
+        writes)."""
+        canon = to_canonical(state, step)
+        if mesh is not None:
+            canon = gather_env_state(canon, mesh)
+        ckpt.save(step, checkpoint_tree(ts, canon), logger.state_dict(),
+                  force=True)
 
     if verbose:
         print(f"setup: {time.perf_counter() - t_start:.2f}s")
@@ -363,7 +404,10 @@ def train(
     steps_per_rollout = m.buffer_len * m.num_parallel
     blocks = _Blocks(mappo, ts, generator, collect_fn, seeds, offsets,
                      base_seed, jit_repeats, pipeline)
-    can_graph, warmed = dev.type == "cuda", False
+    # Gloo stages collectives through the host: no graph holds them.
+    can_graph = dev.type == "cuda" and (mesh is None
+                                        or mesh.backend == "nccl")
+    warmed = False
     repeat = start_repeat
     while repeat < m.num_repeats:
         remaining = m.num_repeats - repeat
@@ -385,8 +429,8 @@ def train(
             last = repeat + block - 1
             crosses = (last // ckpt.save_interval) > ((repeat - 1)
                                                       // ckpt.save_interval)
-            ckpt.save(last, checkpoint_tree(ts, to_canonical(state, last)),
-                      logger.state_dict(), force=crosses)
+            if crosses:
+                save_checkpoint(last)
         if verbose:
             print(f"repeat {repeat + block}/{m.num_repeats}: "
                   f"mean_rew {logger.logs['mean_rews'][-1]:.3f}, "
@@ -395,9 +439,7 @@ def train(
         repeat += block
 
     if ckpt is not None and m.num_repeats > start_repeat:
-        last = m.num_repeats - 1
-        ckpt.save(last, checkpoint_tree(ts, to_canonical(state, last)),
-                  logger.state_dict(), force=True)
+        save_checkpoint(m.num_repeats - 1)
         ckpt.close()
     t0 = time.perf_counter()
     logger.save_stats(config_to_json(cfg))

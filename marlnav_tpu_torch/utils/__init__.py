@@ -1,1 +1,6 @@
-"""Seeding, transforms, stats and weight files."""
+"""Seeding, transforms, stats and weight files, checkpoints, profiling."""
+
+from marlnav_tpu_torch.utils.profiling import (Throughput, annotate,
+                                               checked_step, trace)
+
+__all__ = ["Throughput", "annotate", "checked_step", "trace"]

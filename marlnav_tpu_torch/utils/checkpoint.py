@@ -10,7 +10,8 @@ logger's host state, and ``restore`` resumes training where it stopped.
 Each checkpoint is one file, ``ckpt_<step>.pt``, written to a temporary
 file in the same directory and moved into place with ``os.replace``: a
 reader never sees half a checkpoint.  The ``max_to_keep`` latest steps are
-kept.
+kept.  Under a data-parallel mesh only rank 0 writes; every rank reads
+the same files on resume.
 """
 
 from __future__ import annotations
@@ -29,20 +30,25 @@ class Checkpointer:
     step, under ``directory``; ``save_interval`` gates ``save`` by step."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 save_interval: int = 1):
+                 save_interval: int = 1, writes: bool = True):
         if max_to_keep < 1 or save_interval < 1:
             raise ValueError(f"need max_to_keep, save_interval >= 1, got "
                              f"{max_to_keep}, {save_interval}")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval = save_interval
-        os.makedirs(self.directory, exist_ok=True)
+        # writes=False (a data-parallel rank other than 0) only reads.
+        self.writes = writes
+        if writes:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
 
     def all_steps(self) -> List[int]:
         """The saved steps, ascending."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in
                       map(_NAME.match, os.listdir(self.directory)) if m)
 
@@ -51,7 +57,7 @@ class Checkpointer:
         """Save ``tree`` and ``host_state`` as ``step`` when ``step`` is a
         multiple of ``save_interval`` or ``force``; ``False`` when not
         saved, also for a step that is already saved."""
-        if not force and step % self.save_interval != 0:
+        if not self.writes or (not force and step % self.save_interval != 0):
             return False
         if step in self.all_steps():
             return False

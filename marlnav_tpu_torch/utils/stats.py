@@ -56,13 +56,18 @@ class StatsLogger:
     (reference models.py:84-104, 145-158, 200-268)."""
 
     def __init__(self, root: Optional[str] = None,
-                 timestamp: Optional[str] = None):
+                 timestamp: Optional[str] = None, writes: bool = True):
         root = root or os.getcwd()
         self.wpath = os.path.join(root, "weights")
         self.ppath = os.path.join(root, "plots")
         self.lpath = os.path.join(root, "logs")
-        for p in (self.wpath, self.ppath, self.lpath):
-            os.makedirs(p, exist_ok=True)
+        # A data-parallel rank other than 0 keeps the logs but writes
+        # nothing (only rank 0 writes, as only process 0 does in the JAX
+        # package's runs).
+        self.writes = writes
+        if writes:
+            for p in (self.wpath, self.ppath, self.lpath):
+                os.makedirs(p, exist_ok=True)
         self.time = timestamp or datetime.now().strftime("%Y%m%d%H%M%S")
         self.logs = {
             "epi_stats": {"trunc": [], "col": [], "tar": []},
@@ -103,6 +108,8 @@ class StatsLogger:
 
     def save_weights(self, train_state) -> None:
         """One ``.npz`` per network in the JAX package's key format."""
+        if not self.writes:
+            return
         for name, module in (("actor", train_state.actor),
                              ("critic", train_state.critic)):
             np.savez(os.path.join(self.wpath, f"{self.time}_{name}.npz"),
@@ -110,6 +117,8 @@ class StatsLogger:
 
     def save_stats(self, params_json: str) -> None:
         """Write all plot/CSV/params artifacts (reference models.py:200-231)."""
+        if not self.writes:
+            return
         t = self.time
         plt = _pyplot()
         if plt is None:

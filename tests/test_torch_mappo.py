@@ -271,8 +271,9 @@ def test_full_repeat_trains(mode):
 
 def test_unported_mappo_options_raise():
     """bf16_updates, the last MAPPOConfig option the port lacked, builds
-    now; the options still unported are the CLI's multi-device flags,
-    which raise before any config is built."""
+    now; the option still unported is the CLI's tensor-parallel flag,
+    which raises before any config is built (--num-data and --multihost
+    are ported: tests/test_torch_data_parallel.py)."""
     from marlnav_tpu_torch.__main__ import build_parser, reject_unported
 
     env = make_env(EnvParams(num_parallel=P), TriangleInitConfig(
@@ -280,6 +281,5 @@ def test_unported_mappo_options_raise():
     cfg = dataclasses.replace(cfgs()[1], bf16_updates=True)
     make_mappo(cfg, env, NormalizerConfig(), ScalerConfig())
     reject_unported(build_parser().parse_args(["--bf16-updates"]))
-    for flag in (["--num-data", "2"], ["--num-model", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            reject_unported(build_parser().parse_args(flag))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        reject_unported(build_parser().parse_args(["--num-model", "2"]))

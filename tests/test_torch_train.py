@@ -83,12 +83,41 @@ def test_cli_fused_updates(tmp_path, monkeypatch, bs):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num-data", "2"], ["--num-model", "2"], ["--multihost"],
-    ["--num-data", "1"], ["--num-model", "4"],
-    ["--multihost", "--num-data", "1"], ["--allow-interpret"]])
+    ["--num-model", "2"], ["--num-model", "4"], ["--allow-interpret"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         cli(TINY + flag)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--num-data", "2"], ["--multihost"], ["--num-data", "1"],
+    ["--multihost", "--num-data", "1"]], ids=lambda f: " ".join(f))
+def test_data_parallel_flags_train(tmp_path, flag):
+    """The data-parallel flags train on the CPU (gloo), in a subprocess
+    with a timeout: --num-data spawns its ranks on this host, --multihost
+    alone initializes from the environment as torchrun sets it (one
+    process here).  One weights pair, finite logs of 2 repeats."""
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "-m", "marlnav_tpu_torch",
+                           *TINY, *flag], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    weights = glob.glob(str(tmp_path / "weights" / "*.npz"))
+    assert len(weights) == 2
+    with np.load(sorted(weights)[0]) as w:
+        assert w["fc1.w"].shape == (12, 50)
+    (log,) = glob.glob(str(tmp_path / "logs" / "*_mean_rews.csv"))
+    rews = [float(v) for v in open(log).read().split()[1:]]
+    assert len(rews) == 2 and np.isfinite(rews).all()
 
 
 def test_parser_matches_jax_package():
