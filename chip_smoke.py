@@ -58,8 +58,12 @@ step); trains the main path with ``--num-data 1`` (phase 18: NCCL at one
 rank, eager and graphed, bit for bit against the runs without it, the
 collectives counted and their cost timed) and on two ranks of this card
 over gloo (phase 19: against one rank, and the sharded bench rollout
-against one-process rollouts of each rank's envs); and times every
-kernel.  Each path's launch
+against one-process rollouts of each rank's envs); trains with
+``--num-model 2`` on gloo ranks of this card (phase 20: a 1 x 2 grid on
+the fused and the autograd routes and at ``-hs 512``, a 2 x 2 grid,
+each against one process, with each rank's launches asserted, the
+collectives of a repeat counted and the eager repeat timed in turns with
+one process); and times every kernel.  Each path's launch
 counts are set to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
 object, the card's name and power limit, and ``{"ok": true, "device":
@@ -381,32 +385,7 @@ P19, T19, ROLL19 = 2048, 100, (16384, 500)
 def phase19_fused(mesh, dev):
     """collect -> actor -> critic on the fused route with injected noise,
     on ``mesh`` (None: one process); the results on the host."""
-    from marlnav_tpu_torch.__main__ import build_parser
-    from marlnav_tpu_torch.algo import make_mappo
-    from marlnav_tpu_torch.config import resolve_run_config
-    from marlnav_tpu_torch.env import make_env
-    from marlnav_tpu_torch.ops import fused_collect as fc
-    from marlnav_tpu_torch.ops.step_math import StepMath
-    from marlnav_tpu_torch.utils.seeding import make_generator
-
-    cfg = resolve_run_config(build_parser().parse_args(
-        ["-np", str(P19), "-bl", str(T19), "-bs", str(T19), "-ne", "5",
-         "-nt", str(P19 * T19), "-se", "0", "--fused-updates"]))
-    env = make_env(cfg.env, cfg.init, dev, mesh=mesh)
-    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler, mesh=mesh)
-    ts, es = mappo.init(make_generator(0, dev))
-    collect = fc.make_fused_collect(cfg.model, cfg.env, cfg.init,
-                                    cfg.normalizer, cfg.scaler, mesh)
-    n_draws = StepMath(cfg.env, cfg.init, cfg.normalizer, cfg.scaler).n_draws
-    noise = torch.rand((T19, n_draws, P19), device=dev,
-                       generator=torch.Generator(dev).manual_seed(19))
-    rows, buf, met = collect(ts, fc.env_state_to_rows(es), 7, noise)
-    ts, al = mappo.train_actor(ts, buf)
-    ts, cl = mappo.train_critic(ts, buf)
-    return {"rows": [x.cpu() for x in rows.fields()], "al": al.cpu(),
-            "cl": cl.cpu(), "mean_rew": float(met.mean_rew),
-            "weights": [q.detach().cpu() for q in
-                        (*ts.actor.parameters(), *ts.critic.parameters())]}
+    return phase20_result(mesh, dev, "fused")
 
 
 def phase19_rollout_inputs(dev):
@@ -440,6 +419,170 @@ def phase19_rank(rank, world, out_dir):
                                       ScalerConfig(), ROLL19[1], mesh)
     final, rewards = roll(rows, actor, 9)
     out["rollout"] = (rewards.cpu(), [x.cpu() for x in final.fields()])
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# Phase 20: --num-model at phase 19's shape over gloo on cuda:0, each
+# grid's cases as (route, hidden size); the eager repeats timed in turns
+# with one process (medians of P20_REPS).
+P20_CASES = {"1x2": [("fused", 50), ("autograd", 50), ("autograd", 512)],
+             "2x2": [("autograd", 50)]}
+P20_REPS = 3
+
+
+def phase20_setup(mesh, dev, route, hidden=50):
+    """Phase 19's configuration at ``-hs hidden`` from seed 0, on ``mesh``
+    (None: one process); returns ``(ts, state, repeat)``, ``repeat()``
+    running collect -> actor -> critic once more on ``state[0]`` and
+    returning its metrics and losses.  ``route`` "fused": the fused collect
+    and updates on injected uniforms (phase 19's); "autograd": the plain
+    collect with a tamed policy (mean head x1e-3, variance bias -20, as
+    tests/test_fused_collect.py tames it: a reassociated head sum cannot
+    steer an env into another collision) and autograd updates."""
+    from marlnav_tpu_torch.__main__ import build_parser
+    from marlnav_tpu_torch.algo import make_mappo
+    from marlnav_tpu_torch.config import resolve_run_config
+    from marlnav_tpu_torch.env import make_env
+    from marlnav_tpu_torch.ops import fused_collect as fc
+    from marlnav_tpu_torch.ops.step_math import StepMath
+    from marlnav_tpu_torch.utils.seeding import make_generator
+
+    fused = route == "fused"
+    cfg = resolve_run_config(build_parser().parse_args(
+        ["-np", str(P19), "-bl", str(T19), "-bs", str(T19), "-ne", "5",
+         "-nt", str(P19 * T19), "-se", "0", "-hs", str(hidden)]
+        + (["--fused-updates"] if fused else [])))
+    env = make_env(cfg.env, cfg.init, dev, mesh=mesh)
+    mappo = make_mappo(cfg.model, env, cfg.normalizer, cfg.scaler, mesh=mesh)
+    generator = make_generator(0, dev)
+    ts, es = mappo.init(generator)
+    if fused:
+        collect = fc.make_fused_collect(cfg.model, cfg.env, cfg.init,
+                                        cfg.normalizer, cfg.scaler, mesh)
+        n_draws = StepMath(cfg.env, cfg.init, cfg.normalizer,
+                           cfg.scaler).n_draws
+        noise = torch.rand((T19, n_draws, P19), device=dev,
+                           generator=torch.Generator(dev).manual_seed(19))
+        state = [fc.env_state_to_rows(es)]
+    else:
+        with torch.no_grad():
+            ts.actor.fc_mu.weight.mul_(1e-3)
+            ts.actor.fc_mu.bias.mul_(1e-3)
+            ts.actor.fc_var.bias.sub_(20.0)
+        state = [es]
+
+    def repeat():
+        if fused:
+            state[0], buf, met = collect(ts, state[0], 7, noise)
+        else:
+            state[0], buf, met = mappo.collect(ts, state[0], generator)
+        _, al = mappo.train_actor(ts, buf)
+        _, cl = mappo.train_critic(ts, buf)
+        return met, al, cl
+
+    return ts, state, repeat
+
+
+def phase20_host(ts, state, route, met, al, cl):
+    """A repeat's results on the host, the networks whole (gathered over
+    the model group: every rank of it calls this)."""
+    from marlnav_tpu_torch.parallel.tensor import gather_networks
+
+    actor, critic = gather_networks([ts.actor, ts.critic])
+    rows = state[0].fields() if route == "fused" else [state[0].states]
+    return {"rows": [x.cpu() for x in rows], "al": al.cpu(),
+            "cl": cl.cpu(), "mean_rew": float(met.mean_rew),
+            "weights": [q.detach().cpu() for q in
+                        (*actor.parameters(), *critic.parameters())]}
+
+
+def phase20_result(mesh, dev, route, hidden=50):
+    """One repeat of ``phase20_setup``'s, on the host."""
+    ts, state, repeat = phase20_setup(mesh, dev, route, hidden)
+    return phase20_host(ts, state, route, *repeat())
+
+
+@contextlib.contextmanager
+def counted_collectives(mesh):
+    """Count ``torch.distributed``'s collectives while inside, by group
+    ("model" for the mesh's model group, else "data") and kind."""
+    import collections
+
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                           "broadcast")}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            group = kwargs.get("group")
+            kind = ("model" if group is not None
+                    and group is mesh.model_group else "data")
+            counts[f"{kind} {name}"] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def phase20_rank(rank, world, out_dir, num_model):
+    """A rank of phase 20: every rank on cuda:0 over gloo, a grid of
+    world / num_model x num_model; each case's first repeat with its
+    kernel launches and collectives counted, and at 1 x 2 the eager
+    repeats timed in turns with one process (on rank 0, the other rank
+    waiting)."""
+    import torch.distributed as dist
+
+    from marlnav_tpu_torch.ops.graphs import kernel_wrappers
+    from marlnav_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(num_model=num_model, device="cuda:0")
+    grid = f"{mesh.num_data}x{num_model}"
+    wrappers = kernel_wrappers()
+    out = {"grid": grid, "data": mesh.data_index, "model": mesh.model_index}
+    for route, hidden in P20_CASES[grid]:
+        ts, state, repeat = phase20_setup(mesh, mesh.device, route, hidden)
+        for fn in wrappers.values():
+            fn.launches = 0
+        with counted_collectives(mesh) as counts:
+            met, al, cl = repeat()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        out[(route, hidden)] = dict(
+            phase20_host(ts, state, route, met, al, cl), launches=launches,
+            collectives=dict(counts))
+    if grid == "1x2":
+        out["timed"] = {}
+        for route in ("fused", "autograd"):
+            mesh_repeat = phase20_setup(mesh, mesh.device, route)[2]
+            one_repeat = (phase20_setup(None, mesh.device, route)[2]
+                          if rank == 0 else None)
+            runs = {"mesh": [], "one": []}
+            for i in range(P20_REPS + 1):  # the first of each warms up
+                if rank == 0:
+                    runs["one"].append(timed(one_repeat, reps=1))
+                dist.barrier()
+                runs["mesh"].append(timed(mesh_repeat, reps=1))
+            out["timed"][route] = {
+                name: {k: statistics.median(r[k] for r in rs[1:])
+                       for k in rs[0]} for name, rs in runs.items() if rs}
+        # One collective's cost: 100 model-group all-reduces of the
+        # actor's head partial at a collect step (P19 x 3 rows of 4) and
+        # of one float, both ranks together.
+        out["all_reduce_100"] = {}
+        for label, shape in (("head partial", (P19 * 3, 4)),
+                             ("scalar", ())):
+            x = torch.zeros(shape, device=mesh.device)
+            dist.barrier()
+            out["all_reduce_100"][label] = timed(
+                lambda: [dist.all_reduce(x, group=mesh.model_group)
+                         for _ in range(100)], reps=3)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -2465,7 +2608,93 @@ def main(out_dir):
           f"of its envs at seed 9 + (rank << 20) bit for bit")
     record["two_ranks_gloo"] = {"max_abs_err": err19,
                                 "launches": [r["launches"] for r in ranks19]}
-    del ranks19, one
+    del ranks19
+
+    # ------------------------------------------------------------------
+    phase("20. --num-model on this card over gloo: 1 x 2 on the fused and "
+          "the autograd routes, 2 x 2 and -hs 512 on the autograd route, "
+          "each against one process")
+    ones = {("fused", 50): one}  # phase 19's one-process run
+    for route, hidden in (("autograd", 50), ("autograd", 512)):
+        ones[(route, hidden)] = phase20_result(None, dev, route, hidden)
+    ranks20 = {}
+    for world in (2, 4):
+        dir20 = os.path.join(out_dir, f"phase20_{world}")
+        os.makedirs(dir20, exist_ok=True)
+        t0 = time.perf_counter()
+        run_local_ranks(world, "gloo", phase20_rank, dir20, 2)
+        ranks20[world] = [torch.load(os.path.join(dir20, f"rank{r}.pt"),
+                                     weights_only=False)
+                          for r in range(world)]
+        print(f"{world} ranks ({ranks20[world][0]['grid']}, ranks 1 .. "
+              f"{world - 1} spawned) over gloo on {dev}: "
+              f"{time.perf_counter() - t0:.1f} s")
+    err20 = {}
+    for world, ranks in ranks20.items():
+        grid = ranks[0]["grid"]
+        for route, hidden in P20_CASES[grid]:
+            want = ones[(route, hidden)]
+            label = f"{grid} {route} -hs {hidden}"
+            err = {}
+            for rank, r in enumerate(ranks):
+                got = r[(route, hidden)]
+                assert got["launches"] == (expect(
+                    fused_collect=1, fused_actor_grad=5, fused_critic_grad=5,
+                    returns=1) if route == "fused" else expect(returns=1)), (
+                    label, rank, got["launches"])
+                np.testing.assert_allclose(got["mean_rew"], want["mean_rew"],
+                                           rtol=1e-5, err_msg=label)
+                for key in ("al", "cl"):
+                    torch.testing.assert_close(got[key], want[key],
+                                               rtol=1e-4, atol=1e-5)
+                    err[key] = max(err.get(key, 0.0),
+                                   (got[key] - want[key]).abs().max().item())
+                for x, y in zip(got["weights"], want["weights"]):
+                    torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+                    err["weights"] = max(err.get("weights", 0.0),
+                                         (x - y).abs().max().item())
+                # The ranks of a model group step the same envs with the
+                # same draws: their states are equal bit for bit.
+                first = ranks[rank - r["model"]][(route, hidden)]
+                assert all(torch.equal(x, y) for x, y in
+                           zip(got["rows"], first["rows"])), (label, rank)
+            # The data indices' envs together are one process's.
+            for i, x in enumerate(want["rows"]):
+                cat = torch.cat([r[(route, hidden)]["rows"][i] for r in ranks
+                                 if r["model"] == 0], -1 if route == "fused"
+                                else 0)
+                torch.testing.assert_close(cat, x, rtol=1e-5, atol=1e-3)
+                err["rows"] = max(err.get("rows", 0.0),
+                                  (cat - x).abs().max().item())
+            err20[label] = err
+            print(f"{label}: every rank's kernel launches "
+                  f"{ranks[0][(route, hidden)]['launches']}; largest "
+                  f"differences from one process {err} (rows rtol 1e-5 / "
+                  f"atol 1e-3; losses and weights rtol 1e-4 / atol 1e-5); "
+                  f"collectives of the repeat (rank 0): "
+                  f"{ranks[0][(route, hidden)]['collectives']}")
+    timed20 = ranks20[2][0]["timed"]
+    for route, tm_ in timed20.items():
+        now, before = tm_["mesh"], tm_["one"]
+        print(f"eager {route} repeat at 1 x 2 over gloo (rank 0): host wall "
+              f"{now['wall']:.3f} ms, device {now['device']:.3f}; one "
+              f"process, in turns: wall {before['wall']:.3f}, device "
+              f"{before['device']:.3f} ({now['wall'] / before['wall']:.2f}x "
+              f"the wall)")
+    for label, tm_ in ranks20[2][0]["all_reduce_100"].items():
+        print(f"100 model-group all-reduces of the {label} over gloo at 1 x "
+              f"2 (rank 0): host wall {tm_['wall']:.3f} ms, "
+              f"{tm_['wall'] * 10:.1f} us each")
+    record["num_model_gloo"] = {
+        "max_abs_err": err20, "timed": timed20,
+        "all_reduce_100": ranks20[2][0]["all_reduce_100"],
+        "collectives": {f"{r['grid']} {k[0]} -hs {k[1]}": r[k]["collectives"]
+                        for ranks in ranks20.values() for r in ranks[:1]
+                        for k in P20_CASES[r["grid"]]},
+        "launches": {f"{r['grid']} {k[0]} -hs {k[1]}": r[k]["launches"]
+                     for ranks in ranks20.values() for r in ranks[:1]
+                     for k in P20_CASES[r["grid"]]}}
+    del ranks20, ones, one
     print(f"(phase took {time.perf_counter() - _PHASE_START[0]:.1f} s)")
 
     def shape_key(key):

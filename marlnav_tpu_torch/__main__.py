@@ -19,29 +19,34 @@ dispatches them):
   ``--save-animation <file>``.
 
 ``cli`` returns the mode's result: ``train()``'s tuple, the series, or
-the ``Animation``.  ``--num-model`` (tensor parallelism) is not ported yet
-and raises ``NotImplementedError`` naming ROADMAP.md instead of being
-ignored.  ``--allow-interpret`` has no counterpart (the port has no kernel
-interpreter: ``--device cpu`` runs the kernels' plain PyTorch versions)
-and raises as well.
+the ``Animation``.  ``--allow-interpret`` has no counterpart (the port has
+no kernel interpreter: ``--device cpu`` runs the kernels' plain PyTorch
+versions) and raises ``NotImplementedError`` instead of being ignored.
 
-Data-parallel training (marlnav_tpu/__main__.py:148-174), over
-``torch.distributed``, NCCL on the card and gloo on ``--device cpu``:
+Data- and tensor-parallel training (marlnav_tpu/__main__.py:148-178), over
+``torch.distributed``, NCCL on the card and gloo on ``--device cpu``, on a
+grid of ``--num-data`` x ``--num-model`` ranks (``parallel.make_mesh``;
+``--num-model`` splits the networks' hidden units, ``parallel.tensor``):
 
 * ``--multihost``, or a process group that already exists: one process a
   rank.  ``--multihost`` initializes the group from
   ``--coordinator-address`` (``tcp://``), ``--num-processes`` and
   ``--process-id``, or from the environment (``env://``, as ``torchrun``
-  sets it).  ``--num-data`` must equal the world size (its default).
-* otherwise ``--num-data N``: the calling process is rank 0 and spawns
-  ranks 1 .. N-1 on this host (``torch.multiprocessing``, start method
-  ``spawn``, a ``file://`` rendezvous in a temporary directory), as one
-  JAX process drives N local devices; rank r takes ``cuda:r``.
+  sets it).  ``--num-data`` defaults to the world size // ``--num-model``.
+* otherwise: the calling process is rank 0 and spawns ranks 1 .. N-1 on
+  this host (``torch.multiprocessing``, start method ``spawn``, a
+  ``file://`` rendezvous in a temporary directory), as one JAX process
+  drives N local devices; rank r takes ``cuda:r``.  N is ``--num-data`` x
+  ``--num-model``; without ``--num-data``, the visible cards (one for
+  ``--device cpu``) // ``--num-model`` data indices, and a ``ValueError``
+  where that is 0 (the JAX package would build an empty mesh).
 
 ``cli`` returns rank 0's result; only rank 0 writes weights, logs and
 checkpoints.  A rank that fails makes the run fail.  With ``--num-data 1``
-the mesh and its collectives exist at world size 1; without ``--num-data``
-or ``--multihost`` there is no mesh.
+the mesh and its collectives exist at world size 1; without
+``--num-data``, ``--num-model`` > 1 or ``--multihost`` there is no mesh.
+A hidden size that does not split over ``--num-model`` raises
+``ValueError`` before any rank starts.
 
 ``--fused-collect`` and ``--fused-updates`` route the rollout and the PPO
 gradients through the port's CUDA kernels (ops/csrc/); on ``--device cpu``
@@ -117,7 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="data-parallel ranks (without --multihost: "
                              "spawned on this host, one a card)")
     parser.add_argument("--num-model", type=int, default=1,
-                        help="tensor-parallel mesh axis (not ported)")
+                        help="tensor-parallel mesh axis: the networks' "
+                             "hidden units split over this many ranks")
     parser.add_argument("--multihost", action="store_true",
                         help="one process a rank: initialize "
                              "torch.distributed from the next three flags "
@@ -177,19 +183,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# (flag, is-it-set) for every flag whose feature is not ported yet.
-_UNPORTED = (
-    ("--num-model", lambda a: a.num_model != 1),
-)
-
-
 def reject_unported(args) -> None:
-    """Raise for any flag whose feature the port does not have yet."""
-    for flag, is_set in _UNPORTED:
-        if is_set(args):
-            raise NotImplementedError(
-                f"{flag} is not ported to marlnav_tpu_torch yet "
-                "(see ROADMAP.md); run python -m marlnav_tpu for it")
+    """Raise for the JAX package's flag that has no counterpart here."""
     if args.allow_interpret:
         raise NotImplementedError(
             "--allow-interpret has no counterpart in marlnav_tpu_torch: it "
@@ -200,7 +195,7 @@ def reject_unported(args) -> None:
 def main(cfg: RunConfig, mode: str, args=None, mesh=None):
     """Mode dispatch (marlnav_tpu/__main__.py:148-210, reference
     __main__.py:12-40); returns the mode's result.  ``mesh`` (a
-    ``parallel.DataMesh``) makes the training data-parallel."""
+    ``parallel.Mesh``) makes the training data- and tensor-parallel."""
     device = getattr(args, "device", "cuda") if args is not None else "cuda"
     if mode == "training":
         from marlnav_tpu_torch.train import train
@@ -247,23 +242,46 @@ def train_rank(cfg: RunConfig, args, local_rank=None, local_world=None):
     return main(cfg, "training", args, mesh)
 
 
+def local_ranks(args) -> int:
+    """The ranks a run without ``--multihost`` spawns on this host:
+    ``--num-data`` x ``--num-model``, ``--num-data`` defaulting to the
+    visible cards (one for the CPU) // ``--num-model``."""
+    import torch
+
+    num_data = args.num_data
+    if num_data is None:
+        visible = (torch.cuda.device_count()
+                   if torch.device(args.device).type == "cuda" else 1)
+        num_data = visible // args.num_model
+        if num_data == 0:
+            raise ValueError(
+                f"--num-model {args.num_model} leaves no data index: "
+                f"{visible} visible device(s) // {args.num_model} is 0; "
+                f"pass --num-data (ranks are --num-data x --num-model)")
+    return num_data * args.num_model
+
+
 def train_data_parallel(cfg: RunConfig, args):
-    """Data-parallel training as the module docstring sets out; returns
-    this process's (rank 0's, where it spawns the others) ``train``
-    result."""
+    """Data- and tensor-parallel training as the module docstring sets
+    out; returns this process's (rank 0's, where it spawns the others)
+    ``train`` result."""
     import torch.distributed as dist
 
     from marlnav_tpu_torch.parallel import default_backend, init_distributed
     from marlnav_tpu_torch.parallel.launch import (cli_training_rank,
                                                    run_local_ranks)
+    from marlnav_tpu_torch.parallel.tensor import check_split
     from marlnav_tpu_torch.utils.seeding import resolve_device
 
     resolve_device(args.device)  # raises where CUDA is asked for but absent
+    if args.num_model < 1:
+        raise ValueError(f"--num-model must be >= 1, got {args.num_model}")
+    check_split(cfg.model.hidden_size, args.num_model)
     backend = default_backend(args.device)
     if dist.is_initialized():
         return train_rank(cfg, args)
     if not args.multihost:
-        return run_local_ranks(args.num_data, backend, cli_training_rank,
+        return run_local_ranks(local_ranks(args), backend, cli_training_rank,
                                cfg, args)
     init_distributed(args.coordinator_address, args.num_processes,
                      args.process_id, backend)
@@ -285,7 +303,8 @@ def cli(argv=None):
            else resolve_run_config(args))
     mode = ("rendering" if args.rendering
             else "reward_check" if args.reward_check else "training")
-    if mode == "training" and (args.num_data is not None or args.multihost):
+    if mode == "training" and (args.num_data is not None
+                               or args.num_model > 1 or args.multihost):
         return train_data_parallel(cfg, args)
     return main(cfg, mode, args)
 

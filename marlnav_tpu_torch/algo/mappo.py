@@ -35,19 +35,33 @@ goes through its affine operator, or, with ``uncollapsed_actor``, through
 the network itself (the JAX package's "packed" and "undilated" kernels;
 ``train.py`` decides when).
 
-Under a data-parallel mesh (``make_mappo(..., mesh=...)``, a
-``parallel.DataMesh``; marlnav_tpu/algo/mappo.py:292-305) each rank
-collects and trains on its share of the envs with replicated networks,
-and what the JAX package's partitioner makes global is reduced over the
-ranks: the returns normalization (global mean, then the global sum of
-squared deviations over N - 1), the GAE ``mean_rew``, the episode
-counters, the faithful advantage pairing (``pair_rows_sharded``, once a
-phase), and each minibatch's loss and gradients (one sum all-reduce of a
-flat buffer a step; shards are equal, so the global mean is the ranks'
-mean).  The plain collect draws its action noise at the global shape and
-keeps its rows (``DiagGaussian.sample``'s ``shard``), so a run over N
-ranks equals the run without a mesh up to the order of its sums; at one
-rank it equals it bit for bit.
+Under a mesh (``make_mappo(..., mesh=...)``, a ``parallel.Mesh``;
+marlnav_tpu/algo/mappo.py:292-305) each data index collects and trains
+on its share of the envs, and what the JAX package's partitioner makes
+global is reduced over the data group: the returns normalization (global
+mean, then the global sum of squared deviations over N - 1), the GAE
+``mean_rew``, the episode counters, the faithful advantage pairing
+(``pair_rows_sharded``, once a phase), and each minibatch's loss and
+gradients (one sum all-reduce of a flat buffer a step; shards are equal,
+so the global mean is the data indices' mean).  The plain collect draws
+its action noise at the global shape and keeps its rows
+(``DiagGaussian.sample``'s ``shard``), so a run over N data indices
+equals the run without a mesh up to the order of its sums; at one it
+equals it bit for bit.
+
+With ``num_model`` > 1 (tensor parallelism, marlnav_tpu/train.py:82-86)
+``init`` keeps each rank's hidden units of the whole networks
+(``parallel.tensor.shard_network``) before Adam is built, so Adam runs
+on the shards.  The ranks of a model group step the same envs with the
+same draws.  On the autograd route the networks' forwards sum their
+heads over the model group (``models/networks.py``), each rank's
+gradients are its shards', and ``_mean_over_ranks`` averages them over
+the data group only.  The kernel routes take whole weights, as the JAX
+package's ``shard_map`` phases take them replicated
+(marlnav_tpu/algo/mappo.py:473-483): each minibatch step gathers the
+network over the model group (one all-gather: Adam changes the shards at
+every step), runs the kernel, sums its flat sums over the data group,
+and hands each rank its shard of the gradients.
 
 ``bf16_updates`` rounds the update products' operands to bf16 (float32
 sums) on every route, where the JAX route it stands for rounds them: the
@@ -74,6 +88,8 @@ from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
 from marlnav_tpu_torch.models import Actor, Critic, DiagGaussian
 from marlnav_tpu_torch.parallel.sharding import (all_gather_envs,
                                                  all_reduce_sum)
+from marlnav_tpu_torch.parallel.tensor import (gather_networks,
+                                               shard_network, shard_tensor)
 from marlnav_tpu_torch.utils.transforms import (make_action_scaler,
                                                 make_obs_normalizer)
 
@@ -133,7 +149,7 @@ def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
     mean = torch.mean(x)
     if mesh is None:
         return mean
-    return all_reduce_sum(mean, mesh) / mesh.world
+    return all_reduce_sum(mean, mesh) / mesh.num_data
 
 
 def _sample_std(x: torch.Tensor, mean: torch.Tensor,
@@ -143,7 +159,7 @@ def _sample_std(x: torch.Tensor, mean: torch.Tensor,
     ``mean``."""
     squares, n = torch.sum((x - mean) ** 2), x.numel()
     if mesh is not None:
-        squares, n = all_reduce_sum(squares, mesh), n * mesh.world
+        squares, n = all_reduce_sum(squares, mesh), n * mesh.num_data
     return torch.sqrt(squares / (n - 1))
 
 
@@ -237,9 +253,9 @@ def pair_rows_sharded(d: torch.Tensor, num_agents: int, faithful: bool,
     p], which the rank holds for its own rows.  The faithful pairing is
     the reference's flat tile over the global (size*P,) vector: global row
     j = (t*P + p)*A + a reads d_flat[j mod size*P], across shard
-    boundaries, so d is all-gathered and the rank takes its own rows'
-    entries.  Returns the rank's (size*P_local*A,) advantages in its local
-    (t, p_local, a) row order."""
+    boundaries, so d is all-gathered over the data group and the rank
+    takes its own rows' entries.  Returns the rank's (size*P_local*A,)
+    advantages in its local (t, p_local, a) row order."""
     if not faithful:
         return torch.repeat_interleave(d.reshape(-1), num_agents)
     size, p_local = d.shape
@@ -247,7 +263,7 @@ def pair_rows_sharded(d: torch.Tensor, num_agents: int, faithful: bool,
     p_global = d_global.shape[1]
     dev = d.device
     j = ((torch.arange(size, device=dev)[:, None, None] * p_global
-          + (mesh.rank * p_local
+          + (mesh.data_index * p_local
              + torch.arange(p_local, device=dev))[None, :, None]) * num_agents
          + torch.arange(num_agents, device=dev)[None, None, :])
     return d_global.reshape(-1)[j.reshape(-1) % (size * p_global)]
@@ -334,13 +350,14 @@ def global_stats(stats: EpisodeStats, mesh=None) -> EpisodeStats:
 
 
 def _mean_over_ranks(loss: torch.Tensor, params, mesh) -> torch.Tensor:
-    """Average a minibatch's loss and its parameters' gradients over the
-    ranks in one all-reduce of a flat buffer; the gradients become views of
-    it.  Returns the averaged loss."""
+    """Average a minibatch's loss and its parameters' gradients (this
+    rank's shards under tensor parallelism) over the data group in one
+    all-reduce of a flat buffer; the gradients become views of it.
+    Returns the averaged loss."""
     params = list(params)
     flat = torch.cat([loss.reshape(1)]
                      + [q.grad.reshape(-1) for q in params])
-    flat = all_reduce_sum(flat, mesh) / mesh.world
+    flat = all_reduce_sum(flat, mesh) / mesh.num_data
     start = 1
     for q in params:
         q.grad = flat[start:start + q.numel()].view_as(q)
@@ -362,13 +379,13 @@ def make_adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
 
 
 def local_config(cfg: MAPPOConfig, mesh) -> MAPPOConfig:
-    """``cfg`` as one rank of ``mesh`` sees it: its share of the envs and
-    of ``num_total``, so ``num_repeats`` stays the run's."""
+    """``cfg`` as one rank of ``mesh`` sees it: its data index's share of
+    the envs and of ``num_total``, so ``num_repeats`` stays the run's."""
     if mesh is None:
         return cfg
     _, count = mesh.env_slice(cfg.num_parallel)
     return dataclasses.replace(cfg, num_parallel=count,
-                               num_total=cfg.num_total // mesh.world)
+                               num_total=cfg.num_total // mesh.num_data)
 
 
 def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
@@ -380,7 +397,7 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
     affine operator, or through the network itself where
     ``uncollapsed_actor``; with ``cfg.bf16_updates`` too, the affine one
     rounds as the JAX package's tiled kernel where ``tiled_actor``, else
-    as its staged one.  With a ``mesh`` (``parallel.DataMesh``) ``cfg``
+    as its staged one.  With a ``mesh`` (``parallel.Mesh``) ``cfg``
     is the whole run's and ``env`` this rank's (``make_env(...,
     mesh=mesh)``); the bundle's ``cfg`` is the rank's
     (``local_config``)."""
@@ -396,13 +413,15 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
 
     def init(generator: torch.Generator):
         """Networks drawn from a CPU generator seeded from ``generator``'s
-        seed (so CPU and CUDA runs start from the same weights); the env
-        draws from ``generator`` itself."""
+        seed (so CPU and CUDA runs start from the same weights), each
+        rank's hidden units kept under tensor parallelism; the env draws
+        from ``generator`` itself."""
         g_cpu = torch.Generator().manual_seed(generator.initial_seed())
-        actor = Actor(cfg.obs_size, cfg.hidden_size, cfg.action_size,
-                      generator=g_cpu).to(device)
-        critic = Critic(cfg.obs_size, a, cfg.hidden_size,
-                        generator=g_cpu).to(device)
+        actor = shard_network(Actor(cfg.obs_size, cfg.hidden_size,
+                                    cfg.action_size, generator=g_cpu)
+                              .to(device), mesh)
+        critic = shard_network(Critic(cfg.obs_size, a, cfg.hidden_size,
+                                      generator=g_cpu).to(device), mesh)
         ts = TrainState(actor, critic, make_adam(actor, cfg.lr),
                         make_adam(critic, cfg.lr))
         return ts, env.init(generator)
@@ -453,12 +472,24 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
         from marlnav_tpu_torch.ops.fused_update import (
             actor_grad, actor_grad_uncollapsed, critic_grad)
 
+        def sharded(step):
+            """``step`` on the whole network, its gradients cut to this
+            rank's shards (itself without tensor parallelism)."""
+            def run(m, mb, staged):
+                (whole,) = gather_networks([m])
+                loss, grads = step(whole, mb, staged)
+                return loss, {k: shard_tensor(k, g, mesh)
+                              for k, g in grads.items()}
+            return run
+
         # (module, minibatch, staged) -> (loss, grads by parameter name)
+        @sharded
         def actor_step(m, mb, adv):
             if uncollapsed_actor:
                 return actor_grad_uncollapsed(m, mb, adv, cfg, mesh)
             return actor_grad(m, mb, adv, cfg, tiled_actor, mesh)
 
+        @sharded
         def critic_step(m, mb, _):
             return critic_grad(m, mb, cfg, mesh)
     else:

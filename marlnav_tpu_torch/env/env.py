@@ -81,9 +81,9 @@ def make_env(params: EnvParams, init_cfg, device="cuda", *,
     selects the reset distribution (triangle or mock), ``sampler_cfg`` the
     scripted actions of ``Env.sample_actions`` (None: a policy acts).
     ``device`` defaults to CUDA and raises when CUDA is absent; pass
-    ``"cpu"`` to run on the CPU.  With a ``parallel.DataMesh`` the env
-    holds this rank's share of ``params.num_parallel`` envs, on the mesh's
-    device."""
+    ``"cpu"`` to run on the CPU.  With a ``parallel.Mesh`` the env holds
+    this rank's data index's share of ``params.num_parallel`` envs, on the
+    mesh's device."""
     device = resolve_device(device) if mesh is None else mesh.device
     init_fn = make_initializer(init_cfg, device)
     others_idx = geometry.others_indices(params.num_agents, device)

@@ -13,6 +13,23 @@ Initialization: orthogonal weights (reference models.py:21-25, 46-49) and
 uniform(-1/sqrt(fan_in), +1/sqrt(fan_in)) biases, drawn from an explicit
 generator.
 
+Tensor parallelism (``--num-model``; marlnav_tpu/parallel/sharding.py:
+64-94): a network whose ``model_group`` is set holds only its rank's
+hidden units (``parallel.tensor.shard_network``).  Its ``fc1`` is
+column-parallel, a local ``F.linear`` on those units with no collective;
+its heads are row-parallel, each the local partial ``h_m W_mᵀ``, summed
+over the model group by one all-reduce for all heads together (the
+actor's (N, 4) partial of both heads), then the replicated bias.  The
+all-reduce is ``_SumOverGroup``, whose gradient passes through unchanged:
+every rank of the group computes the same loss from the summed output, so
+each holds the whole output gradient, and its local weight gradients are
+the shards of the whole ones.  The JAX package's other collective, the
+all-reduce of ``fc1``'s input gradient, never fires here: the
+observations take no gradient.  ``compute_dtype`` rounds each operand as
+``_linear`` does, the partials are float32 sums of the rounded products,
+and they are summed over the group in float32.  Without a
+``model_group`` the networks run as above, unsharded.
+
 Weights interchange with the JAX package: the JAX ``Dense`` stores ``w`` as
 (in, out) and ``nn.Linear.weight`` is (out, in).  ``from_jax_params`` and
 ``to_jax_params`` convert; ``flat_params`` / ``load_flat_params`` use the
@@ -27,6 +44,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -69,6 +87,38 @@ def _linear(x, layer: nn.Linear, compute_dtype):
                     _rounded(layer.weight, compute_dtype), layer.bias)
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """``x`` summed over a process group (an all-reduce in the forward);
+    the gradient passes through unchanged, the same on every rank of the
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        total = x.clone()
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _row_parallel(h, heads, compute_dtype, group):
+    """Each head ``layer(h)`` of a row-parallel split: this rank's partial
+    products of every head in one (N, sum of outputs) tensor, summed over
+    ``group`` by one all-reduce, then each head's bias."""
+    partial = torch.cat([F.linear(_rounded(h, compute_dtype),
+                                  _rounded(layer.weight, compute_dtype))
+                         for layer in heads], -1)
+    total = _SumOverGroup.apply(partial, group)
+    out, start = [], 0
+    for layer in heads:
+        n = layer.weight.shape[0]
+        out.append(total[:, start:start + n] + layer.bias)
+        start += n
+    return out
+
+
 class Actor(nn.Module):
     """obs (..., A, obs_size) -> (mean, var), each (...*A, action_size);
     ``var`` is the covariance diagonal (see distributions.py).
@@ -76,7 +126,10 @@ class Actor(nn.Module):
     ``compute_dtype=torch.bfloat16`` (``--bf16-updates``) runs as the JAX
     package's ``actor_apply(..., compute_dtype)``: the products' operands
     rounded to bf16, the products summed in float32 (TF32 stays off), the
-    bias float32, the hidden activations rounded to bf16."""
+    bias float32, the hidden activations rounded to bf16.  ``model_group``:
+    see the module docstring."""
+
+    model_group: Optional[dist.ProcessGroup] = None
 
     def __init__(self, obs_size: int, hidden_size: int, action_size: int = 2,
                  generator: Optional[torch.Generator] = None):
@@ -90,6 +143,10 @@ class Actor(nn.Module):
         x = obs.reshape(-1, obs.shape[-1])
         # NB: no activation (reference models.py:29)
         h = _linear(x, self.fc1, compute_dtype)
+        if self.model_group is not None:
+            mu, var = _row_parallel(h, (self.fc_mu, self.fc_var),
+                                    compute_dtype, self.model_group)
+            return torch.tanh(mu), F.softplus(var)
         return (torch.tanh(_linear(h, self.fc_mu, compute_dtype)),
                 F.softplus(_linear(h, self.fc_var, compute_dtype)))
 
@@ -97,7 +154,9 @@ class Actor(nn.Module):
 class Critic(nn.Module):
     """obs (N, A, obs_size) -> values (N, 1): agents fold into the feature
     axis — the centralized critic (reference models.py:44, 51-55).
-    ``compute_dtype`` as in ``Actor``."""
+    ``compute_dtype`` and ``model_group`` as in ``Actor``."""
+
+    model_group: Optional[dist.ProcessGroup] = None
 
     def __init__(self, obs_size: int, num_agents: int, hidden_size: int,
                  generator: Optional[torch.Generator] = None):
@@ -109,16 +168,40 @@ class Critic(nn.Module):
     def forward(self, obs: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         x = obs.reshape(obs.shape[0], -1)
         h = torch.relu(_linear(x, self.fc1, compute_dtype))
+        if self.model_group is not None:
+            return _row_parallel(h, (self.fc2,), compute_dtype,
+                                 self.model_group)[0]
         return _linear(h, self.fc2, compute_dtype)
+
+
+def with_tensors(module: nn.Module, tensors: Dict[str, torch.Tensor],
+                 model_group=None) -> nn.Module:
+    """A network of ``module``'s class whose parameters are ``tensors``
+    (keyed as ``module.named_parameters()``, held as they are: no copy, no
+    initialization), with ``model_group``."""
+    out = type(module).__new__(type(module))
+    nn.Module.__init__(out)
+    for name in _layers(module):
+        layer = nn.Linear.__new__(nn.Linear)
+        nn.Module.__init__(layer)
+        layer.weight = nn.Parameter(tensors[f"{name}.weight"],
+                                    requires_grad=False)
+        layer.bias = nn.Parameter(tensors[f"{name}.bias"],
+                                  requires_grad=False)
+        layer.out_features, layer.in_features = layer.weight.shape
+        setattr(out, name, layer)
+    out.model_group = model_group
+    return out
+
+
+def _layers(module: nn.Module) -> Dict[str, nn.Linear]:
+    return {name: m for name, m in module.named_children()
+            if isinstance(m, nn.Linear)}
 
 
 # ----------------------------------------------------------------------
 # Weight interchange with the JAX package
 # ----------------------------------------------------------------------
-
-def _layers(module: nn.Module) -> Dict[str, nn.Linear]:
-    return {name: m for name, m in module.named_children()
-            if isinstance(m, nn.Linear)}
 
 
 def flat_params(module: nn.Module) -> Dict[str, np.ndarray]:

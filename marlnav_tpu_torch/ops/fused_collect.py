@@ -19,11 +19,15 @@ Nothing in the collect reads the device back, so a CUDA graph can hold
 it; the kernel's seed lives in device memory for that reason.
 
 Data parallelism (``make_fused_collect(..., mesh=...)``; marlnav_tpu/ops/
-fused_collect.py:375-399): each rank runs the kernel on its own envs with
-the seed ``seed + (rank << 20)`` (int32 arithmetic, as the JAX package's
-shards), and the normalization of the returns, the GAE ``mean_rew`` and
-the episode counters are reduced over the ranks.  The kernel takes any P,
-so P needs only to split over the ranks.
+fused_collect.py:375-399): each rank runs the kernel on its data index's
+envs with the seed ``seed + (data index << 20)`` (int32 arithmetic, as the
+JAX package's shards offset by ``axis_index('data')``, so the ranks of a
+model group draw the same numbers), and the normalization of the returns,
+the GAE ``mean_rew`` and the episode counters are reduced over the data
+group.  The kernel takes any P, so P needs only to split over the data
+size.  Under tensor parallelism a collect gathers the whole actor and
+critic over the model group once (one all-gather): the kernel takes the
+whole actor's operator, the tail the whole critic.
 
 Routing, with no fallback: CPU tensors run the plain version
 ``collect_rows_reference`` (uniforms drawn from a generator seeded with
@@ -57,6 +61,7 @@ from marlnav_tpu_torch.env.env import compute_observations
 from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
 from marlnav_tpu_torch.ops.step_math import StepMath, box_muller
 from marlnav_tpu_torch.parallel.sharding import all_reduce_sum
+from marlnav_tpu_torch.parallel.tensor import gather_networks
 from marlnav_tpu_torch.utils.seeding import make_generator
 from marlnav_tpu_torch.utils.transforms import make_obs_normalizer
 
@@ -462,9 +467,9 @@ def _check_launch(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
 
 
 def shard_seed(seed, rank: int):
-    """Rank ``rank``'s kernel seed: ``seed + (rank << 20)`` in int32
+    """Data index ``rank``'s kernel seed: ``seed + (rank << 20)`` in int32
     arithmetic (marlnav_tpu/ops/fused_collect.py:375), for an int or for
-    one int32 on the device; ``seed`` itself at rank 0."""
+    one int32 on the device; ``seed`` itself at data index 0."""
     if rank == 0:
         return seed
     if torch.is_tensor(seed):
@@ -567,10 +572,10 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
     RowState layout.  ``seed`` is the kernel's Philox key, an int or one
     int32 on the rows' device (``seed_tensor``); ``noise`` optionally
     injects the uniforms (T, n_draws, P).  With a ``mesh``
-    (``parallel.DataMesh``) ``rows`` are this rank's envs, the kernel runs
-    at ``shard_seed(seed, rank)``, ``noise`` is the whole run's (T,
+    (``parallel.Mesh``) ``rows`` are this rank's envs, the kernel runs at
+    ``shard_seed(seed, data index)``, ``noise`` is the whole run's (T,
     n_draws, P) and the rank takes its columns, and the buffer's returns
-    and the metrics are normalized and counted over every rank."""
+    and the metrics are normalized and counted over the data group."""
     if not isinstance(init_cfg, TriangleInitConfig):
         raise NotImplementedError(
             "the fused collect covers the triangle scenario family; use "
@@ -578,16 +583,20 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
     sm = StepMath(env_params, init_cfg, normalizer_cfg, scaler_cfg)
     num_steps, a, f = cfg.buffer_len, sm.a, sm.obs_size
 
-    def run_kernel(ts, rows: RowState, seed, noise=None):
-        """The kernel alone (no critic / returns tail)."""
-        a_comp, c_comp = _affine_compose(ts.actor)
+    def kernel(actor, rows: RowState, seed, noise):
+        a_comp, c_comp = _affine_compose(actor)
         if mesh is not None:
-            seed = shard_seed(seed, mesh.rank)
+            seed = shard_seed(seed, mesh.data_index)
             if noise is not None:
                 offset, count = mesh.env_slice(noise.shape[-1])
                 noise = noise[..., offset:offset + count].contiguous()
         return fused_collect_rows(sm, rows, a_comp, c_comp, seed, num_steps,
                                   noise)
+
+    def run_kernel(ts, rows: RowState, seed, noise=None):
+        """The kernel alone (no critic / returns tail)."""
+        (actor,) = gather_networks([ts.actor])
+        return kernel(actor, rows, seed, noise)
 
     # device -> (others' indices, obs normalizer), built at a device's
     # first collect: no copy from the host in a later (captured) one.
@@ -607,15 +616,16 @@ def make_fused_collect(cfg: MAPPOConfig, env_params, init_cfg,
 
     @torch.no_grad()
     def collect(ts, rows: RowState, seed, noise=None):
-        out = run_kernel(ts, rows, seed, noise)
+        actor, critic = gather_networks([ts.actor, ts.critic])
+        out = kernel(actor, rows, seed, noise)
         num_envs = rows.px.shape[-1]
         # Centralized critic on the emitted obs: one pass over (T*P) rows.
-        values = ts.critic(out.obs.reshape(num_steps * num_envs, a, f)
-                           ).reshape(num_steps, num_envs, 1)
+        values = critic(out.obs.reshape(num_steps * num_envs, a, f)
+                        ).reshape(num_steps, num_envs, 1)
         if cfg.use_gae:
             mean_rew = global_mean(discounted_returns(out.rewards, out.done,
                                                       cfg.gamma), mesh)
-            last_value = ts.critic(final_obs(out.rows))[:, 0]
+            last_value = critic(final_obs(out.rows))[:, 0]
             adv = gae_advantages(out.rewards, out.done, values[..., 0],
                                  last_value, cfg.gamma, cfg.gae_lambda)
             rets = adv + values[..., 0]

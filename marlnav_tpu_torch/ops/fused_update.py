@@ -55,10 +55,12 @@ mode, the kernel's bf16 variant).  Each wrapper counts its launches in
 
 Data parallelism (marlnav_tpu/ops/fused_update.py:544-548,
 fused_update_tiled.py:244-245, 369-370): each wrapper's ``mesh`` sums the
-kernel's flat vector of sums, the loss with it, over the ranks in one
-all-reduce before it is cut into the gradients, and the minibatch
-functions scale by the global row count, ``n_local * world``.  At one
-rank this is the run without a mesh bit for bit.
+kernel's flat vector of sums, the loss with it, over the data group in
+one all-reduce before it is cut into the gradients, and the minibatch
+functions scale by the global row count, ``n_local * num_data``.  At one
+rank this is the run without a mesh bit for bit.  The kernels take whole
+weights: under tensor parallelism ``algo.mappo`` gathers them first and
+cuts the gradients to each rank's shards after.
 """
 
 from __future__ import annotations
@@ -229,7 +231,7 @@ def actor_grad_sums(a_comp, c_comp, obs, actions, log_probs, adv,
     objective over all rows (``update_math.actor_grad_sums_reference``).
     obs (N, F), actions (N, 2), log_probs and adv (N,).  ``bf16``: None,
     or the route's rounding, "tiled" or "staged".  ``mesh``: the sums over
-    every rank's rows."""
+    every data index's rows."""
     if bf16 not in (None, *AFFINE_BF16):
         raise ValueError(f"affine actor: bf16 rounding {bf16!r} not in "
                          f"{AFFINE_BF16}")
@@ -274,7 +276,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
     the clipped-value loss over all rows
     (``update_math.critic_grad_sums_reference``).  obs (N, In), vold and
     ret (N,); weights in ``nn.Linear`` layout.  ``mesh``: the sums over
-    every rank's rows."""
+    every data index's rows."""
     n, n_in = obs.shape
     h = w1.shape[0]
     shapes = ((), (h, n_in), (h,), (1, h), (1,))
@@ -321,7 +323,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
     itself over all rows
     (``update_math.actor_grad_sums_uncollapsed_reference``).  obs (N, F),
     actions (N, 2), log_probs and adv (N,); weights in ``nn.Linear``
-    layout.  ``mesh``: the sums over every rank's rows."""
+    layout.  ``mesh``: the sums over every data index's rows."""
     n, f = obs.shape
     h = w1.shape[0]
     shapes = ((), (h, f), (h,), (2, h), (2,), (2, h), (2,))
@@ -371,8 +373,8 @@ actor_grad_uncollapsed_sums.launches = 0
 # Loss and gradients of a minibatch (the JAX package's grad(params, ...))
 # ----------------------------------------------------------------------
 
-def _world(mesh) -> int:
-    return 1 if mesh is None else mesh.world
+def _num_data(mesh) -> int:
+    return 1 if mesh is None else mesh.num_data
 
 
 @torch.no_grad()
@@ -384,7 +386,7 @@ def actor_grad(actor, mb, adv: torch.Tensor, cfg, tiled: bool = False,
     (``algo.mappo.minibatch_advantages``).  With ``cfg.bf16_updates`` the
     sums round as the JAX package's tiled kernel where ``tiled`` (its
     full-batch route with the fused collect), else as its staged one.
-    With a ``mesh``: the mean over every rank's slice."""
+    With a ``mesh``: the mean over every data index's slice."""
     n = adv.shape[0]
     a_comp, c_comp = _affine_compose(actor)
     bf16 = ("tiled" if tiled else "staged") if cfg.bf16_updates else None
@@ -392,7 +394,7 @@ def actor_grad(actor, mb, adv: torch.Tensor, cfg, tiled: bool = False,
         a_comp, c_comp, mb.obs.reshape(n, -1), mb.actions.reshape(n, -1),
         mb.log_probs.reshape(n), adv, cfg.epsilon, cfg.ent_const, bf16, mesh)
     grads = affine_recompose(actor, dz, dzs)
-    inv_n = 1.0 / (n * _world(mesh))
+    inv_n = 1.0 / (n * _num_data(mesh))
     return loss * inv_n, {k: g * inv_n for k, g in grads.items()}
 
 
@@ -409,7 +411,7 @@ def actor_grad_uncollapsed(actor, mb, adv: torch.Tensor, cfg, mesh=None
         *(p.detach() for p in actor.parameters()), mb.obs.reshape(n, -1),
         mb.actions.reshape(n, -1), mb.log_probs.reshape(n), adv, cfg.epsilon,
         cfg.ent_const, cfg.bf16_updates, mesh)
-    inv_n = 1.0 / (n * _world(mesh))
+    inv_n = 1.0 / (n * _num_data(mesh))
     return loss * inv_n, {name: g * inv_n for (name, _), g in
                           zip(actor.named_parameters(), grads)}
 
@@ -419,13 +421,13 @@ def critic_grad(critic, mb, cfg, mesh=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mean clipped-value loss of a ``Buffer`` slice ``mb`` and its
     gradients keyed as ``critic.named_parameters()`` (with a ``mesh``, over
-    every rank's slice)."""
+    every data index's slice)."""
     n = mb.returns.numel()
     loss, dw1, db1, dw2, db2 = critic_grad_sums(
         critic.fc1.weight, critic.fc1.bias, critic.fc2.weight,
         critic.fc2.bias, mb.obs.reshape(n, -1), mb.values.reshape(n),
         mb.returns.reshape(n), cfg.epsilon, cfg.bf16_updates, mesh)
-    inv_n = 1.0 / (n * _world(mesh))
+    inv_n = 1.0 / (n * _num_data(mesh))
     grads = {"fc1.weight": dw1, "fc1.bias": db1, "fc2.weight": dw2,
              "fc2.bias": db2}
     return loss * inv_n, {k: g * inv_n for k, g in grads.items()}

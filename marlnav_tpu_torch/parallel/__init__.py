@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed``: the mesh and the sharding
-layer (port of ``marlnav_tpu/parallel/``)."""
+"""Data and tensor parallelism over ``torch.distributed``: the (data x
+model) grid, the sharding layer and the split networks (port of
+``marlnav_tpu/parallel/``)."""
 
-from marlnav_tpu_torch.parallel.mesh import (DataMesh, default_backend,
+from marlnav_tpu_torch.parallel.mesh import (Mesh, default_backend,
                                              init_distributed, make_mesh)
 from marlnav_tpu_torch.parallel.sharding import (
     all_gather_envs,
@@ -15,7 +16,7 @@ from marlnav_tpu_torch.parallel.sharding import (
 )
 
 __all__ = [
-    "DataMesh",
+    "Mesh",
     "all_gather_envs",
     "all_reduce_sum",
     "check_replicated",

@@ -72,8 +72,8 @@ def run_local_ranks(world: int, backend: str, target, *args):
 
 
 def cli_training_rank(rank: int, world: int, cfg, args):
-    """One rank of ``python -m marlnav_tpu_torch --num-data N`` without
-    ``--multihost``: rank r on ``cuda:r`` (or the CPU)."""
+    """One rank of ``python -m marlnav_tpu_torch --num-data N [--num-model
+    M]`` without ``--multihost``: rank r on ``cuda:r`` (or the CPU)."""
     from marlnav_tpu_torch.__main__ import train_rank
 
     return train_rank(cfg, args, rank, world)

@@ -1,12 +1,19 @@
-"""Process groups and the data-parallel mesh.
+"""Process groups and the (data x model) grid of ranks.
 
 Port of ``marlnav_tpu/parallel/mesh.py`` on ``torch.distributed``.  Where
-the JAX package builds a ('data', 'model') mesh over the devices one
-process drives, here each rank is a process with one device: the env batch
-and the rollout buffer split over the ranks, the networks are replicated,
-and the collectives (``parallel.sharding``) are NCCL's on the card, gloo's
-on the CPU.  The 'model' axis (tensor parallelism) is not ported: any
-``num_model`` other than 1 raises.
+the JAX package reshapes the devices one process drives into a ('data',
+'model') mesh, here each rank is a process with one device, and the ranks
+form the same grid: rank r sits at data index ``r // num_model`` and model
+index ``r % num_model`` (``np.asarray(devices).reshape(num_data,
+num_model)``, marlnav_tpu/parallel/mesh.py:40).  The env batch and the
+rollout buffer split over the data index; with ``num_model`` > 1 the
+networks' hidden units split over the model index (``parallel.tensor``).
+Each data column (the ranks of one model index) is a process group, the
+data group, over which the data-parallel sums run; each data row (the
+ranks of one data index) is another, the model group, over which the
+tensor-parallel sums and gathers run.  At ``num_model`` 1 the data group
+is the default group and there is no model group.  The collectives
+(``parallel.sharding``) are NCCL's on the card, gloo's on the CPU.
 """
 
 from __future__ import annotations
@@ -20,25 +27,40 @@ import torch.distributed as dist
 
 
 @dataclasses.dataclass
-class DataMesh:
-    """This rank's place in the data-parallel group (the default process
-    group): its rank, the world size, its device and the group's backend.
-    ``env_slice`` gives the rank's part of the env axis."""
+class Mesh:
+    """This rank's place in the (data x model) grid: its rank and the world
+    size (of the default process group), its device, the groups' backend,
+    the grid's shape and its two groups (``data_group`` None: the default
+    group; ``model_group`` None: no tensor parallelism).  ``env_slice``
+    gives the rank's part of the env axis."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
+    num_data: int
+    num_model: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.num_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.num_model
 
     def env_slice(self, num_envs: int) -> Tuple[int, int]:
         """``(offset, count)`` of this rank's envs among ``num_envs``:
-        equal shares, rank r's from ``r * count``.  Raises where
-        ``num_envs`` does not split over the ranks."""
-        if num_envs % self.world != 0:
+        equal shares over the data index, data index d's from ``d *
+        count`` (every rank of a model group holds the same envs).  Raises
+        where ``num_envs`` does not split over the data size."""
+        if num_envs % self.num_data != 0:
             raise ValueError(f"num_envs {num_envs} does not split over "
-                             f"{self.world} ranks")
-        count = num_envs // self.world
-        return self.rank * count, count
+                             f"{self.num_data} ranks")
+        count = num_envs // self.num_data
+        return self.data_index * count, count
 
 
 def default_backend(device) -> str:
@@ -78,37 +100,38 @@ def _local(name: str, default: int) -> int:
 
 def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
               device="cuda", local_rank: Optional[int] = None,
-              local_world: Optional[int] = None) -> DataMesh:
-    """The data-parallel mesh over the initialized default process group.
+              local_world: Optional[int] = None) -> Mesh:
+    """The (data x model) grid over the initialized default process group.
 
-    ``num_data`` defaults to the group's size and must equal it (one
-    process a rank).  ``device``: ``"cuda"`` gives rank r the card
-    ``cuda:<local rank>`` (``local_rank``, else ``LOCAL_RANK``, else the
-    rank) and raises unless this host has a card for each of its
-    ``local_world`` ranks (else ``LOCAL_WORLD_SIZE``, else the world
-    size: every rank on this host); ``"cuda:<k>"`` puts the rank on that
-    card (several ranks on one card need gloo); ``"cpu"`` on the CPU.
+    ``num_data`` defaults to the group's size // ``num_model``, and
+    ``num_data * num_model`` must equal the group's size (one process a
+    rank).  With ``num_model`` > 1 every rank creates the process group of
+    each data column and of each data row, in one fixed order (columns,
+    then rows), as ``dist.new_group`` needs every rank to.  ``device``:
+    ``"cuda"`` gives rank r the card ``cuda:<local rank>`` (``local_rank``,
+    else ``LOCAL_RANK``, else the rank) and raises unless this host has a
+    card for each of its ``local_world`` ranks (else
+    ``LOCAL_WORLD_SIZE``, else the world size: every rank on this host);
+    ``"cuda:<k>"`` puts the rank on that card (several ranks on one card
+    need gloo); ``"cpu"`` on the CPU.
     Raises ``ValueError`` as the JAX package's ``make_mesh`` does where the
-    mesh needs more devices than there are, and ``NotImplementedError`` for
-    ``num_model`` > 1."""
+    mesh needs more devices than there are."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group: "
                            "call parallel.init_distributed first")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if num_model < 1:
+        raise ValueError(f"--num-model must be >= 1, got {num_model}")
     if num_data is None:
         num_data = world // num_model
     use = num_data * num_model
     if use > world:
         raise ValueError(f"mesh {num_data}x{num_model} needs {use} "
                          f"devices, have {world}")
-    if num_model != 1:
-        raise NotImplementedError(
-            "--num-model (tensor parallelism) is not ported to "
-            "marlnav_tpu_torch yet (see ROADMAP.md); run python -m "
-            "marlnav_tpu for it")
-    if num_data != world:
-        raise ValueError(f"--num-data {num_data} must equal the number of "
-                         f"ranks, {world} (one process a rank)")
+    if use != world:
+        model = f" x --num-model {num_model}" if num_model != 1 else ""
+        raise ValueError(f"--num-data {num_data}{model} must equal the "
+                         f"number of ranks, {world} (one process a rank)")
     backend = dist.get_backend()
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -133,4 +156,16 @@ def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
         torch.cuda.set_device(dev)
     elif backend == "nccl":
         raise ValueError(f"the NCCL backend needs CUDA devices, not {dev}")
-    return DataMesh(rank=rank, world=world, device=dev, backend=backend)
+    data_group = model_group = None
+    if num_model > 1:
+        columns = [dist.new_group([d * num_model + m
+                                   for d in range(num_data)])
+                   for m in range(num_model)]
+        rows = [dist.new_group(list(range(d * num_model,
+                                          (d + 1) * num_model)))
+                for d in range(num_data)]
+        data_group = columns[rank % num_model]
+        model_group = rows[rank // num_model]
+    return Mesh(rank=rank, world=world, device=dev, backend=backend,
+                num_data=num_data, num_model=num_model,
+                data_group=data_group, model_group=model_group)

@@ -39,15 +39,19 @@ device: the running Adam keeps its own settings (``restore_adam``), and a
 generator state of the other device's kind seeds the running generator
 (``restore_generator``).
 
-Data parallelism (``mesh``, a ``parallel.DataMesh``; marlnav_tpu/train.py
-:38, 82-86): each rank trains on its share of the envs with replicated
-networks (checked at set-up), and the collectives of ``algo.mappo`` and
-``ops`` keep the run global.  Only rank 0 writes weights, logs, plots and
-checkpoints.  A checkpoint holds the global env state, gathered from every
-rank, and every rank takes its share on resume, so a run resumes at
-another world size.  Graphed blocks hold the collectives (NCCL); the
-first full block runs eagerly, so NCCL's communicator exists before any
-capture.  Over gloo (several ranks on one card) every block runs eagerly.
+Data and tensor parallelism (``mesh``, a ``parallel.Mesh``;
+marlnav_tpu/train.py:38, 82-86): each data index trains on its share of
+the envs, each model index on its hidden units of the networks (the same
+on every rank of a data column, checked at set-up), and the collectives
+of ``algo.mappo`` and ``ops`` keep the run global.  Only rank 0 writes
+weights, logs, plots and checkpoints.  A checkpoint holds the global env
+state, gathered over the data group, and the whole networks and Adam
+states, gathered over the model group, and every rank takes its share on
+resume, so a run resumes at another grid or without one; the weight
+files hold the whole networks too.  Graphed blocks hold the collectives
+(NCCL); the first full block runs eagerly, so NCCL's communicators exist
+before any capture.  Over gloo (several ranks on one card) every block
+runs eagerly.
 
 The reference's save-every-rollout weights quirk (its best-reward gate
 never updates, reference models.py:93, 127-129) is kept: weights are
@@ -56,6 +60,7 @@ never updates, reference models.py:93, 127-129) is kept: weights are
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import time
@@ -68,6 +73,7 @@ from marlnav_tpu_torch.algo.mappo import RolloutMetrics
 from marlnav_tpu_torch.config import MAPPOConfig, RunConfig, config_to_json
 from marlnav_tpu_torch.env import make_env
 from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
+from marlnav_tpu_torch.parallel.tensor import gather_networks
 from marlnav_tpu_torch.utils.seeding import make_generator, resolve_device
 from marlnav_tpu_torch.utils.stats import StatsLogger
 
@@ -130,11 +136,17 @@ def log_block(logger: StatsLogger, rows, n_losses: int) -> None:
 
 
 def checkpoint_tree(ts, env_state: EnvState) -> dict:
-    """What a checkpoint holds besides the repeat index and the logger."""
+    """What a checkpoint holds besides the repeat index and the logger:
+    whole networks and Adam states (under tensor parallelism gathered over
+    the model group, so every rank of it calls this)."""
+    from marlnav_tpu_torch.parallel.tensor import (whole_adam_state,
+                                                   whole_state_dict)
+
     return {
-        "actor": ts.actor.state_dict(), "critic": ts.critic.state_dict(),
-        "actor_opt": ts.actor_opt.state_dict(),
-        "critic_opt": ts.critic_opt.state_dict(),
+        "actor": whole_state_dict(ts.actor),
+        "critic": whole_state_dict(ts.critic),
+        "actor_opt": whole_adam_state(ts.actor_opt, ts.actor),
+        "critic_opt": whole_adam_state(ts.critic_opt, ts.critic),
         "env": {name: getattr(env_state, name) for name in _ENV_FIELDS},
         "env_stats": [env_state.stats.num_trunc, env_state.stats.num_col,
                       env_state.stats.num_tar],
@@ -183,14 +195,18 @@ def restore_generator(generator: torch.Generator,
 
 
 def restore_tree(tree: dict, ts, generator: torch.Generator,
-                 device: torch.device) -> EnvState:
+                 device: torch.device, mesh=None) -> EnvState:
     """Load a checkpoint's networks, Adam states and generator state into
-    ``ts`` and ``generator`` in place; return its env state on
-    ``device``."""
-    ts.actor.load_state_dict(tree["actor"])
-    ts.critic.load_state_dict(tree["critic"])
-    restore_adam(ts.actor_opt, tree["actor_opt"])
-    restore_adam(ts.critic_opt, tree["critic_opt"])
+    ``ts`` and ``generator`` in place (each rank's hidden units of them
+    under tensor parallelism); return its env state on ``device``."""
+    from marlnav_tpu_torch.parallel.tensor import (shard_adam_state,
+                                                   shard_state_dict)
+
+    for net, opt in (("actor", "actor_opt"), ("critic", "critic_opt")):
+        module = getattr(ts, net)
+        module.load_state_dict(shard_state_dict(tree[net], mesh))
+        restore_adam(getattr(ts, opt),
+                     shard_adam_state(tree[opt], module, mesh))
     restore_generator(generator, tree["generator"])
     env = {k: v.to(device) if torch.is_tensor(v) else v
            for k, v in tree["env"].items()}
@@ -302,8 +318,9 @@ def train(
     ``checkpoint_dir`` the complete state checkpoints every
     ``checkpoint_interval`` repeats, and ``resume`` continues from the
     latest checkpoint there.  With a ``mesh`` the run is data-parallel,
-    on the mesh's device (of ``device``'s type), and the returned env
-    state is this rank's."""
+    on the mesh's device (of ``device``'s type), tensor-parallel where its
+    ``num_model`` > 1, and the returned env state and networks are this
+    rank's."""
     if cfg.model is None:
         raise ValueError("train requires a model config")
     if jit_repeats < 1:
@@ -378,7 +395,7 @@ def train(
             # works across a --fused-collect flip; the global env state,
             # of which each rank takes its share.
             step, tree, host = ckpt.restore()
-            restored = restore_tree(tree, ts, generator, dev)
+            restored = restore_tree(tree, ts, generator, dev, mesh)
             if mesh is not None:
                 restored = shard_env_state(restored, mesh)
             state = from_canonical(restored)
@@ -422,7 +439,10 @@ def train(
         dt = time.perf_counter() - t0
 
         log_block(logger, rows, n_losses)
-        logger.save_weights(ts)
+        # Whole networks (gathered over the model group by every rank).
+        actor, critic = gather_networks([ts.actor, ts.critic])
+        logger.save_weights(dataclasses.replace(ts, actor=actor,
+                                                critic=critic))
         if ckpt is not None:
             # Save when this block contains a multiple of the interval
             # (marlnav_tpu/train.py:314-322).

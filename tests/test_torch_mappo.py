@@ -271,9 +271,10 @@ def test_full_repeat_trains(mode):
 
 def test_unported_mappo_options_raise():
     """bf16_updates, the last MAPPOConfig option the port lacked, builds
-    now; the option still unported is the CLI's tensor-parallel flag,
-    which raises before any config is built (--num-data and --multihost
-    are ported: tests/test_torch_data_parallel.py)."""
+    now; the CLI's tensor-parallel flag is ported too
+    (tests/test_torch_tensor_parallel.py), so only --allow-interpret, which
+    has no counterpart, raises before any config is built (--num-data and
+    --multihost: tests/test_torch_data_parallel.py)."""
     from marlnav_tpu_torch.__main__ import build_parser, reject_unported
 
     env = make_env(EnvParams(num_parallel=P), TriangleInitConfig(
@@ -281,5 +282,6 @@ def test_unported_mappo_options_raise():
     cfg = dataclasses.replace(cfgs()[1], bf16_updates=True)
     make_mappo(cfg, env, NormalizerConfig(), ScalerConfig())
     reject_unported(build_parser().parse_args(["--bf16-updates"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reject_unported(build_parser().parse_args(["--num-model", "2"]))
+    reject_unported(build_parser().parse_args(["--num-model", "2"]))
+    with pytest.raises(NotImplementedError, match="no counterpart"):
+        reject_unported(build_parser().parse_args(["--allow-interpret"]))

@@ -223,25 +223,34 @@ def fake_world():
 @pytest.mark.parametrize("case", [
     ({}, None, None),
     ({"num_data": 8, "num_model": 1}, None, None),
-    ({"num_data": 4, "num_model": 2}, NotImplementedError, "ROADMAP"),
+    ({"num_data": 4, "num_model": 2}, None, None),
     ({"num_data": 16, "num_model": 2}, ValueError,
      "mesh 16x2 needs 32 devices, have 8"),
     ({"num_data": 4}, ValueError, "must equal the number of ranks, 8"),
 ], ids=["default", "8x1", "4x2", "16x2", "4x1"])
 def test_make_mesh_checks_as_jax(fake_world, case):
     """tests/test_sharding.py:49-55's cases, counted as ranks: a data
-    axis of every rank builds, a model axis raises NotImplementedError
-    naming ROADMAP, and too many devices raise ValueError as
+    axis of every rank builds, a 4 x 2 grid builds its data columns and
+    model rows (rank 0 at data index 0 and model index 0, the envs split
+    over the 4 data indices), and too many devices raise ValueError as
     marlnav_tpu/parallel/mesh.py:35-39 does."""
+    import torch.distributed as dist
+
     from marlnav_tpu_torch.parallel import make_mesh
 
     kwargs, error, match = case
     if error is None:
         mesh = make_mesh(device="cpu", **kwargs)
         assert (mesh.rank, mesh.world, mesh.device.type) == (0, 8, "cpu")
-        assert mesh.env_slice(32) == (0, 4)
+        d = 8 // mesh.num_model
+        assert (mesh.num_data, mesh.data_index, mesh.model_index) == (d, 0, 0)
+        if mesh.num_model > 1:
+            assert dist.get_process_group_ranks(mesh.data_group) == [
+                0, 2, 4, 6]
+            assert dist.get_process_group_ranks(mesh.model_group) == [0, 1]
+        assert mesh.env_slice(32) == (0, 32 // d)
         with pytest.raises(ValueError, match="num_envs 30 does not split "
-                                             "over 8 ranks"):
+                                             f"over {d} ranks"):
             mesh.env_slice(30)
     else:
         with pytest.raises(error, match=match):

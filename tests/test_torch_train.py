@@ -83,10 +83,37 @@ def test_cli_fused_updates(tmp_path, monkeypatch, bs):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num-model", "2"], ["--num-model", "4"], ["--allow-interpret"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        cli(TINY + flag)
+    ["--num-model", "2", "--num-data", "1"], ["-hs", "50", "--num-model", "4"],
+    ["--allow-interpret"]])
+def test_unported_flags_raise(tmp_path, flag):
+    """--allow-interpret, which has no counterpart, raises
+    NotImplementedError.  --num-model is ported: at 2 it trains (a
+    subprocess with a timeout: it spawns its second rank; one weights pair
+    of whole networks), and a hidden size that does not split over it
+    raises ValueError before any rank starts, as the JAX package's
+    device_put does."""
+    import subprocess
+
+    if flag == ["--allow-interpret"]:
+        with pytest.raises(NotImplementedError):
+            cli(TINY + flag)
+        return
+    if "-hs" in flag:
+        with pytest.raises(ValueError, match="hidden size 50 does not split "
+                                             "over --num-model 4"):
+            cli(TINY + flag)
+        return
+    env = dict(os.environ, OMP_NUM_THREADS="1", TMPDIR=str(tmp_path),
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "-m", "marlnav_tpu_torch",
+                           *TINY, *flag], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    weights = sorted(glob.glob(str(tmp_path / "weights" / "*.npz")))
+    assert len(weights) == 2
+    with np.load(weights[0]) as w:
+        assert w["fc1.w"].shape == (12, 50)
 
 
 @pytest.mark.parametrize("flag", [
