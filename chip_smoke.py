@@ -63,7 +63,14 @@ against one-process rollouts of each rank's envs); trains with
 the fused and the autograd routes and at ``-hs 512``, a 2 x 2 grid,
 each against one process, with each rank's launches asserted, the
 collectives of a repeat counted and the eager repeat timed in turns with
-one process); and times every kernel.  Each path's launch
+one process); runs the curriculum programs on the card (phase 21: the
+JAX package's seed-42 radius-30 state read without the JAX package, a
+policy-mean rollout from its rows against its plain version, the
+gradient kernels in that trained regime, the first stage of the H42
+continuation through ``python -m marlnav_tpu_torch.scripts.curriculum``
+with its launches counted and no ``nvcc`` run, one stage from scratch,
+the renderer's statistics and the quick sweep); and times every
+kernel.  Each path's launch
 counts are set to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
 object, the card's name and power limit, and ``{"ok": true, "device":
@@ -2695,6 +2702,252 @@ def main(out_dir):
                      for ranks in ranks20.values() for r in ranks[:1]
                      for k in P20_CASES[r["grid"]]}}
     del ranks20, ones, one
+
+    # ------------------------------------------------------------------
+    phase("21. the curriculum on the card: the JAX package's seed-42 "
+          "radius-30 state resumed, mean-eval, the update kernels in the "
+          "trained regime, H42's first stage, a stage from scratch, the "
+          "renderer's statistics, the quick sweep")
+    from marlnav_tpu_torch.ops import _build
+    from marlnav_tpu_torch.ops.step_math import StepMath
+    from marlnav_tpu_torch.scripts import curriculum as cur
+    from marlnav_tpu_torch.scripts import render_curriculum as rcur
+    from marlnav_tpu_torch.scripts import sweep as swp
+    from marlnav_tpu_torch.utils.jax_state import load_jax_state
+
+    docs = os.path.join(here, "docs")
+    state21 = os.path.join(docs, "curriculum_r5s42_state.pkl")
+    with open(os.path.join(docs, "curriculum_r5s42_radius_noise_adaptive"
+                           ".json")) as fh:
+        s42 = json.load(fh)
+    jax1, jax31 = s42[0], s42[-1]  # from scratch; the state's own stage
+    with open(os.path.join(docs, "curriculum_r5s42b_radius_noise_adaptive"
+                           ".json")) as fh:
+        jax32 = json.load(fh)[0]  # H42's first stage, 32
+    rec21 = {}
+    # (a) The state, through the restricted unpickler (no JAX package).
+    nvcc_before = _build.load_libraries.nvcc_runs
+    ts21, rows21, sched21 = load_jax_state(state21, dev)
+    steps21 = {float(s["step"]) for o in (ts21.actor_opt, ts21.critic_opt)
+               for s in o.state.values()}
+    step_devs = {(s["step"].device.type, s["step"].dtype)
+                 for o in (ts21.actor_opt, ts21.critic_opt)
+                 for s in o.state.values()}
+    print(f"(a) {state21}: schedule {sched21}; Adam steps {steps21} "
+          f"({step_devs}); variance head bias "
+          f"{ts21.actor.fc_var.bias.tolist()}")
+    assert sched21["radius"] == 30.0 and sched21["ent"] == 5e-4 \
+        and sched21["gr"] == 18600 and sched21["stage"] == 31, sched21
+    assert steps21 == {174000.0} and step_devs == {("cuda",
+                                                    torch.float32)}
+    rec21["schedule"] = sched21
+    # (b) Mean-eval from the pickled rows at H42's stage constants.
+    p21, t21 = cur.P_ADAPTIVE, cur.T_ADAPTIVE
+    ep21 = EnvParams(num_parallel=p21, risk_factor=250.0,
+                     target_factor=500_000.0, target_radius=30.0,
+                     group_soft_factor=50_000.0, episode_len=400,
+                     staggered_resets=True)
+    icfg21 = TriangleInitConfig(num_parallel=p21, num_obstacles=3)
+    reset_counts()
+    mean_tar21 = cur.mean_eval(ep21, icfg21, t21, rows21, ts21.actor,
+                               500_000.0, dev)
+    assert read_counts() == expect(fused_rollout=1), read_counts()
+    sm21 = StepMath(ep21, icfg21, norm, scal)
+    a21, c21 = fc._affine_compose(ts21.actor)
+    u21 = torch.rand((t21, sm21.n_draws, p21), device=dev,
+                     generator=make_generator(0, dev))
+    k21 = fr.fused_rollout_rows(sm21, rows21, a21, c21, 0, t21, True, u21)
+    r21 = fr.rollout_rows_reference(sm21, rows21, a21, c21, u21, True)
+    err21 = max((x - y).abs().max().item() for x, y in
+                zip((k21[1], *k21[0].fields()), (r21[1], *r21[0].fields())))
+    injected21 = int((k21[1] > 250_000.0).sum())
+    print(f"(b) policy-mean rollout, {p21} x {t21} from the pickled rows: "
+          f"mean_tar {mean_tar21} (kernel's Philox stream, seed 0); JAX "
+          f"record {jax31['mean_tar']} at stage 31, {jax32['mean_tar']} at "
+          f"stage 32. On uniforms drawn on the card (seed 0): kernel == "
+          f"plain version, max abs err {err21:.3e} (rewards and final "
+          f"rows), mean_tar {injected21}")
+    assert err21 == 0.0, err21
+    rec21["mean_tar"] = {"philox": mean_tar21, "injected": injected21,
+                         "kernel_vs_plain": err21}
+    # (c) The update kernels in the trained regime: one buffer collected
+    # from the state, the first minibatch step of its actor and critic
+    # phases, each output (its sum over the rows) against the float32
+    # plain version within phase 6's bound (1e-4 of the output's largest
+    # magnitude, + 1e-7), and against the float64 one within that bound,
+    # or, where the float32 plain version itself misses it, within the
+    # bound of that version's own error.  At a policy variance near 4e-6 an
+    # action lies ~2e-3 from its mean, and a float32 action (ulp ~6e-8)
+    # carries that offset to ~3e-5: the ratios, hence the actor's sums,
+    # are set by float32 rounding in any float32 arithmetic.
+    cfg21 = cur.build_cfg(p21, t21, ent_const=5e-4)
+    collect21 = fc.make_fused_collect(cfg21, ep21, icfg21, norm, scal)
+    _, buf21, met21 = collect21(ts21, rows21, ((42 * 1_000_003) % (1 << 30))
+                                + 18600)
+    ended21 = [int(x) for x in (met21.stats.num_tar, met21.stats.num_col,
+                                met21.stats.num_trunc)]
+    print(f"(c) a buffer collected from the state: episodes ended "
+          f"{ended21} (reaches, collisions, truncations)")
+    rec21["kernel_errors"] = {}
+    for name, args in (("fused_actor_grad",
+                        actor_inputs(ts21.actor, buf21, cfg21)),
+                       ("fused_critic_grad",
+                        critic_inputs(ts21.critic, buf21, cfg21))):
+        kernel, plain = fns[name]
+        n = args[rows_arg[name]].shape[0]
+        k, p32 = kernel(*args), plain(*args)
+        p64 = plain(*(x.double() if torch.is_tensor(x) else x
+                      for x in args))
+        per_output = {}
+        for out_name, kv, q, w in zip(outputs[name], k, p32, p64):
+            w = w / n
+            ek = (kv.double() / n - w).abs().max().item()
+            ep_ = (q.double() / n - w).abs().max().item()
+            ekp = (kv.double() - q.double()).abs().max().item() / n
+            tol = 1e-4 * w.abs().max().item() + 1e-7
+            per_output[out_name] = dict(kernel_f64=ek, plain_f32_f64=ep_,
+                                        kernel_plain=ekp, bound=tol)
+        print(f"    {name}, {n:,} rows: per output, error of the kernel / "
+              f"of the plain float32 version against float64, the kernel "
+              f"against the plain float32 version (bound): " + ", ".join(
+                  f"{o} {e['kernel_f64']:.2e} / {e['plain_f32_f64']:.2e}, "
+                  f"{e['kernel_plain']:.2e} ({e['bound']:.2e})"
+                  for o, e in per_output.items()))
+        for o, e in per_output.items():
+            assert e["kernel_plain"] <= e["bound"], (name, o, e)
+            assert e["kernel_f64"] <= max(e["bound"], e["plain_f32_f64"]) \
+                + e["bound"], (name, o, e)
+        rec21["kernel_errors"][name] = per_output
+    # (c2) The stage's blocks of 25 repeats: the graphed block equals the
+    # eager loop bit for bit, and a restore copies the snapshot back into
+    # the tensors the graph read.
+    from marlnav_tpu_torch.train import _Blocks
+
+    mappo21, collect21 = cur.stage_functions(cfg21, ep21, icfg21, dev)
+    snap21 = cur.Snapshot.take(ts21, rows21)
+    base21 = (42 * 1_000_003) % (1 << 30)
+
+    def live21(rows):
+        return [x.detach().clone() for x in (
+            *ts21.actor.parameters(), *ts21.critic.parameters(),
+            *rows.fields())]
+
+    reset_counts()
+    rows_g, packed_g = cur.run_repeats(mappo21, collect21, ts21, rows21,
+                                       2 * cur.BLOCK, base21, 18600, dev)
+    graphed21 = live21(rows_g)
+    assert read_counts()["fused_collect"] == 2 * cur.BLOCK, read_counts()
+    snap21.restore(ts21, rows21)
+    assert all(torch.equal(x, y) for x, y in zip(
+        live21(rows21), [*snap21.actor.values(), *snap21.critic.values(),
+                          *snap21.rows]))
+    seeds21 = torch.zeros(cur.BLOCK, dtype=torch.int32, device=dev)
+    blocks21 = _Blocks(mappo21, ts21, None,
+                       lambda ts_, r_, i: collect21(ts_, r_, seeds21[i]),
+                       seeds21, torch.arange(cur.BLOCK, dtype=torch.int32,
+                                             device=dev),
+                       base21, cur.BLOCK, pipeline=True)
+    rows_e, packed_e = rows21, []
+    for b in range(2):
+        rows_e, out = blocks21.eager(rows_e, 18600 + b * cur.BLOCK,
+                                     cur.BLOCK)
+        packed_e.append(out.cpu().numpy())
+    same21 = all(torch.equal(x, y) for x, y in zip(graphed21,
+                                                   live21(rows_e)))
+    print(f"(c2) 2 blocks of {cur.BLOCK} repeats from the state, the second "
+          f"a graph's replays, against 2 eager blocks after a restore: "
+          f"networks and rows equal bit for bit: {same21}; counts equal: "
+          f"{bool((packed_g == np.concatenate(packed_e)).all())}")
+    assert same21 and (packed_g == np.concatenate(packed_e)).all()
+    del buf21, collect21, k21, r21, u21, mappo21, blocks21, snap21
+    # (d) H42's first stage (docs/curriculum_r5.md:255-268), one stage.
+    h42 = ["--mode", "radius-noise-adaptive", "--seed", "42",
+           "--repeats-per-stage", "600", "--group-soft", "50000",
+           "--episode-len-small", "400", "--mean-eval",
+           "--coarse-threshold", "0.01", "--fine-threshold", "0.01",
+           "--consolidate", "20"]
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = cur.main(h42 + ["--resume-state", state21, "--max-stages", "32",
+                           "--out", os.path.join(out_dir, "h42")])
+    torch.cuda.synchronize()
+    h42_s = time.perf_counter() - t0
+    launches21 = read_counts()
+    stage32 = hist[0]
+    env_steps = 600 * p21 * t21
+    print(f"(d) H42 stage 32: tar_share {stage32['tar_share']:.4%} "
+          f"(JAX record {jax32['tar_share']:.2%}), mean_tar "
+          f"{stage32['mean_tar']} (JAX {jax32['mean_tar']}), radius "
+          f"{stage32['radius']}, var_bias_mean {stage32['var_bias_mean']} "
+          f"(JAX {jax32['var_bias_mean']}); {stage32['seconds']} s of "
+          f"repeats (the record's 0.1 s), {h42_s:.6f} s with the resume "
+          f"and the mean-eval: {env_steps / h42_s:,.0f} env-steps/s; "
+          f"launches {launches21}")
+    assert len(hist) == 1 and stage32["stage"] == 32 \
+        and stage32["radius"] == 30.0, hist
+    assert stage32["tar_share"] > 0.01, stage32  # the run's 1% gate
+    assert launches21 == expect(fused_collect=600, fused_actor_grad=6000,
+                                fused_critic_grad=6000, returns=1200,
+                                fused_rollout=1), launches21
+    assert _build.load_libraries.nvcc_runs == nvcc_before, \
+        "nvcc ran during the curriculum"
+    if not 0.04 <= stage32["tar_share"] <= 0.16:
+        print(f"    tar_share {stage32['tar_share']:.4f} outside 4-16%")
+    rec21["h42"] = {**stage32, "wall_s": h42_s,
+                    "env_steps_per_s": env_steps / h42_s,
+                    "launches": launches21}
+    # (e) A stage from scratch at radius 300 (the RNGs differ from the
+    # JAX package's, and ignition is seed-dependent: printed, not held).
+    reset_counts()
+    t0 = time.perf_counter()
+    hist1 = cur.main(h42 + ["--max-stages", "1",
+                            "--out", os.path.join(out_dir, "s42")])
+    torch.cuda.synchronize()
+    scratch_s = time.perf_counter() - t0
+    print(f"(e) seed 42 stage 1 from scratch: tar_share "
+          f"{hist1[0]['tar_share']:.4%} (JAX record {jax1['tar_share']:.2%}),"
+          f" mean_tar {hist1[0]['mean_tar']} (JAX {jax1['mean_tar']}); "
+          f"{hist1[0]['seconds']} s of repeats, {scratch_s:.3f} s in all; "
+          f"launches {read_counts()}")
+    assert _build.load_libraries.nvcc_runs == nvcc_before
+    rec21["scratch"] = {**hist1[0], "wall_s": scratch_s}
+    # (f) The renderer's statistics: the stage-31 actor at radius 30 on
+    # 1024 envs, 400 steps (README: 130 of 1024 reach).
+    buf_out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf_out):
+            rcur.main(["--radius", "30", "--envs", "1024", "--steps", "400",
+                       "--episode-len", "400", "--weights",
+                       os.path.join(docs, "curriculum_r5s42_actor_stage31"
+                                    ".npz"),
+                       "--out", os.path.join(out_dir, "r5s42_r30.gif")])
+        drawn = "animation written"
+    except ModuleNotFoundError as err:
+        assert "matplotlib" in str(err), err
+        drawn = f"no animation ({err})"
+    render_s = time.perf_counter() - t0
+    stats21 = json.loads(buf_out.getvalue().splitlines()[0])
+    print(f"(f) {json.dumps(stats21)}: {stats21['envs_with_group_reach']} "
+          f"of 1024 envs reach (README: 130 of 1024); {render_s:.3f} s; "
+          f"{drawn}")
+    assert 0 < stats21["envs_with_group_reach"] <= 1024
+    rec21["render"] = {**stats21, "seconds": render_s}
+    # (g) The quick sweep, 20 repeats a cell.
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cells = swp.main(["--grid", "quick", "--repeats", "20", "--out",
+                          os.path.join(out_dir, "sweep_quick")])
+    print(f"(g) sweep --grid quick --repeats 20: "
+          f"{time.perf_counter() - t0:.3f} s")
+    for c in cells:
+        print("    " + json.dumps(c))
+        assert all(math.isfinite(c[k]) for k in ("mean_rew_first",
+                                                 "mean_rew_last"))
+    rec21["sweep"] = cells
+    assert _build.load_libraries.nvcc_runs == nvcc_before
+    record["curriculum"] = rec21
+    del ts21, rows21
     print(f"(phase took {time.perf_counter() - _PHASE_START[0]:.1f} s)")
 
     def shape_key(key):
@@ -2717,6 +2970,8 @@ def main(out_dir):
                 "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
                 "library_ms": None,
                 "bf16_launches": record["bf16"]["launches"].get(name, 0),
+                "curriculum_launches": record["curriculum"]["h42"][
+                    "launches"].get(name, 0),
                 "by_shape": {shape_key(key): {k: v[k] for k in
                                               ("ms", "plain_ms", "bound_ms",
                                                "fp32_bound_ms", "f32_ms")

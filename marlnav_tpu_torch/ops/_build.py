@@ -60,7 +60,8 @@ def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
     ``nvcc`` per source, all started together.  Returns, per name, the
     library and a record ``{"path", "seconds", "log"}``: the build time (0
     when an up-to-date library was found) and the compiler's output, which
-    includes ``ptxas -v``'s register and spill report."""
+    includes ``ptxas -v``'s register and spill report.
+    ``load_libraries.nvcc_runs`` counts the ``nvcc`` processes started."""
     builds = {}
     for name in names:
         if name in _LOADED or name in builds:
@@ -76,6 +77,7 @@ def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
             proc = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     cmd, tmp, time.perf_counter())
+            load_libraries.nvcc_runs += 1
         builds[name] = (record, proc)
     for record, proc in builds.values():  # wait for every build first
         if proc is not None:
@@ -91,6 +93,9 @@ def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
             os.replace(tmp, record["path"])
         _LOADED[name] = (ctypes.CDLL(record["path"]), record)
     return {name: _LOADED[name] for name in names}
+
+
+load_libraries.nvcc_runs = 0
 
 
 def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
