@@ -69,8 +69,14 @@ policy-mean rollout from its rows against its plain version, the
 gradient kernels in that trained regime, the first stage of the H42
 continuation through ``python -m marlnav_tpu_torch.scripts.curriculum``
 with its launches counted and no ``nvcc`` run, one stage from scratch,
-the renderer's statistics and the quick sweep); and times every
-kernel.  Each path's launch
+the renderer's statistics and the quick sweep); runs the hold against
+the JAX package at a cut size (phase 22: ``python -m
+marlnav_tpu_torch.scripts.hold`` on 2 of its 16 seeds, 2 of H42's 20
+stages and the quick sweep, each check's fields finite and its launches
+counted); and times every kernel.  Phases 6 and 15 hold each output the
+tensor cores sum in the templated gradient instances within the plain
+version's reach (``timing.within_reach``: 4x its error against float64,
+or 1% of the output's tolerance) and print every output's.  Each path's launch
 counts are set to 0 just before it and read just after.  Every phase prints as it goes;
 any failure exits non-zero.  The last three lines are the kernels' JSON
 object, the card's name and power limit, and ``{"ok": true, "device":
@@ -96,8 +102,14 @@ import time
 
 import torch
 
-from marlnav_tpu_torch.timing import (cuda_ms, ptxas_summary, step_case,
-                                      training_repeat)
+from marlnav_tpu_torch.timing import (ROWS_ARG, TENSOR_CORE_OUTPUTS,
+                                      TENSOR_CORE_WORK, UPDATE_OUTPUTS,
+                                      collected_batch,
+                                      cuda_ms, output_errors, ptxas_summary,
+                                      step_case, training_repeat,
+                                      update_args, update_functions,
+                                      wide_update_case, within_reach,
+                                      WIDE_UPDATE_WIDTHS)
 
 # Float operations of one env-step of the collect kernel (A=3, O=3, F=12),
 # counted from ops/csrc/fused_collect.cu, each mul/add/compare/select and
@@ -154,9 +166,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 without tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
-# Kernels whose products fit the tensor cores (TPU rows 3, 4, 6 and 7):
-# their bound takes the TF32 rate, with the 67 TFLOP/s share beside it.
-TENSOR_CORE_WORK = {"fused_critic_grad", "fused_actor_grad_uncollapsed"}
+# Kernels whose products fit the tensor cores (TPU rows 3, 4, 6 and 7;
+# TENSOR_CORE_WORK): their bound takes the TF32 rate, with the 67 TFLOP/s
+# share beside it.
 KERNELS = {
     "fused_collect": dict(
         source="marlnav_tpu_torch/ops/csrc/fused_collect.cu",
@@ -197,10 +209,10 @@ RETURNS_CHAIN_OPS = {False: 3, True: 2}  # by gae
 RETURNS_OP_CYCLES = {torch.float32: 4, torch.float64: 8}
 SM_CLOCK_HZ = 1.98e9
 # Spill stores (bytes) of the tensor-core instances that spill, by (head,
-# KS, NT), as the CUDA 12.9 toolkit's ptxas reports them for sm_90a: the
-# default un-collapsed actor's (held to 128 registers for two blocks an
-# SM) and one critic instance's.  Every other instance spills nothing.
-SPILL_STORES_TODAY = {("actor", 2, 7): 12, ("critic", 9, 16): 4}
+# KS, NT), as the CUDA 12.9 toolkit's ptxas reports them for sm_90a: none
+# since every instance takes one block an SM (the default un-collapsed
+# actor spilled 12 B at 128 registers, CriticHead<16> at KS 9 4 B).
+SPILL_STORES_TODAY = {}
 
 
 _PHASE_START = [None]
@@ -246,9 +258,10 @@ def timed(fn, reps=3):
             "wall": statistics.median(wall_ms)}
 
 
-def sass_hmma(sass, pattern, key):
-    """{key(match): HMMA instructions} of each function of ``cuobjdump
-    -sass`` output whose name matches ``pattern``."""
+def sass_hmma(sass, pattern, key, op="HMMA"):
+    """{key(match): ``op`` instructions (tensor-core HMMA, or float64
+    DMMA)} of each function of ``cuobjdump -sass`` output whose name
+    matches ``pattern``."""
     counts, at = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -256,20 +269,20 @@ def sass_hmma(sass, pattern, key):
             at = key(m) if m else None
             if at:
                 counts[at] = 0
-        elif at and "HMMA" in line:
+        elif at and op in line:
             counts[at] += 1
     return counts
 
 
-def hmma_counts(sass, bf16=False):
-    """{(head, KS, NT): HMMA instructions} of each instance of
+def hmma_counts(sass, bf16=False, op="HMMA"):
+    """{(head, KS, NT): ``op`` instructions} of each instance of
     tc_grad_kernel<CriticHead<NT> or ActorHead<NT>, KS> (with ``bf16``,
     CriticHeadBf16 or ActorHeadBf16)."""
     head = "HeadBf16" if bf16 else "Head"
     return sass_hmma(sass, r"tc_grad_kernelI\w*?(Critic|Actor)" + head +
                      r"ILi(\d+)EEELi(\d+)E",
                      lambda m: (m.group(1).lower(), int(m.group(3)),
-                                int(m.group(2))))
+                                int(m.group(2))), op)
 
 
 def rt_hmma_counts(sass):
@@ -382,6 +395,43 @@ def profile_run(label, fn):
             "device_ops": sum(e.count for e in on_device),
             "launch_calls": launches, "ours": ours, "nccl": nccl,
             "host_collectives": host_nccl}
+
+
+def trace_breakdown(label, fn, log_dir):
+    """Run ``fn()`` once inside ``utils.profiling.trace`` (its trace file
+    under ``log_dir``) and print the device time by kernel: each of the
+    port's kernels, and the small kernels (PyTorch's own: elementwise,
+    reductions, Adam, copies) by name, with the small kernels' share of
+    the device time."""
+    from torch.autograd import DeviceType
+
+    from marlnav_tpu_torch.utils import trace
+
+    torch.cuda.synchronize()
+    with trace(log_dir) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.key not in host_keys]
+    by_kernel = {e.key: (e.count, e.self_device_time_total / 1e3)
+                 for e in on_device}
+    total = sum(ms for _, ms in by_kernel.values())
+    ours = sum(ms for k, (_, ms) in by_kernel.items() if "marlnav" in k)
+    small = {k: v for k, v in by_kernel.items() if "marlnav" not in k}
+    print(f"{label}: device time {total:.3f} ms over "
+          f"{sum(c for c, _ in by_kernel.values())} kernels; the port's "
+          f"kernels {ours:.3f} ms, the small kernels "
+          f"{total - ours:.3f} ms ({(total - ours) / total:.1%}) over "
+          f"{sum(c for c, _ in small.values())} launches"
+          if total else f"{label}: the trace holds no device time")
+    for k, (c, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]:
+        print(f"  {ms:9.3f} ms ({ms / total:6.1%})  x{c:<6} {k[:80]}")
+    return {"device_ms": total, "ours_ms": ours, "small_ms": total - ours,
+            "small_launches": sum(c for c, _ in small.values()),
+            "by_kernel": by_kernel}
 
 
 # Phase 19: the fused route at (P19, T19), 5 + 5 epochs, on uniforms drawn
@@ -606,14 +656,12 @@ def main(out_dir):
     from marlnav_tpu_torch import bench
     from marlnav_tpu_torch.__main__ import build_parser, cli
     from marlnav_tpu_torch.algo import make_mappo
-    from marlnav_tpu_torch.algo.mappo import (minibatch_advantages,
-                                              minibatch_slices)
+    from marlnav_tpu_torch.algo.mappo import minibatch_slices
     from marlnav_tpu_torch.config import (EnvParams, MAPPOConfig,
                                           NormalizerConfig, ScalerConfig,
                                           TriangleInitConfig,
                                           resolve_run_config)
     from marlnav_tpu_torch.env import make_env
-    from marlnav_tpu_torch.models import Actor, Critic
     from marlnav_tpu_torch.ops import fused_collect as fc
     from marlnav_tpu_torch.ops import fused_rollout as fr
     from marlnav_tpu_torch.ops import fused_update as fu
@@ -708,25 +756,30 @@ def main(out_dir):
             [cuobjdump, "-sass", builds["fused_update"][1]["path"]],
             capture_output=True, text=True, check=True).stdout
         hmma = hmma_counts(sass)
+        # The forward of the instances of at most 8 n-tiles runs on the
+        # float64 tensor cores: 4 DMMA (m8n8k4) a k-step and n-tile, in a
+        # loop over the k-steps; the others' in 3xTF32.
+        dmma = hmma_counts(sass, op="DMMA")
         spilled = {}
         for (head, ks, nt), count in sorted(hmma.items()):
             line = instance_line(builds["fused_update"][1]["log"],
                                  f"{head.capitalize()}HeadILi{nt}EEELi{ks}E")
+            fwd = (f"{dmma[(head, ks, nt)]} DMMA: the forward" if nt <= 8
+                   else f"forward: {3 * ks * nt} of them")
             print(f"tc_grad_kernel<{head.capitalize()}Head<NT={nt}>, KS={ks}>"
-                  f": {count} HMMA in its SASS (forward: {3 * ks * nt}); "
-                  + line)
+                  f": {count} HMMA in its SASS ({fwd}); " + line)
+            assert (dmma[(head, ks, nt)] > 0) == (nt <= 8), (head, ks, nt)
             stores = re.findall(r"(\d+) bytes spill stores", line)
             assert stores, line
             spilled[(head, ks, nt)] = int(stores[0])
         assert {h for h, _, _ in hmma} == {"critic", "actor"}, hmma
         assert all(c > 0 for c in hmma.values()), hmma
-        # No instance may spill more than it does today: none but these two,
-        # the default un-collapsed actor's among them (PERF.md, open
-        # questions; ROADMAP.md Queue 3).
+        # No instance may spill more than it does today: none does.
         worse = {k: v for k, v in spilled.items()
                  if v > SPILL_STORES_TODAY.get(k, 0)}
         assert not worse, f"tc_grad_kernel spill stores grew: {worse}"
         record["tc_hmma"] = {f"{k}": c for k, c in hmma.items()}
+        record["tc_dmma"] = {f"{k}": c for k, c in dmma.items()}
         # The bf16 instances (--bf16-updates): one m16n8k16 product a
         # k-step of 16, so a chunk's forward holds ceil(KS / 2) NT of them;
         # none may spill.
@@ -1137,50 +1190,19 @@ def main(out_dir):
     # each output sum divided by its row count (what Adam sees) against the
     # float64 plain version, with the float32 plain version's error beside
     # it.  Asserted: the kernel within 1e-4 of the output's largest
-    # magnitude (+1e-7), and two launches equal bit for bit.
-    fns = {"fused_actor_grad": (fu.actor_grad_sums,
-                                um.actor_grad_sums_reference),
-           "fused_critic_grad": (fu.critic_grad_sums,
-                                 um.critic_grad_sums_reference),
-           "fused_actor_grad_uncollapsed": (
-               fu.actor_grad_uncollapsed_sums,
-               um.actor_grad_sums_uncollapsed_reference)}
-    # The argument whose first dimension is the row count.
-    rows_arg = {"fused_actor_grad": 4, "fused_critic_grad": 4,
-                "fused_actor_grad_uncollapsed": 6}
-
-    def actor_inputs(actor, mb, mcfg):
-        n = mb.log_probs.numel()
-        a_comp, c_comp = fc._affine_compose(actor)
-        return (a_comp, c_comp, mb.obs.reshape(n, -1),
-                mb.actions.reshape(n, -1), mb.log_probs.reshape(n),
-                minibatch_advantages(mb, mcfg), mcfg.epsilon, mcfg.ent_const)
-
-    def critic_inputs(c, mb, mcfg):
-        n = mb.returns.numel()
-        return (c.fc1.weight.detach(), c.fc1.bias.detach(),
-                c.fc2.weight.detach(), c.fc2.bias.detach(),
-                mb.obs.reshape(n, -1), mb.values.reshape(n),
-                mb.returns.reshape(n), mcfg.epsilon)
-
-    def uncollapsed_inputs(actor, mb, mcfg):
-        n = mb.log_probs.numel()
-        # parameters(): fc1, fc_mu, fc_var, each weight then bias.
-        return (*(p_.detach() for p_ in actor.parameters()),
-                mb.obs.reshape(n, -1), mb.actions.reshape(n, -1),
-                mb.log_probs.reshape(n), minibatch_advantages(mb, mcfg),
-                mcfg.epsilon, mcfg.ent_const)
-
-    actor_fns = {"fused_actor_grad": actor_inputs,
-                 "fused_actor_grad_uncollapsed": uncollapsed_inputs}
-    # The outputs of each kernel, in order.
-    outputs = {"fused_actor_grad": ("loss", "dz", "dzs"),
-               "fused_critic_grad": ("loss", "dW1", "db1", "dW2", "db2"),
-               "fused_actor_grad_uncollapsed": (
-                   "loss", "dW1", "db1", "dWmu", "dbmu", "dWvar", "dbvar")}
+    # magnitude (+1e-7), and two launches equal bit for bit; the outputs
+    # the tensor cores sum (timing.TENSOR_CORE_OUTPUTS) of the templated
+    # instances also within the plain version's reach (timing.within_reach:
+    # 4x its error, or 1% of that tolerance), every miss listed before the
+    # phase fails.  The reach of every other output of the tensor-core
+    # kernels (their head sums, the run-time route) is printed.
+    fns = update_functions()
+    rows_arg, outputs = ROWS_ARG, UPDATE_OUTPUTS
+    actor_names = ("fused_actor_grad", "fused_actor_grad_uncollapsed")
     record["output_errors"] = {}
+    misses = []
 
-    def check(name, label, args):
+    def check(name, label, args, templated=True):
         kernel, plain = fns[name]
         n = args[rows_arg[name]].shape[0]
         k1, k2 = kernel(*args), kernel(*args)
@@ -1189,24 +1211,24 @@ def main(out_dir):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(k1, k2)), \
             f"{name} {label}: two launches differ"
-        err_k = err_p = 0.0
-        per_output = {}
-        for out_name, k, q, w in zip(outputs[name], k1, p32, p64):
-            w = w / n
-            ek = (k.double() / n - w).abs().max().item()
-            ep = (q.double() / n - w).abs().max().item()
-            tol = 1e-4 * w.abs().max().item() + 1e-7
-            err_k, err_p = max(err_k, ek), max(err_p, ep)
-            per_output[out_name] = (ek, ep, tol)
+        per_output = dict(zip(outputs[name], output_errors(k1, p32, p64, n)))
+        err_k = max(e[0] for e in per_output.values())
+        err_p = max(e[1] for e in per_output.values())
         print(f"{name} {label}: {n:,} rows; max abs err against float64: "
               f"kernel {err_k:.3e}, plain float32 {err_p:.3e}; two launches "
               f"bitwise equal")
         if name in TENSOR_CORE_WORK:
             # Which output carries the tensor-core kernels' error.
             print("  per output, kernel / plain float32: " + ", ".join(
-                f"{o} {ek:.2e} / {ep:.2e} ({ek / ep if ep else math.inf:.1f}x)"
-                for o, (ek, ep, _) in per_output.items()))
+                f"{o} {ek:.2e} / {ep:.2e} ({ek / ep if ep else math.inf:.1f}x"
+                f"{'' if within_reach(ek, ep, tol) else ', MISSES'})"
+                for o, (ek, ep, tol) in per_output.items()))
             record["output_errors"][f"{name} {label}"] = per_output
+            held = TENSOR_CORE_OUTPUTS[(name, False)] if templated else ()
+            misses.extend(f"{name} {label} {o}: {ek:.3e} against plain "
+                          f"{ep:.3e}, tolerance {tol:.3e}"
+                          for o, (ek, ep, tol) in per_output.items()
+                          if o in held and not within_reach(ek, ep, tol))
         for o, (ek, ep, tol) in per_output.items():
             assert ek <= tol, (f"{name} {label} {o}: error {ek} > {tol} "
                                f"(plain float32 {ep})")
@@ -1268,27 +1290,13 @@ def main(out_dir):
     for name in fns:
         times[name] = {}
     for p, t in ((1024, 1000), (16384, 200)):
-        scfg = resolve_run_config(build_parser().parse_args(
-            ["-np", str(p), "-bl", str(t), "-bs", str(t), "-nt", str(p * t),
-             "-se", "0"]))
-        mcfg = scfg.model
-        mappo = make_mappo(mcfg, make_env(scfg.env, scfg.init, dev),
-                           scfg.normalizer, scfg.scaler)
-        ts, es = mappo.init(make_generator(1, dev))
-        _, buf, _ = fc.make_fused_collect(
-            mcfg, scfg.env, scfg.init, scfg.normalizer, scfg.scaler)(
-                ts, fc.env_state_to_rows(es), 7)
-        mb = minibatch_slices(buf, mcfg)[0]
-        g = torch.Generator().manual_seed(2)
-        actor = Actor(mcfg.obs_size, mcfg.hidden_size, generator=g).to(dev)
-        critic = Critic(mcfg.obs_size, mcfg.num_agents, mcfg.hidden_size,
-                        generator=g).to(dev)
+        batch = collected_batch(p, t, dev)
+        mcfg, ts, buf, mb = batch.cfg, batch.ts, batch.buf, batch.mb
 
         def all_inputs(smb, scfg_):
-            out_ = {name: fn(actor, smb, scfg_)
-                    for name, fn in actor_fns.items()}
-            out_["fused_critic_grad"] = critic_inputs(critic, smb, scfg_)
-            return out_
+            return {name: update_args(name, batch.critic if name ==
+                                      "fused_critic_grad" else batch.actor,
+                                      smb, scfg_) for name in fns}
 
         inputs = all_inputs(mb, mcfg)
         for name, args in inputs.items():
@@ -1305,11 +1313,11 @@ def main(out_dir):
                         check(name, label, args)
                     if i == 0:
                         slice_inputs = s_inputs
-            for name, fn in actor_fns.items():
+            for name in actor_names:
                 check(name, "collecting actor (ratios ~1, tied)",
-                      fn(ts.actor, mb, mcfg))
+                      update_args(name, ts.actor, mb, mcfg))
             check("fused_critic_grad", "collecting critic (all rows tied)",
-                  critic_inputs(ts.critic, mb, mcfg))
+                  update_args("fused_critic_grad", ts.critic, mb, mcfg))
             # A row count that leaves the last 16-row chunk (and the affine
             # actor's last tile) ragged.
             check("fused_actor_grad", "ragged 100,003 rows", tuple(
@@ -1361,71 +1369,22 @@ def main(out_dir):
     # own, either side: the values and the ratios lie inside and outside
     # the clip band of eps 0.2 but never on its edge, where float32 and
     # float64 may take different sides of a clip or a min and a row's
-    # whole gradient jumps.  Returns apart from both.
+    # whole gradient jumps.  Returns apart from both (timing.
+    # wide_update_case).
     lib = fu._library()
-    max_h = lib.marlnav_max_hidden()
     n = 200_003
-
-    def margins(gen):
-        """n offsets of -0.4, -0.05, 0.05 or 0.4."""
-        return torch.tensor([-0.4, -0.05, 0.05, 0.4], device=dev)[
-            torch.randint(0, 4, (n,), device=dev, generator=gen)]
-
-    wide = {"fused_critic_grad": [
-                (2, EnvParams(num_agents=2).obs_size, 32), (3, 22, 50),
-                (3, 12, 128), (4, 24, 128), (1, 103, 128), (3, 12, 256),
-                (3, 34, 256), (1, lib.marlnav_critic_max_in(), max_h),
-                (3, 40, 50), (1, 210, 64), (3, 12, 512), (1, 103, 257),
-                (1, 1040, 64)],
-            "fused_actor_grad_uncollapsed": [
-                (1, 22, 50), (1, 22, 128), (1, 32, 128), (1, 39, 128),
-                (1, 12, 256), (1, 34, 256),
-                (1, lib.marlnav_uncollapsed_max_obs(), max_h),
-                (1, 40, 50), (1, 70, 128), (1, 12, 512)],
+    assert (1, lib.marlnav_critic_max_in(), lib.marlnav_max_hidden()) in \
+        WIDE_UPDATE_WIDTHS["fused_critic_grad"]
+    assert (1, lib.marlnav_uncollapsed_max_obs(), lib.marlnav_max_hidden()) \
+        in WIDE_UPDATE_WIDTHS["fused_actor_grad_uncollapsed"]
+    wide = {**WIDE_UPDATE_WIDTHS,
             "fused_actor_grad": [(1, 22, 50), (1, 32, 50), (1, 34, 50),
                                  (1, 13, 50), (1, 255, 50), (1, 256, 50),
                                  (1, 300, 50)]}
 
     def wide_case(name, agents, f, h):
         """(label, args) of ``name`` on n random rows at these widths."""
-        gen = make_generator(20 + f + h, dev)
-        net_gen = torch.Generator().manual_seed(h)
-        x = torch.randn((n, agents * f), device=dev, generator=gen)
-        if name == "fused_critic_grad":
-            critic = Critic(f, agents, h, generator=net_gen).to(dev)
-            # Hidden biases of +-2 against pre-activations of spread at
-            # most 1 (x ~ N(0, 1), orthogonal W1): no unit sits at the
-            # ReLU's kink, where the kernel's and float64's roundings
-            # may take different sides and a row's whole term of dW1
-            # and db1 jumps.
-            with torch.no_grad():
-                critic.fc1.bias.copy_(2.0 * torch.sign(torch.randn(
-                    h, device=dev, generator=gen)))
-                v = critic(x)[:, 0]
-            label = f"In {agents * f}, H {h}"
-            args = (critic.fc1.weight.detach(), critic.fc1.bias.detach(),
-                    critic.fc2.weight.detach(), critic.fc2.bias.detach(),
-                    x, v + margins(gen),
-                    torch.randn(n, device=dev, generator=gen), 0.2)
-        else:
-            actor = Actor(f, h, generator=net_gen).to(dev)
-            label = f"F {f}" + (f", H {h}" if name != "fused_actor_grad"
-                                else "")
-            act = torch.rand((n, 2), device=dev, generator=gen) * 2 - 1
-            with torch.no_grad():
-                hid = actor.fc1(x)
-                var = torch.nn.functional.softplus(actor.fc_var(hid))
-                lp = -0.5 * (2.0 * math.log(2.0 * math.pi)
-                             + torch.log(var).sum(1)
-                             + ((act - torch.tanh(actor.fc_mu(hid))) ** 2
-                                / var).sum(1))
-            rows = (x, act, lp + margins(gen),
-                    torch.randn(n, device=dev, generator=gen), 0.2, 0.001)
-            weights = (fc._affine_compose(actor) if name ==
-                       "fused_actor_grad" else
-                       tuple(p_.detach() for p_ in actor.parameters()))
-            args = (*weights, *rows)
-        return label, args
+        return wide_update_case(name, agents, f, h, n, dev)
 
     # Phase 15's bf16 check (described there); the width --bf16-updates -hs
     # 64 trains is held to it below.
@@ -1434,7 +1393,7 @@ def main(out_dir):
                   "fused_actor_grad_uncollapsed": (True,)}
     record["bf16"] = {"errors": {}}
 
-    def check16(name, mode, label, args):
+    def check16(name, mode, label, args, templated=True):
         kernel, plain = fns[name]
         k1, k2 = kernel(*args, mode), kernel(*args, mode)
         p16, p32 = plain(*args, mode), plain(*args)
@@ -1461,6 +1420,23 @@ def main(out_dir):
               + ", ".join(f"{o} {v['err']:.2e} / {v['gap']:.2e}; "
                           f"{v['err64']:.2e} ({v['rel64']:.1e})"
                           for o, v in per.items()))
+        if name in TENSOR_CORE_WORK:
+            # The criterion against the plain bf16 version's own error
+            # (both as means, against float64 of the rounded operands).
+            n_rows = args[rows_arg[name]].shape[0]
+            reach = dict(zip(outputs[name], output_errors(k1, p16, p64,
+                                                          n_rows)))
+            print("  per output against float64 as means, kernel / plain "
+                  "bf16: " + ", ".join(
+                      f"{o} {ek:.2e} / {ep:.2e}"
+                      f"{'' if within_reach(ek, ep, tol) else ' (MISSES)'}"
+                      for o, (ek, ep, tol) in reach.items()))
+            held = TENSOR_CORE_OUTPUTS[(name, True)] if templated else ()
+            for o, (ek, ep, tol) in reach.items():
+                per[o]["reach"] = (ek, ep, tol)
+                if o in held and not within_reach(ek, ep, tol):
+                    misses.append(f"{tag} {o}: {ek:.3e} against plain bf16 "
+                                  f"{ep:.3e}, tolerance {tol:.3e}")
         record["bf16"]["errors"][tag] = per
 
     def runtime_route(name, agents, f, h):
@@ -1474,9 +1450,10 @@ def main(out_dir):
     for name, cases in wide.items():
         for agents, f, h in cases:
             label, args = wide_case(name, agents, f, h)
-            if runtime_route(name, agents, f, h):
+            templated = not runtime_route(name, agents, f, h)
+            if not templated:
                 label += " (run-time route)"
-            check(name, label, args)
+            check(name, label, args, templated)
             time_kernels(label, label, {name: args}, None,
                          (f, h, agents * f))
     # What --bf16-updates -hs 64 trains: the critic at In 36 / H 64, which
@@ -1484,7 +1461,7 @@ def main(out_dir):
     assert not lib.marlnav_critic_warps(36, 64, 1)
     label, args = wide_case("fused_critic_grad", 3, 12, 64)
     label += " (run-time route)"
-    check16("fused_critic_grad", True, label, args)  # tagged bf16 there
+    check16("fused_critic_grad", True, label, args, False)  # tagged bf16
     time_kernels(f"bf16 {label}", f"bf16 {label}",
                  {"fused_critic_grad": args}, None, (12, 64, 36), mode=True)
     # A record, no routing change: the run-time route (fu._rt_grad_sums
@@ -1520,6 +1497,9 @@ def main(out_dir):
         print(f"fused_critic_grad {label}, {n:,} rows: tensor-core instance "
               f"{inst_ms:.4f} ms, run-time route called directly "
               f"{rt_ms:.4f} ms ({rt_ms / inst_ms:.2f}x; medians of 7)")
+    print(f"outputs outside the plain version's reach: {len(misses)}"
+          + "".join(f"\n  {m}" for m in misses))
+    assert not misses, "phase 6: outputs outside the plain version's reach"
 
     # ------------------------------------------------------------------
     phase("7. rollout kernel against its plain version and the collect "
@@ -1957,6 +1937,9 @@ def main(out_dir):
         record["graphs_ms"][route] = {"tail": tail, **tm_}
     prof_g = profile_run("profiled graphed repeat (one replay)",
                          graphs["repeat"].replay)
+    record["breakdown_default"] = trace_breakdown(
+        "the default graphed repeat (one replay), by kernel",
+        graphs["repeat"].replay, os.path.join(out_dir, "trace_default"))
     wall_g = graph_times["repeat"]["wall"]
     busy_g = prof_g["device_busy_ms"]
     # Where the profile of a replay lists no collect kernel (the eager
@@ -2064,6 +2047,9 @@ def main(out_dir):
         label, args = wide_case(name, agents, f, h)
         for mode in bf16_modes[name]:
             check16(name, mode, label, args)
+    print(f"bf16 outputs outside the plain bf16 version's reach: "
+          f"{len(misses)}" + "".join(f"\n  {m}" for m in misses))
+    assert not misses, "phase 15: outputs outside the plain version's reach"
 
     # The main path at full width with --bf16-updates: 2 repeats through
     # the CLI (launch counts 2 / 100 / 100 / 0 / 0 / 2), then 4 eager
@@ -2790,9 +2776,11 @@ def main(out_dir):
           f"{ended21} (reaches, collisions, truncations)")
     rec21["kernel_errors"] = {}
     for name, args in (("fused_actor_grad",
-                        actor_inputs(ts21.actor, buf21, cfg21)),
+                        update_args("fused_actor_grad", ts21.actor, buf21,
+                                    cfg21)),
                        ("fused_critic_grad",
-                        critic_inputs(ts21.critic, buf21, cfg21))):
+                        update_args("fused_critic_grad", ts21.critic,
+                                    buf21, cfg21))):
         kernel, plain = fns[name]
         n = args[rows_arg[name]].shape[0]
         k, p32 = kernel(*args), plain(*args)
@@ -2859,7 +2847,24 @@ def main(out_dir):
           f"networks and rows equal bit for bit: {same21}; counts equal: "
           f"{bool((packed_g == np.concatenate(packed_e)).all())}")
     assert same21 and (packed_g == np.concatenate(packed_e)).all()
-    del buf21, collect21, k21, r21, u21, mappo21, blocks21, snap21
+    # (c3) One repeat at H42's constants (4096 x 200, 10 + 10 epochs, GAE)
+    # captured as a graph and traced, beside phase 13's default repeat.
+    seed21 = torch.tensor(base21, dtype=torch.int32, device=dev)
+
+    def h42_repeat():
+        return mappo21.train_many(ts21, rows21, None, 1,
+                                  lambda ts_, r_, _: collect21(ts_, r_,
+                                                               seed21))
+
+    h42_repeat()  # warm
+    graph21 = CountedGraph()
+    with graph21.capture():
+        h42_repeat()
+    rec21["breakdown"] = trace_breakdown(
+        "(c3) a graphed repeat at H42's constants (one replay), by kernel",
+        graph21.replay, os.path.join(out_dir, "trace_h42"))
+    snap21.restore(ts21, rows21)
+    del buf21, collect21, k21, r21, u21, mappo21, blocks21, snap21, graph21
     # (d) H42's first stage (docs/curriculum_r5.md:255-268), one stage.
     h42 = ["--mode", "radius-noise-adaptive", "--seed", "42",
            "--repeats-per-stage", "600", "--group-soft", "50000",
@@ -2948,6 +2953,61 @@ def main(out_dir):
     assert _build.load_libraries.nvcc_runs == nvcc_before
     record["curriculum"] = rec21
     del ts21, rows21
+
+    # ------------------------------------------------------------------
+    phase("22. the hold against the JAX package (python -m "
+          "marlnav_tpu_torch.scripts.hold), cut: ignition and "
+          "ignition-jax-init on 2 of the 16 seeds, h42 on 2 of its 20 "
+          "stages, the sweep on --grid quick --repeats 20 (not main at 300)")
+    # Each check completes with every field finite; its launches are phase
+    # 21's a repeat (1 collect, 10 + 10 gradient launches, 2 returns: GAE)
+    # and a rollout a stage where it takes the mean-eval (h42); no nvcc.
+    # The full checks run on their own (python -m
+    # marlnav_tpu_torch.scripts.hold --check all; README).
+    from marlnav_tpu_torch.scripts import hold as hld
+
+    def finite_tree(x):
+        if isinstance(x, dict):
+            return all(finite_tree(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return all(finite_tree(v) for v in x)
+        return not isinstance(x, float) or math.isfinite(x)
+
+    def per_repeats(n, rollouts=0):
+        return expect(fused_collect=n, fused_actor_grad=10 * n,
+                      fused_critic_grad=10 * n, returns=2 * n,
+                      fused_rollout=rollouts)
+
+    hold_argv = ["--seeds", "2,42", "--stages", "2", "--grid", "quick",
+                 "--sweep-repeats", "20", "--out",
+                 os.path.join(out_dir, "hold")]
+    rec22 = {}
+    for check, want in (("ignition", per_repeats(2 * 600)),
+                        ("ignition-jax-init", per_repeats(2 * 600)),
+                        ("h42", per_repeats(2 * 600, 2)),
+                        ("sweep", per_repeats(2 * 20))):
+        reset_counts()
+        t0 = time.perf_counter()
+        res22 = hld.main(["--check", check] + hold_argv)[check]
+        torch.cuda.synchronize()
+        wall22, got22 = time.perf_counter() - t0, read_counts()
+        if check == "h42":
+            summary = [(s["stage"], round(s["share"], 4), s["jax_tar_share"])
+                       for s in res22["stages"]]
+        elif check == "sweep":
+            summary = [(c["risk_factor"], round(c["col_share"], 4),
+                        round(c["mean_rew_last"], 1)) for c in res22["cells"]]
+        else:
+            summary = {s: round(hld.reach_share(r), 4)
+                       for s, r in res22["port"].items()}
+        print(f"hold --check {check}: {wall22:.2f} s; launches {got22}; "
+              f"verdict at this cut {res22['passed']}; {summary}")
+        assert finite_tree(res22), (check, res22)
+        assert got22 == want, (check, got22, want)
+        assert _build.load_libraries.nvcc_runs == nvcc_before
+        rec22[check] = {"result": res22, "wall_s": wall22,
+                        "launches": got22}
+    record["hold_cut"] = rec22
     print(f"(phase took {time.perf_counter() - _PHASE_START[0]:.1f} s)")
 
     def shape_key(key):

@@ -60,8 +60,12 @@
 //     memory while the rows before them are computed.
 //   - Forward: pre = [x | 1] [W1^T ; b1] (the bias as a ones column, K
 //     padded to 8 KS); W1 and b1 sit in shared memory once a block in
-//     fragment order, split into their TF32 halves (or as floats, split at
-//     each load, where the halves do not fit beside 8 warps' buffers).
+//     fragment order.  Where a pass holds at most 8 n-tiles (64 hidden
+//     units) the forward runs on the float64 tensor cores (mma_f64.cuh,
+//     tc_forward_f64): exact products, float64 sums, one rounding, and
+//     the head's sums in float64; past that in 3xTF32, W1 split into its
+//     TF32 halves (or as floats, split at each load, where the halves do
+//     not fit beside 8 warps' buffers).
 //   - The head, per row in the accumulator fragments (a row's columns sit
 //     on one quad of 4 lanes; fixed-order partial sums and two xor
 //     shuffles give every lane of the quad the same sums):
@@ -75,7 +79,11 @@
 //   - Backward: [x | 1]^T g_pre (dW1^T, with db1 as its last row; M = In +
 //     1 padded to 16 MT, N = H padded to 8 NT, K = the rows), and for the
 //     actor g_z^T h as one more m-tile, accumulated across every chunk in
-//     registers.  Where a warp's registers hold every output tile (MT NT <=
+//     registers.  In both products each k-step's mma starts from zero and
+//     its result is added to the running sums by the CUDA cores (add_to):
+//     no tensor-core accumulation chains more than one k-step, and the
+//     lanes' CUDA-core sums add their chunk's rows first (a chunk partial).
+//     Where a warp's registers hold every output tile (MT NT <=
 //     21: the default critic and actor), each warp runs on its own, with
 //     no block barrier, over its own rows, and the block's warps are summed
 //     in order at the end.  Past that the block's warps share their rows:
@@ -84,8 +92,7 @@
 //     of m- and n-tiles) over all the block's chunks, a block barrier
 //     before the buffers are refilled; at the end each warp writes its
 //     tiles straight to the block's partial.
-//   - A persistent grid of one block an SM (two for the actor's narrow
-//     instances, whose registers allow it).
+//   - A persistent grid of one block an SM.
 //   - Past 128 hidden units (NT 32) the kernel runs a pass over its rows
 //     for each 16 n-tiles: each pass takes the whole forward, group by
 //     group (the head needs every unit), its own group last, and the
@@ -121,8 +128,10 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_f64.cuh"
 #include "mma_tf32.cuh"
 
 namespace marlnav {
@@ -648,6 +657,9 @@ struct CriticHeadT : PassTiles<NT> {
   static constexpr bool kBf16 = BF;
   static constexpr int kAux = 2;    // floats a row: old value, return
   static constexpr int kThird = 0;  // dW2 stays in registers
+  // With the float64 forward, v's sums in float64 too: a row whose v lies
+  // near a clip edge takes the side float64 takes.
+  static constexpr bool kF64Sums = !BF;
   static constexpr int kParamFloats = NT * 8;  // w2, zero-padded
   static constexpr int kSums = 2;   // a lane's share of v, rows g and g + 8
   static constexpr int kSmallMax = NT * 8 + 2 + (BF ? NT * 8 : 0);
@@ -722,36 +734,67 @@ struct CriticHeadT : PassTiles<NT> {
     }
   }
 
+  // As sums, in float64, for the n-tiles n0 .. n0 + NG - 1 (below ntg) of
+  // the float64 pre-activations cd (tc_forward_f64; one pass, float32
+  // operands): the ReLU in place, then this lane's share of w2 . h.
+  template <int NG>
+  static __device__ void sums_f64(double (&cd)[NG][4], int n0, int ntg,
+                                  const float* s_par, int t,
+                                  double (&p)[kSums]) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      if (n0 + j >= ntg) break;
+      const float2 w =
+          *reinterpret_cast<const float2*>(s_par + (n0 + j) * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cd[j][e] = cd[j][e] > 0.0 ? cd[j][e] : 0.0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[h] = p[h] + static_cast<double>(w.x) * cd[j][2 * h];
+        p[h] = p[h] + static_cast<double>(w.y) * cd[j][2 * h + 1];
+      }
+    }
+  }
+
   // The 16 rows of a chunk from the lane's shares p of w2 . h (all hidden
-  // units) and the pass's h in c (units col0 ..): the loss chain, g_pre
-  // into s_g (16, LDG); rows from row0 on are valid below n.  The loss and
-  // db2 count where `first` (the first pass).
-  template <int NTG, int LDG>
-  __device__ void rows(float (&c)[NTG][4], float (&p)[kSums],
+  // units; float32, or float64 after tc_forward_f64) and the pass's h in c
+  // (units col0 ..): the loss chain, g_pre into s_g (16, LDG); rows from
+  // row0 on are valid below n.  The loss and db2 count where `first` (the
+  // first pass).
+  template <int NTG, int LDG, typename PT>
+  __device__ void rows(float (&c)[NTG][4], PT (&p)[kSums],
                        const float* s_par, const float* aux, long long row0,
                        long long n, int g, int t, int col0, bool first,
                        float* s_g, float*, float*) {
-    float gv[2];
+    // The chunk's sums of this lane's two rows (its partials), added to the
+    // lane's running sums once a chunk.
+    float gv[2], loss_c = 0.f, b2_c = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 1);
       p[h] = p[h] + __shfl_xor_sync(0xffffffffu, p[h], 2);
       const int row = g + 8 * h;
       float loss;
-      const float gvr =
-          update::critic_row(p[h] + b2, aux[row], aux[16 + row], eps, &loss);
+      const float gvr = update::critic_row(static_cast<float>(p[h] + b2),
+                                           aux[row], aux[16 + row], eps,
+                                           &loss);
       const bool valid = row0 + row < n;
       gv[h] = valid ? gvr : 0.f;
-      if (valid && t == 0 && first) {
-        acc_loss += loss;
-        acc_b2 += gvr;
+      if (valid) {
+        loss_c += loss;
+        b2_c += gvr;
       }
+    }
+    if (t == 0 && first) {
+      acc_loss += loss_c;
+      acc_b2 += b2_c;
     }
     // g_pre = (w2 g_v) (h > 0) into the warp's tile; dW2 += g_v h.
 #pragma unroll
     for (int nt = 0; nt < NTG; ++nt) {
       const float2 w =
           *reinterpret_cast<const float2*>(s_par + col0 + nt * 8 + 2 * t);
+      float w2_c[2] = {0.f, 0.f};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float h0 = c[nt][2 * h], h1 = c[nt][2 * h + 1];
@@ -760,9 +803,11 @@ struct CriticHeadT : PassTiles<NT> {
                                       (w.y * gvh) * flag(h1 > 0.f));
         *reinterpret_cast<float2*>(s_g + (g + 8 * h) * LDG + nt * 8 + 2 * t) =
             gp;
-        acc_w2[nt][0] += gvh * r(h0);
-        acc_w2[nt][1] += gvh * r(h1);
+        w2_c[0] += gvh * r(h0);
+        w2_c[1] += gvh * r(h1);
       }
+      acc_w2[nt][0] += w2_c[0];
+      acc_w2[nt][1] += w2_c[1];
     }
   }
 
@@ -815,6 +860,7 @@ struct ActorHeadT : PassTiles<NT> {
   static constexpr bool kBf16 = BF;
   static constexpr int kAux = 4;    // floats a row: action (2), lp, adv
   static constexpr int kThird = 1;  // dWmu, dWvar = g_z^T h, one m-tile
+  static constexpr bool kF64Sums = false;  // z's sums in float32
   // [Wmu; Wvar] (4, 8 NT), zero-padded, then [bmu; bvar].
   static constexpr int kParamFloats = 4 * NT * 8 + 4;
   // A lane's share of z = [Wmu; Wvar] h: p[2 o + h], output o, rows g and
@@ -854,7 +900,9 @@ struct ActorHeadT : PassTiles<NT> {
                  : o_wmu + 2 * hid + 2 + (c - 2) * hid + j;
   }
 
-  float acc_loss, acc_bh[4];  // lanes t == 0: rows g and g + 8
+  // Lanes t == 0, 2: row g, or g + 8, of each chunk, one term a chunk (the
+  // lane's whole share of it).
+  float acc_loss, acc_bh[4];
   PpoConsts k;
 
   static __device__ float r(float x) { return BF ? round_bf16(x) : x; }
@@ -912,8 +960,8 @@ struct ActorHeadT : PassTiles<NT> {
   // and the pass's h in c (units col0 ..): the PPO chain, then h into s_h
   // (16, LDG), g_z into s_z (16, 4) and g_h into s_g (16, LDG).  The loss
   // and the head biases' sums count where `first` (the first pass).
-  template <int NTG, int LDG>
-  __device__ void rows(float (&c)[NTG][4], float (&p)[kSums],
+  template <int NTG, int LDG, typename PT>
+  __device__ void rows(float (&c)[NTG][4], PT (&p)[kSums],
                        const float* s_par, const float* aux, long long row0,
                        long long n, int g, int t, int col0, bool first,
                        float* s_g, float* s_h, float* s_z) {
@@ -925,11 +973,12 @@ struct ActorHeadT : PassTiles<NT> {
     for (int o = 0; o < 4; ++o) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float& q = p[2 * o + h];
+        PT& q = p[2 * o + h];
         q = q + __shfl_xor_sync(0xffffffffu, q, 1);
         q = q + __shfl_xor_sync(0xffffffffu, q, 2);
       }
-      z[o] = (mh ? p[2 * o + 1] : p[2 * o]) + s_par[4 * NT * 8 + o];
+      z[o] = static_cast<float>((mh ? p[2 * o + 1] : p[2 * o]) +
+                                s_par[4 * NT * 8 + o]);
     }
     float g_row[4], gz[2][4];  // gz: rows g and g + 8
     const float loss = ppo_row(z, make_float2(aux[2 * row], aux[2 * row + 1]),
@@ -1064,12 +1113,19 @@ struct TcShape {
   // in the product), two packed registers a lane, then b1 (8 NT floats),
   // from which the forward's accumulators start.
   static constexpr bool kBf16 = Head::kBf16;
+  // The forward on the float64 tensor cores (tc_forward_f64) where a pass
+  // is one of at most 8 n-tiles: its float64 sums, two n-tiles at a time,
+  // fit beside the backward's accumulators.  W1's fragments are held as
+  // float64 pairs (the size of the TF32 halves).
+  static constexpr bool kFloat64 = !kBf16 && kGroups == 1 && kNtg <= 8;
   static constexpr bool kPreSplit =
-      KS * kNt * 32 * 4 + Head::kParamFloats + 8 * (kWarpFloats + kSmall) <=
-      kSmemFloats;
+      !kFloat64 && KS * kNt * 32 * 4 + Head::kParamFloats +
+                           8 * (kWarpFloats + kSmall) <=
+                       kSmemFloats;
   static constexpr int kB1Off = kMt * kNt * 32 * 2;
   static constexpr int kFragFloats =
-      kBf16 ? kB1Off + kNt * 8 : KS * kNt * 32 * (kPreSplit ? 4 : 2);
+      kBf16 ? kB1Off + kNt * 8
+            : KS * kNt * 32 * (kPreSplit || kFloat64 ? 4 : 2);
   static constexpr int kFit = (kSmemFloats - kFragFloats -
                                Head::kParamFloats) / (kWarpFloats + kSmall);
   static constexpr int kWarps = kFit < 8 ? kFit : 8;
@@ -1080,13 +1136,6 @@ struct TcShape {
   static constexpr int kWn = kShared ? tc_best_wn(kMtAll, kNtg, kWarps) : 1;
   static constexpr int kWm = kShared ? kWarps / kWn : 1;
   static constexpr int kMtw = (kMtAll + kWm - 1) / kWm;
-  // Blocks an SM: two of the actor's per-warp instances of up to 14 tiles,
-  // held to 128 registers a thread, whose chain leaves the tensor cores
-  // idle between chunks; one of every other (the critic's default keeps
-  // 211 registers).
-  // bf16 instances take one (the full register file a thread).
-  static constexpr int kBlocks =
-      !kBf16 && Head::kThird && kGroups == 1 && kMtAll * kNtg <= 14 ? 2 : 1;
   static constexpr int kNtw = (kNtg + kWn - 1) / kWn;
   static_assert(kWarps >= 1 && kMainFloats <= kSmemFloats,
                 "an instance fits the block's shared memory");
@@ -1099,6 +1148,17 @@ __device__ __forceinline__ void group_sync() {
     __syncwarp();
   else
     __syncthreads();
+}
+
+// c += d, where d is one k-step's product, accumulated by the tensor core
+// from zero: the running sums are float32 adds on the CUDA cores, so no
+// tensor-core accumulation runs longer than a k-step.  The tensor core's
+// own float32 accumulation is not rounded to nearest: chained over hundreds
+// of k-steps, its sums drifted from float64 far past the plain version's
+// error (5x on dW1 at In 1040, 10-80x on the templated instances' db1).
+__device__ __forceinline__ void add_to(float (&c)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = c[e] + d[e];
 }
 
 // Start the copies of rows 16 chunk .. 16 chunk + 15 (those below n_rows)
@@ -1128,7 +1188,9 @@ __device__ __forceinline__ void tc_prefetch(const GradArgs& a, long long chunk,
 }
 
 // pre = [x | 1] [W1^T ; b1] over a warp's 16 rows x (16, LDX) for the
-// n-tiles nt0 .. nt0 + NTG - 1, into c (the fragments of rows g and g + 8).
+// n-tiles nt0 .. nt0 + NTG - 1, into c (the fragments of rows g and g + 8),
+// in 3xTF32: the instances past 8 n-tiles a pass, whose registers hold no
+// float64 sums (tc_forward_f64).
 template <class Sh, int KS, int NTG, int LDX>
 __device__ __forceinline__ void tc_forward(float (&c)[NTG][4], const float* x,
                                            const float4* smem4, int nt0,
@@ -1138,8 +1200,7 @@ __device__ __forceinline__ void tc_forward(float (&c)[NTG][4], const float* x,
   for (int nt = 0; nt < NTG; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
+  auto kstep = [&](int ks) {
     float a[4];
     uint32_t a_big[4], a_small[4];
     mma::load_a_rows(x + ks * 8, LDX, lane, a);
@@ -1161,13 +1222,66 @@ __device__ __forceinline__ void tc_forward(float (&c)[NTG][4], const float* x,
       }
       mma::mma_3xtf32(c[nt], a_big, a_small, b_big, b_small);
     }
+  };
+  // The one-pass instances take the k-steps as a loop, the two-pass ones
+  // unrolled: each way the other spilled past 64 hidden units.
+  if constexpr (Sh::kGroups == 1) {
+#pragma unroll 1
+    for (int ks = 0; ks < KS; ++ks) kstep(ks);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) kstep(ks);
   }
 }
 
-// The same in bf16: pre = b1 + x W1^T, the accumulators started from b1
-// (float32, unrounded), one m16n8k16 product a k-step of 16 on x rounded at
-// its fragment load and W1's pre-rounded fragments; the ones column of
-// [x | 1] meets zeros there.
+// The same on the float64 tensor cores (TcShape::kFloat64): pre of each
+// row and n-tile summed in float64 over the k-steps from W1's fragments (w:
+// b0, b1 a lane, as float64), then rounded to float32 once, into c.  Where
+// the head takes float64 sums (Head::kF64Sums), its sums from the float64
+// pre into p.  Two n-tiles at a time, the k-steps as a loop: unrolled,
+// their loads were all hoisted and spilled.
+template <class Sh, class Head, int KS, int NTG, int LDX, typename PT>
+__device__ __forceinline__ void tc_forward_f64(float (&c)[NTG][4],
+                                               PT (&p)[Head::kSums],
+                                               const float* x,
+                                               const double2* w,
+                                               const float* s_par, int lane) {
+  constexpr int NT = Sh::kNt, NG = 2;
+  const int g = lane >> 2, t = lane & 3;
+  const float* xl = x + g * LDX + t;  // rows g, g + 8; columns t, t + 4
+#pragma unroll
+  for (int n0 = 0; n0 < NTG; n0 += NG) {
+    double cd[NG][4];
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cd[j][e] = 0.0;
+#pragma unroll 1
+    for (int ks = 0; ks < KS; ++ks) {
+      const float* xk = xl + ks * 8;
+      const double a[4] = {xk[0], xk[8 * LDX], xk[4], xk[8 * LDX + 4]};
+      const double2* wk = w + (ks * NT + n0) * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        if (n0 + j >= NTG) break;
+        const double2 b = wk[j * 32];
+        mma::mma_f64(cd[j], a, b.x, b.y);
+      }
+    }
+    if constexpr (Head::kF64Sums) Head::sums_f64(cd, n0, NTG, s_par, t, p);
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      if (n0 + j >= NTG) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n0 + j][e] = static_cast<float>(cd[j][e]);
+    }
+  }
+}
+
+// The same in bf16: pre = b1 + x W1^T, the sums started from b1 (float32,
+// unrounded), one m16n8k16 product a k-step of 16 on x rounded at its
+// fragment load and W1's pre-rounded fragments, from zero and added by
+// add_to; the ones column of [x | 1] meets zeros there.
 template <class Sh, int NTG, int LDX>
 __device__ __forceinline__ void tc_forward_bf16(float (&c)[NTG][4],
                                                 const float* x,
@@ -1191,7 +1305,9 @@ __device__ __forceinline__ void tc_forward_bf16(float (&c)[NTG][4],
 #pragma unroll
     for (int nt = 0; nt < NTG; ++nt) {
       const uint2 w = frag[(k16 * NT + nt0 + nt) * 32 + lane];
-      mma::mma_bf16(c[nt], a, w.x, w.y);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma::mma_bf16(d, a, w.x, w.y);
+      add_to(c[nt], d);
     }
   }
 }
@@ -1205,8 +1321,7 @@ __device__ __forceinline__ void tc_forward_bf16(float (&c)[NTG][4],
 // backward of its tiles.  Registers stay those of a 16-tile pass; the
 // forward's products and the row reads are paid once a pass.
 template <class Head, int KS>
-__global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
-                                  TcShape<Head, KS>::kBlocks)
+__global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32, 1)
     tc_grad_kernel(const GradArgs args) {
   using Sh = TcShape<Head, KS>;
   constexpr int NT = Sh::kNt, NTG = Sh::kNtg, G = Sh::kGroups;
@@ -1220,8 +1335,9 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   // (KS, NT, 32) B fragments of [W1^T ; b1]: big b0, big b1, small b0,
-  // small b1 a lane (or b0, b1 as floats), then the head's weights, then
-  // the warps' regions, then (several passes) the warps' small sums.
+  // small b1 a lane (or b0, b1 as floats, or as float64 with kFloat64),
+  // then the head's weights, then the warps' regions, then (several passes)
+  // the warps' small sums.
   float* s_par = smem + Sh::kFragFloats;
   float* s_warps = s_par + Head::kParamFloats;
   float* s_small = s_warps + W * Sh::kWarpFloats;
@@ -1255,7 +1371,9 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
              : kk == in ? args.b1[n]
                         : 0.f;
     }
-    if (Sh::kPreSplit) {
+    if (Sh::kFloat64) {
+      reinterpret_cast<double2*>(smem4)[i] = make_double2(b[0], b[1]);
+    } else if (Sh::kPreSplit) {
       uint32_t big[2], small[2];
       mma::split(b, big, small);
       smem4[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
@@ -1331,7 +1449,8 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
       const float* x = mine + buf * 16 * LDX;
 
       // Forward: pre = [x | 1] [W1^T ; b1] over the warp's 16 rows, and
-      // the lane's share p of the head's sums.
+      // the lane's share p of the head's sums (the critic's in float64 with
+      // kFloat64).
       auto forward = [&](float (&o)[NTG][4], const float* xr, const float4* s4,
                          int nt0, int ln) {
         if constexpr (Sh::kBf16)
@@ -1339,10 +1458,17 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
         else
           tc_forward<Sh, KS, NTG, LDX>(o, xr, s4, nt0, ln);
       };
-      float c[NTG][4], p[P];
+      using PT = typename std::conditional<Sh::kFloat64 && Head::kF64Sums,
+                                           double, float>::type;
+      float c[NTG][4];
+      PT p[P];
 #pragma unroll
       for (int i = 0; i < P; ++i) p[i] = 0.f;
-      if constexpr (G == 1) {
+      if constexpr (Sh::kFloat64) {
+        tc_forward_f64<Sh, Head, KS, NTG, LDX>(
+            c, p, x, reinterpret_cast<const double2*>(smem4), s_par, lane);
+        if constexpr (!Head::kF64Sums) Head::sums(c, s_par, 0, t, p);
+      } else if constexpr (G == 1) {
         forward(c, x, smem4, 0, lane);
         Head::sums(c, s_par, 0, t, p);
       } else {
@@ -1390,7 +1516,8 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
 
       // Backward over the group's S chunks, K = 16 rows each in two steps
       // of 8: [x | 1]^T g_pre, and g_z^T h for the actor.  bf16: one step
-      // of 16, each operand rounded at its fragment load.
+      // of 16, each operand rounded at its fragment load.  Each k-step's
+      // product from zero, added to bacc by add_to.
 #pragma unroll 1
       for (int q = 0; q < S; ++q) {
         const float* rq = s_warps + (wq0 + q) * Sh::kWarpFloats;
@@ -1421,59 +1548,88 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32,
 #pragma unroll
             for (int i = 0; i < MTW; ++i) {
               const int mt = wm + WM * i;
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
               if (mt < MT) {
-                mma::mma_bf16(bacc[i][j], a[i], b[0], b[1]);
+                mma::mma_bf16(d, a[i], b[0], b[1]);
               } else if (Head::kThird && mt == MT) {
                 uint32_t hb[2];
                 mma::load_b_rows_bf16(rq + Sh::kOffH + nt * 8, LDG, lane, hb);
-                mma::mma_bf16(bacc[i][j], a[i], hb[0], hb[1]);
+                mma::mma_bf16(d, a[i], hb[0], hb[1]);
+              } else {
+                continue;
               }
+              add_to(bacc[i][j], d);
             }
           }
         } else {
-#pragma unroll
-          for (int kr = 0; kr < 2; ++kr) {
+          // The A fragment of m-tile mt and k-step kr, split in TF32 halves.
+          auto load_a = [&](int mt, int kr, uint32_t (&big)[4],
+                            uint32_t (&small)[4]) {
+            float a[4] = {0.f, 0.f, 0.f, 0.f};
+            if (mt < MT) {
+              mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
+            } else if (Head::kThird && mt == MT && g < 4) {
+              // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
+              const float* z = rq + Sh::kOffZ + kr * 8 * 4;
+              a[0] = z[t * 4 + g];
+              a[2] = z[(t + 4) * 4 + g];
+            }
+            mma::split(a, big, small);
+          };
+          // The B fragment of n-tile nt and k-step kr: g_pre, or h for the
+          // actor's m-tile MT (g_z^T h).
+          auto load_b = [&](bool h, int nt, int kr, uint32_t (&big)[2],
+                            uint32_t (&small)[2]) {
+            float b[2];
+            mma::load_b_rows(rq + (h ? Sh::kOffH : Sh::kOffG) + kr * 8 * LDG +
+                                 nt * 8, LDG, lane, b);
+            mma::split(b, big, small);
+          };
+          // bacc[i][j] += the k-step's product from zero; where the warps
+          // share their rows, after the tile's previous add (0 times its
+          // sum), so that a tile's k-steps stay in turn and their products
+          // are not all in flight at once, 4 registers each.
+          auto step = [&](int i, int j, const uint32_t (&ab)[4],
+                          const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                          const uint32_t (&bs)[2]) {
+            const float z = Sh::kShared ? bacc[i][j][0] * 0.f : 0.f;
+            float d[4] = {z, z, z, z};
+            mma::mma_3xtf32(d, ab, as, bb, bs);
+            add_to(bacc[i][j], d);
+          };
+          // A k-step of 8 rows; where the warps share their rows, the two
+          // as a loop, so that the second's loads wait for the first's
+          // products (registers: unrolled, the widest instances spilled).
+          auto kstep = [&](int kr) {
             uint32_t a_big[MTW][4], a_small[MTW][4];
 #pragma unroll
-            for (int i = 0; i < MTW; ++i) {
-              const int mt = wm + WM * i;
-              float a[4] = {0.f, 0.f, 0.f, 0.f};
-              if (mt < MT) {
-                mma::load_a_cols(xq + kr * 8 * LDX + mt * 16, LDX, lane, a);
-              } else if (Head::kThird && mt == MT && g < 4) {
-                // g_z^T: row c < 4 of the m-tile, column a row of the chunk.
-                const float* z = rq + Sh::kOffZ + kr * 8 * 4;
-                a[0] = z[t * 4 + g];
-                a[2] = z[(t + 4) * 4 + g];
-              }
-              mma::split(a, a_big[i], a_small[i]);
-            }
+            for (int i = 0; i < MTW; ++i)
+              load_a(wm + WM * i, kr, a_big[i], a_small[i]);
 #pragma unroll
             for (int j = 0; j < NTW; ++j) {
               const int nt = wn + WN * j;
               if (nt >= NTG) continue;
-              float b[2];
               uint32_t b_big[2], b_small[2];
-              mma::load_b_rows(rq + Sh::kOffG + kr * 8 * LDG + nt * 8, LDG,
-                               lane, b);
-              mma::split(b, b_big, b_small);
+              load_b(false, nt, kr, b_big, b_small);
 #pragma unroll
               for (int i = 0; i < MTW; ++i) {
                 const int mt = wm + WM * i;
                 if (mt < MT) {
-                  mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], b_big,
-                                  b_small);
+                  step(i, j, a_big[i], a_small[i], b_big, b_small);
                 } else if (Head::kThird && mt == MT) {
-                  float hb[2];
                   uint32_t h_big[2], h_small[2];
-                  mma::load_b_rows(rq + Sh::kOffH + kr * 8 * LDG + nt * 8, LDG,
-                                   lane, hb);
-                  mma::split(hb, h_big, h_small);
-                  mma::mma_3xtf32(bacc[i][j], a_big[i], a_small[i], h_big,
-                                  h_small);
+                  load_b(true, nt, kr, h_big, h_small);
+                  step(i, j, a_big[i], a_small[i], h_big, h_small);
                 }
               }
             }
+          };
+          if constexpr (Sh::kShared) {
+#pragma unroll 1
+            for (int kr = 0; kr < 2; ++kr) kstep(kr);
+          } else {
+#pragma unroll
+            for (int kr = 0; kr < 2; ++kr) kstep(kr);
           }
         }
       }
@@ -1775,16 +1931,6 @@ __device__ __forceinline__ void rt_split(const float* ws, float4* frag,
                             __uint_as_float(small[1]));
     }
   }
-}
-
-// c += d, where d is one k-step's product, accumulated by the tensor core
-// from zero: the running sums are float32 adds on the CUDA cores, so no
-// tensor-core accumulation runs longer than a k-step (its float32 sums over
-// hundreds of products drift from float64 far past the plain version's
-// error).
-__device__ __forceinline__ void add_to(float (&c)[4], const float (&d)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] = c[e] + d[e];
 }
 
 // c += x W1^T over one stage for a warp's 16 rows xw (row stride kRtLdx):
@@ -2314,12 +2460,11 @@ inline int hidden_nt(int hid) {
 }
 
 // The instance of Head for (KS, NT): its warps a block (0 where none is
-// built) and its blocks an SM in *per_sm; with args, it is also launched,
-// its error in *err.
+// built; one block an SM, every instance taking up to the full register
+// file a thread); with args, it is also launched, its error in *err.
 #define MARLNAV_TC(HEAD, KS_, NT_)                                   \
   if (ks == KS_ && nt == NT_) {                                      \
     if (args) *err = launch_tc<HEAD<NT_>, KS_>(*args, blocks, s);    \
-    if (per_sm) *per_sm = TcShape<HEAD<NT_>, KS_>::kBlocks;          \
     return TcShape<HEAD<NT_>, KS_>::kWarps;                          \
   }
 #define MARLNAV_TC_NT(HEAD, KS_)                                       \
@@ -2331,7 +2476,7 @@ inline int hidden_nt(int hid) {
 // default (critic In 36, actor F 12; hidden 50), -no 8 (In 66, F 22), -no
 // 14 (In 102, F 34), -hs 128 and -hs 256; past them a bf16 launch raises
 // (In 102 with hidden 256, whose bf16 instance spilled, among them).
-inline int critic_instance(int in, int hid, bool bf16, int* per_sm = nullptr,
+inline int critic_instance(int in, int hid, bool bf16,
                            const GradArgs* args = nullptr, int blocks = 0,
                            cudaStream_t s = nullptr,
                            cudaError_t* err = nullptr) {
@@ -2349,7 +2494,7 @@ inline int critic_instance(int in, int hid, bool bf16, int* per_sm = nullptr,
   return 0;
 }
 
-inline int actor_instance(int f, int hid, bool bf16, int* per_sm = nullptr,
+inline int actor_instance(int f, int hid, bool bf16,
                           const GradArgs* args = nullptr, int blocks = 0,
                           cudaStream_t s = nullptr,
                           cudaError_t* err = nullptr) {
@@ -2438,18 +2583,12 @@ int marlnav_max_hidden() { return marlnav::update::kMaxHidden; }
 
 // Warps a block of the tensor-core kernel's instance for these widths (its
 // bf16 one where bf16 != 0), 16 rows a warp at a time (0 outside the
-// instances built), and, for the actor, its blocks an SM, which size the
-// persistent grid (the critic's: 1).
+// instances built); one block an SM sizes the persistent grid.
 int marlnav_critic_warps(int in_size, int hidden, int bf16) {
   return marlnav::update::critic_instance(in_size, hidden, bf16 != 0);
 }
 int marlnav_uncollapsed_warps(int obs_size, int hidden, int bf16) {
   return marlnav::update::actor_instance(obs_size, hidden, bf16 != 0);
-}
-int marlnav_uncollapsed_blocks_per_sm(int obs_size, int hidden, int bf16) {
-  int per_sm = 0;
-  marlnav::update::actor_instance(obs_size, hidden, bf16 != 0, &per_sm);
-  return per_sm;
 }
 
 // The row blocks of the run-time route's backward grid (the rows of its
@@ -2540,8 +2679,7 @@ int marlnav_critic_grad_sums(const float* obs, const float* vold,
                       n_rows, in_size, hidden,
                       in_size % 4 == 0 && aligned16(obs),
                       eps,    {},      partials};
-  critic_instance(in_size, hidden, bf16 != 0, nullptr, &args, blocks, s,
-                  &err);
+  critic_instance(in_size, hidden, bf16 != 0, &args, blocks, s, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(
       partials, blocks, CriticHead<4>::n_out(in_size, hidden), out, s));
@@ -2567,8 +2705,7 @@ int marlnav_actor_grad_uncollapsed_sums(
                       obs_size % 4 == 0 && aligned16(obs),
                       0.f,    {lo, hi, ent_c, ent_half},
                       partials};
-  actor_instance(obs_size, hidden, bf16 != 0, nullptr, &args, blocks, s,
-                 &err);
+  actor_instance(obs_size, hidden, bf16 != 0, &args, blocks, s, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(
       partials, blocks, ActorHead<4>::n_out(obs_size, hidden), out, s));

@@ -111,8 +111,7 @@ def _library():
     for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
-    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps,
-                  lib.marlnav_uncollapsed_blocks_per_sm):
+    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps):
         shape.argtypes, shape.restype = [i32, i32, i32], i32
     lib.marlnav_actor_tile_rows.argtypes = [i32]
     lib.marlnav_actor_tile_rows.restype = i32
@@ -157,15 +156,13 @@ def _device_index(device: torch.device) -> int:
         else torch.cuda.current_device()
 
 
-def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int,
-                  blocks_per_sm: int):
+def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int):
     """(grid blocks, device index, stream) for a launch over ``n_rows``
-    rows: at most ``blocks_per_sm`` persistent blocks an SM, so the grid,
-    and with it every sum's order, depends only on the rows and the
-    card."""
+    rows: at most one persistent block an SM, so the grid, and with it
+    every sum's order, depends only on the rows and the card."""
     index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    blocks = min(math.ceil(n_rows / rows_per_block), sms * blocks_per_sm)
+    blocks = min(math.ceil(n_rows / rows_per_block), sms)
     return blocks, index, torch.cuda.current_stream(device).cuda_stream
 
 
@@ -297,7 +294,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
                             bf16, n_out)
         critic_grad_sums.launches += 1
         return _split(out, shapes, mesh)
-    blocks, index, stream = _launch_setup(obs.device, n, 16 * warps, 1)
+    blocks, index, stream = _launch_setup(obs.device, n, 16 * warps)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
     out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
@@ -347,9 +344,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
                             n_out)
         actor_grad_uncollapsed_sums.launches += 1
         return _split(out, shapes, mesh)
-    blocks, index, stream = _launch_setup(
-        obs.device, n, 16 * warps,
-        lib.marlnav_uncollapsed_blocks_per_sm(f, h, int(bf16)))
+    blocks, index, stream = _launch_setup(obs.device, n, 16 * warps)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
     out = torch.empty(n_out, dtype=torch.float32, device=obs.device)

@@ -80,13 +80,14 @@ def noise_per_env(noise):
         0, 1, 3, 2, 4).reshape(t, k, nb * 8 * 128)
 
 
-def run_both(t, episode_len=200, noisy=False, tame=True, **mode):
+def run_both(t, episode_len=200, noisy=False, tame=True, env=None, **mode):
     """One collect of t steps through the JAX kernel (interpret mode) and
     the port's collect (CPU: the plain version), from the same state,
-    weights and uniforms."""
+    weights and uniforms; ``env``: more env params (reward factors)."""
     kw = dict(num_parallel=P, buffer_len=t, batch_size=t, num_epochs=1,
               num_total=t * P, **mode)
-    ep_kw = dict(num_parallel=P, num_agents=A, episode_len=episode_len)
+    ep_kw = dict(num_parallel=P, num_agents=A, episode_len=episode_len,
+                 **(env or {}))
     ic_kw = dict(num_parallel=P, num_obstacles=O, noisy_ags=noisy)
     j_cfg, j_ep, j_ic = (JMAPPOConfig(**kw), JEnvParams(**ep_kw),
                          JTriangleInit(**ic_kw))

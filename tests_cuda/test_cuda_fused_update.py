@@ -19,6 +19,10 @@ same tolerance on inputs drawn with no such margin (eps 0.01, log-probs
 and old values apart from the networks) at the default widths and those
 of -no 8 and -hs 128; run with ``-s`` it prints each output's error
 beside the float32 plain version's.
+``test_tensor_core_outputs_within_the_plain_versions_reach`` holds the
+tensor-core instances, float32 and bf16, to the card script's criterion
+(``timing.within_reach``): each output the tensor cores sum within 4x the
+plain version's error against float64, or 1% of its tolerance.
 """
 
 import math
@@ -28,6 +32,8 @@ import torch
 
 from marlnav_tpu_torch.ops import fused_update as fu
 from marlnav_tpu_torch.ops import update_math as um
+from marlnav_tpu_torch.timing import (TENSOR_CORE_OUTPUTS, criterion_errors,
+                                      within_reach)
 
 A, OBS = 3, 12
 
@@ -150,6 +156,41 @@ def test_uncollapsed_kernel_matches_plain_on_card(cuda):
             fu.actor_grad_uncollapsed_sums,
             um.actor_grad_sums_uncollapsed_reference,
             (*_uncollapsed_inputs(100_003, f, h, cuda), 0.2, 0.001))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, h, bf16", [
+    ("fused_critic_grad", 50, False), ("fused_actor_grad_uncollapsed", 50,
+                                       False),
+    ("fused_critic_grad", 256, False), ("fused_critic_grad", 50, True),
+    ("fused_actor_grad_uncollapsed", 50, True), ("fused_critic_grad", 256,
+                                                 True)])
+def test_tensor_core_outputs_within_the_plain_versions_reach(cuda, name, h,
+                                                             bf16):
+    """The tensor-core instances at the default widths (critic In 36,
+    un-collapsed F 12; hidden 50) and the critic at hidden 256 (two passes),
+    float32 and their bf16 twins, on 200,003 rows a margin from every clip
+    edge and kink: each output the tensor cores sum
+    (timing.TENSOR_CORE_OUTPUTS) within 4x the plain version's error
+    against float64 (bf16: float64 products of the same rounded operands)
+    or 1% of 1e-4 of the output's largest magnitude (timing.within_reach),
+    two launches bitwise equal; with -s, every output's errors."""
+    n = 200_003
+    if name == "fused_critic_grad":
+        args = (*_sum_inputs(n, OBS, h, cuda)[1], 0.2)
+    else:
+        args = (*_uncollapsed_inputs(n, OBS, h, cuda), 0.2, 0.001)
+    kernel = fu.critic_grad_sums if name == "fused_critic_grad" else \
+        fu.actor_grad_uncollapsed_sums
+    assert all(torch.equal(a, b) for a, b in zip(kernel(*args, bf16),
+                                                 kernel(*args, bf16)))
+    errs = criterion_errors(name, args, bf16)
+    for o, (err, plain, tol) in errs.items():
+        print(f"{name} H {h} bf16 {bf16} {o}: kernel {err:.3e}, plain "
+              f"{plain:.3e}, tolerance {tol:.3e}")
+    missed = {o: errs[o] for o in TENSOR_CORE_OUTPUTS[(name, bf16)]
+              if not within_reach(*errs[o])}
+    assert not missed, missed
 
 
 @pytest.mark.cuda
