@@ -90,6 +90,7 @@ from marlnav_tpu_torch.parallel.sharding import (all_gather_envs,
                                                  all_reduce_sum)
 from marlnav_tpu_torch.parallel.tensor import (gather_networks,
                                                shard_network, shard_tensor)
+from marlnav_tpu_torch.utils import profiling
 from marlnav_tpu_torch.utils.transforms import (make_action_scaler,
                                                 make_obs_normalizer)
 
@@ -548,9 +549,14 @@ def make_mappo(cfg: MAPPOConfig, env: Env, normalizer_cfg: NormalizerConfig,
                 return collect(ts_, es, generator)
         per_repeat = []
         for i in range(num_repeats):
-            env_state, buffer, metrics = collect_fn(ts, env_state, i)
-            ts, actor_losses = train_actor(ts, buffer)
-            ts, critic_losses = train_critic(ts, buffer)
+            # Phase marks (utils/profiling.py): host ranges, and on the
+            # card device stamps inside the runner's blocks and graphs.
+            with profiling.phase("collect"):
+                env_state, buffer, metrics = collect_fn(ts, env_state, i)
+            with profiling.phase("actor"):
+                ts, actor_losses = train_actor(ts, buffer)
+            with profiling.phase("critic"):
+                ts, critic_losses = train_critic(ts, buffer)
             per_repeat.append((metrics, actor_losses, critic_losses))
         metrics, actor_losses, critic_losses = zip(*per_repeat)
         stats = EpisodeStats(*(

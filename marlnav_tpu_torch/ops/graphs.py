@@ -11,7 +11,7 @@ card ran.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -42,6 +42,7 @@ class CountedGraph:
         for gen in generators:
             self.graph.register_generator_state(gen)
         self.launches: Dict[str, int] = {}
+        self._counted: List[Tuple[object, int]] = []  # (wrapper, launches)
 
     @contextlib.contextmanager
     def capture(self):
@@ -56,8 +57,11 @@ class CountedGraph:
                              for name, fn in wrappers.items()}
             for name, fn in wrappers.items():
                 fn.launches = before[name]
+            # The wrappers a replay adds to, resolved once here.
+            self._counted = [(wrappers[name], n)
+                             for name, n in self.launches.items() if n]
 
     def replay(self) -> None:
         self.graph.replay()
-        for name, fn in kernel_wrappers().items():
-            fn.launches += self.launches.get(name, 0)
+        for fn, n in self._counted:
+            fn.launches += n

@@ -74,6 +74,7 @@ from marlnav_tpu_torch.config import MAPPOConfig, RunConfig, config_to_json
 from marlnav_tpu_torch.env import make_env
 from marlnav_tpu_torch.env.types import EnvState, EpisodeStats
 from marlnav_tpu_torch.parallel.tensor import gather_networks
+from marlnav_tpu_torch.utils import profiling
 from marlnav_tpu_torch.utils.seeding import make_generator, resolve_device
 from marlnav_tpu_torch.utils.stats import StatsLogger
 
@@ -239,7 +240,10 @@ class _Blocks:
     The graph is captured at the first graphed block, from the state the
     eager blocks left: its input is that state's tensors, into which the
     captured work copies the block's final state; its outputs are a static
-    (n, 4 + 2L) tensor of ``pack_block`` rows."""
+    (n, 4 + 2L) tensor of ``pack_block`` rows.  On the card each block is
+    a block of phase marks (``utils.profiling.phase_block``): the graph's
+    marks are captured with it (``marks``), the eager blocks share one
+    set."""
 
     def __init__(self, mappo, ts, generator, collect_fn, seeds, offsets,
                  base_seed: int, size: int, pipeline: bool):
@@ -248,6 +252,7 @@ class _Blocks:
         self.seeds, self.offsets, self.base_seed = seeds, offsets, base_seed
         self.size, self.pipeline = size, pipeline
         self.graph = self.static_state = self.out = self.block_out = None
+        self.marks = None
 
     def write_seeds(self, repeat: int, n: int) -> None:
         """The fused route's kernel seeds of repeats ``repeat .. + n``, in
@@ -256,15 +261,23 @@ class _Blocks:
         torch.add(self.offsets[:n], self.base_seed + repeat,
                   out=self.seeds[:n])
 
-    def _run(self, state, n: int):
+    def _run(self, state, n: int, into=None):
+        """``(state, rows)`` of ``n`` repeats; with ``into``, the final
+        state is copied into its tensors and ``into`` returned."""
         _, state, metrics, al, cl = self.mappo.train_many(
             self.ts, state, self.generator, n, self.collect_fn)
-        return state, pack_block(metrics, al, cl)
+        with profiling.phase("tail"):
+            rows = pack_block(metrics, al, cl)
+            if into is not None:
+                _copy_state(into, state)
+                state = into
+        return state, rows
 
     def eager(self, state, repeat: int, n: int):
         """``(state, rows)`` of ``n`` repeats from ``repeat``."""
         self.write_seeds(repeat, n)
-        return self._run(state, n)
+        with profiling.phase_block(self.seeds.device):
+            return self._run(state, n)
 
     def graphed(self, state, repeat: int):
         """``(state, rows)`` of a full block from ``repeat``, replaying the
@@ -276,21 +289,26 @@ class _Blocks:
             self.graph = CountedGraph(
                 () if self.collect_fn is not None else (self.generator,))
             self.static_state = state
-            with self.graph.capture():
-                new_state, self.out = self._run(state, n)
-                _copy_state(self.static_state, new_state)
+            with profiling.phase_block(self.seeds.device,
+                                       captured=True) as self.marks, \
+                    self.graph.capture():
+                _, self.out = self._run(state, n, into=state)
             if self.pipeline:  # the block's rows, one replay's at a time
                 self.block_out = self.out.new_empty(
                     (self.size,) + tuple(self.out.shape[1:]))
-        if not self.pipeline:
-            self.write_seeds(repeat, self.size)
-            self.graph.replay()
-            return self.static_state, self.out
-        for i in range(self.size):
-            self.write_seeds(repeat + i, 1)
-            self.graph.replay()
-            self.block_out[i].copy_(self.out[0])
-        return self.static_state, self.block_out
+        with profiling.annotate("marlnav.block.launch"):
+            if not self.pipeline:
+                self.write_seeds(repeat, self.size)
+                self.graph.replay()
+                out = self.out
+            else:
+                for i in range(self.size):
+                    self.write_seeds(repeat + i, 1)
+                    self.graph.replay()
+                    self.block_out[i].copy_(self.out[0])
+                out = self.block_out
+        profiling.replayed(self.marks)
+        return self.static_state, out
 
 
 def train(
