@@ -97,6 +97,34 @@
 //     for each 16 n-tiles: each pass takes the whole forward, group by
 //     group (the head needs every unit), its own group last, and the
 //     backward of its own group's tiles.
+// The float32 critic's per-warp float64 instances whose backward holds at
+// most 3 m-tiles (TcShape::kPipelined: KS 3 with NT 4, 7 or 8, KS 5 with
+// NT 4 or 7, i.e. In <= 23 with H <= 64 and In <= 39 with H <= 56; the
+// default and curriculum critic, In 36 / H 50, among them) run a
+// warp-specialised body instead (tc_pipelined), with the same arithmetic a
+// row; only the float32 sums over rows are added in another order.
+//   - Why: in the per-warp body each warp takes its chunk's copies, float64
+//     forward, head and backward in turn, two warps a scheduler (255
+//     registers).  On the H100 a warp spent ~48% of a chunk's time in the
+//     forward's chain of dependent float64 mma (clock stamps), while the
+//     tensor pipe was ~40% busy.
+//   - Roles: 6 forward warps, each taking every 6th chunk of its block:
+//     the float64 forward of all n-tiles at once (7 independent
+//     accumulations at NT 7), the head, g_pre into the chunk's stage.  Then
+//     6 backward warps, each holding every output tile in registers over
+//     its chunks (every 6th), refilling each stage it frees.  12 warps a
+//     block at 168 registers a thread, none spilled.  A producer warp of
+//     its own could not keep the forward warps fed; 16 warps (128 registers
+//     a thread, with setmaxnreg budgets or without) spilled and ran slower.
+//   - Ring: kRing (24) stages of a chunk (x | g_pre | old values and
+//     returns) in shared memory, two mbarriers each (full_x: the chunk has
+//     landed; full_g: its g_pre is written).  A refill goes by bulk copies
+//     (the tensor memory accelerator: a row a lane, the per-row inputs two
+//     lanes), by cp.async for a ragged last chunk or rows off 16 bytes.
+//   - Bound: the tensor pipe, which the float64 and TF32 products share
+//     (measured on the H100: an m16n8k8 .f64 ~33 cycles of a sub-partition,
+//     a TF32 one ~7).  A chunk's 35 float64 and 126 TF32 products take
+//     ~2,040 cycles: 124 us at 1,022,976 rows, against 46 us of bytes.
 // Widths are template instances on padded sizes (critic In <= 103, H <=
 // 256; un-collapsed actor F <= 39, H <= 256; critic_instance and
 // actor_instance); every other width takes the run-time-width route (its
@@ -1078,6 +1106,8 @@ constexpr int tc_best_wn(int mt, int nt, int warps) {
   return best;
 }
 
+constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
 // The shape of tc_grad_kernel<Head, KS>: KS k-steps of 8 over [x | 1] (In +
 // 1 <= 8 KS), NT = Head::kNt n-tiles of 8 over the hidden units (H <= 8 NT),
 // in kGroups passes of kNtg n-tiles each.
@@ -1128,9 +1158,44 @@ struct TcShape {
             : KS * kNt * 32 * (kPreSplit || kFloat64 ? 4 : 2);
   static constexpr int kFit = (kSmemFloats - kFragFloats -
                                Head::kParamFloats) / (kWarpFloats + kSmall);
-  static constexpr int kWarps = kFit < 8 ? kFit : 8;
-  static constexpr int kMainFloats = kFragFloats + Head::kParamFloats +
-                                     kWarps * (kWarpFloats + kSmall);
+  // The warp-specialised body (tc_pipelined): the float32 critic's
+  // per-warp float64 instances whose backward holds at most 3 m-tiles.
+  // kFwdWarps forward and head warps, then kBwdWarps backward warps (12
+  // warps: 168 registers a thread, the most that holds a backward warp's
+  // output tiles beside its fragments without a spill), on a ring of kRing
+  // chunk stages (x (16, LDX) | g_pre (16, LDG) | per-row inputs (16 kAux))
+  // after W1's fragments and the head's weights; then the warps' sums
+  // (kRedFloats: the backward warps' tiles, the forward warps' small sums,
+  // at the widest In and H of the instance), then two mbarriers a stage (2
+  // floats each).  kRing is a multiple of both warp counts.
+  static constexpr bool kPipelined =
+      kFloat64 && !kShared && Head::kF64Sums && kMt <= 3;
+  static constexpr int kFwdWarps = 6;
+  static constexpr int kBwdWarps = 6;
+  static constexpr int kStageFloats = 16 * (kLdx + kLdg + Head::kAux);
+  static constexpr int kRedFloats =
+      (kBwdWarps * (64 * KS * kNt + 8 * kNt + 2) +
+       kFwdWarps * (8 * kNt + 2) + 1) / 2 * 2;
+  static constexpr int kRingFit =
+      (kSmemFloats - kFragFloats - Head::kParamFloats - kRedFloats) /
+      (kStageFloats + 4);
+  static constexpr int kRingUnit = kFwdWarps * kBwdWarps /
+                                   gcd(kFwdWarps, kBwdWarps);
+  static constexpr int kRing =
+      (kRingFit < 32 ? kRingFit : 32) / kRingUnit * kRingUnit;
+  static constexpr int kRedOff =
+      kFragFloats + Head::kParamFloats + kRing * kStageFloats;
+  static constexpr int kBarOff = kRedOff + kRedFloats;
+  static constexpr int kWarps = kPipelined ? kFwdWarps + kBwdWarps
+                                : kFit < 8  ? kFit
+                                            : 8;
+  // Chunks of 16 rows a block takes a round: its warps, or the pipelined
+  // body's forward warps (the persistent grid's rows a block round).
+  static constexpr int kRoundChunks = kPipelined ? kFwdWarps : kWarps;
+  static constexpr int kMainFloats =
+      kPipelined ? kBarOff + 4 * kRing
+                 : kFragFloats + Head::kParamFloats +
+                       kWarps * (kWarpFloats + kSmall);
   // Output tiles of a warp: a WM x WN grid of warps over a pass's (kMtAll,
   // kNtg) tiles where the rows are shared, else all of them.
   static constexpr int kWn = kShared ? tc_best_wn(kMtAll, kNtg, kWarps) : 1;
@@ -1139,7 +1204,10 @@ struct TcShape {
   static constexpr int kNtw = (kNtg + kWn - 1) / kWn;
   static_assert(kWarps >= 1 && kMainFloats <= kSmemFloats,
                 "an instance fits the block's shared memory");
-  static_assert(kShared || kWarps == 8, "per-warp instances take 8 warps");
+  static_assert(kShared || kPipelined || kWarps == 8,
+                "per-warp instances take 8 warps");
+  static_assert(!kPipelined || (kRing > 0 && Head::kAux == 2),
+                "a ring whose length both warp counts divide");
 };
 
 template <int S>
@@ -1238,15 +1306,18 @@ __device__ __forceinline__ void tc_forward(float (&c)[NTG][4], const float* x,
 // row and n-tile summed in float64 over the k-steps from W1's fragments (w:
 // b0, b1 a lane, as float64), then rounded to float32 once, into c.  Where
 // the head takes float64 sums (Head::kF64Sums), its sums from the float64
-// pre into p.  Two n-tiles at a time, the k-steps as a loop: unrolled,
-// their loads were all hoisted and spilled.
-template <class Sh, class Head, int KS, int NTG, int LDX, typename PT>
+// pre into p.  NG n-tiles at a time (the same sums in the same order at any
+// NG), the k-steps as a loop: unrolled, their loads were all hoisted and
+// spilled.  tc_grad_kernel's own body takes two; the pipelined forward
+// warps (tc_pipelined), whose registers hold nothing else, take more.
+template <class Sh, class Head, int KS, int NTG, int LDX, typename PT,
+          int NG = 2>
 __device__ __forceinline__ void tc_forward_f64(float (&c)[NTG][4],
                                                PT (&p)[Head::kSums],
                                                const float* x,
                                                const double2* w,
                                                const float* s_par, int lane) {
-  constexpr int NT = Sh::kNt, NG = 2;
+  constexpr int NT = Sh::kNt;
   const int g = lane >> 2, t = lane & 3;
   const float* xl = x + g * LDX + t;  // rows g, g + 8; columns t, t + 4
 #pragma unroll
@@ -1312,6 +1383,252 @@ __device__ __forceinline__ void tc_forward_bf16(float (&c)[NTG][4],
   }
 }
 
+// The warp-specialised body's pieces (tc_pipelined).
+//
+// Fill a stage with chunk `chunk` (rows 16 chunk .. 16 chunk + 15): obs into
+// sx (16, LDX), old values and returns into aux (16 each), completing on
+// the stage's mbarrier `bar` (32 arrivals, one a lane).  A whole chunk
+// whose rows and per-row inputs start on 16 bytes (bulk) goes by bulk
+// copies (a row a lane, a column each for lanes 16 and 17; the tensor
+// memory accelerator counts their bytes on bar); else by cp.async, rows
+// past n_rows landing as zeros.  The columns past In keep what the block
+// put there at its start (the ones column, zeros).  The stage's earlier
+// reads must be ordered before the call (a barrier's wait, __syncwarp).
+template <int LDX>
+__device__ __forceinline__ void tc_fill_stage(const GradArgs& a,
+                                              long long chunk, bool bulk,
+                                              float* sx, float* aux,
+                                              uint64_t* bar, int lane) {
+  const long long r0 = chunk * 16;
+  const int in = a.in_size;
+  const float* src = a.obs + r0 * in;
+  if (bulk && r0 + 16 <= a.n_rows) {
+    mma::fence_proxy_async();
+    if (lane == 0)
+      mma::mbar_arrive_expect(bar, 64 * in + 128);
+    else
+      mma::mbar_arrive(bar);
+    if (lane < 16)
+      mma::bulk_copy(sx + lane * LDX, src + lane * in, 4 * in, bar);
+    else if (lane < 18)
+      mma::bulk_copy(aux + 16 * (lane - 16),
+                     (lane == 16 ? a.row[0] : a.row[1]) + r0, 64, bar);
+    return;
+  }
+  const int rows = static_cast<int>(a.n_rows - r0 < 16 ? a.n_rows - r0 : 16);
+  if (a.vec4) {
+    const int per_row = in / 4;
+    for (int u = lane; u < 16 * per_row; u += 32) {
+      const int r = u / per_row;
+      mma::cp_async16_zfill(sx + r * LDX + 4 * (u - r * per_row),
+                            r < rows ? src + 4 * u : a.obs, r < rows);
+    }
+  } else {
+    for (int u = lane; u < 16 * in; u += 32) {
+      const int r = u / in;
+      mma::cp_async4_zfill(sx + r * LDX + (u - r * in),
+                           r < rows ? src + u : a.obs, r < rows);
+    }
+  }
+  const int r = lane & 15;
+  const float* col = lane < 16 ? a.row[0] : a.row[1];
+  mma::cp_async4_zfill(aux + lane, r < rows ? col + r0 + r : col, r < rows);
+  mma::cp_async_mbar_arrive(bar);
+}
+
+// bacc += [x | 1]^T g_pre over a chunk's 16 rows (two k-steps of 8), every
+// (MT, NT) output tile, in 3xTF32: each k-step's product from zero, added
+// by add_to, as tc_grad_kernel's per-warp body does.
+template <class Sh>
+__device__ __forceinline__ void tc_backward_chunk(
+    float (&bacc)[Sh::kMt][Sh::kNt][4], const float* x, const float* gp,
+    int lane) {
+  constexpr int MT = Sh::kMt, NT = Sh::kNt, LDX = Sh::kLdx, LDG = Sh::kLdg;
+#pragma unroll
+  for (int kr = 0; kr < 2; ++kr) {
+    uint32_t a_big[MT][4], a_small[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float v[4];
+      mma::load_a_cols(x + kr * 8 * LDX + i * 16, LDX, lane, v);
+      mma::split(v, a_big[i], a_small[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v[2];
+      uint32_t b_big[2], b_small[2];
+      mma::load_b_rows(gp + kr * 8 * LDG + j * 8, LDG, lane, v);
+      mma::split(v, b_big, b_small);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma::mma_3xtf32(d, a_big[i], a_small[i], b_big, b_small);
+        add_to(bacc[i][j], d);
+      }
+    }
+  }
+}
+
+// The warp-specialised body of the float32 critic's per-warp float64
+// instances (TcShape::kPipelined; the head note says why).  Block b takes
+// chunks b, b + grid, ... (its i-th is local chunk i) through a ring of
+// kRing stages, chunk i in stage i % kRing, each stage with two mbarriers
+// of 32 arrivals:
+//   - forward warp f (0 .. kFwdWarps - 1) takes local chunks f, f +
+//     kFwdWarps, ...: waits on full_x, runs the float64 forward and the
+//     head on the stage's x, as tc_grad_kernel's body does, writes g_pre
+//     into the stage and arrives on full_g; it keeps the loss, db2 and dW2
+//     sums in its registers;
+//   - backward warp k (kFwdWarps + k) takes local chunks k, k + kBwdWarps,
+//     ...: waits on full_g, adds the chunk's [x | 1]^T g_pre to its output
+//     tiles (all of them, in registers), then refills the stage with chunk
+//     i + kRing (tc_fill_stage).  The backward warps also start the ring's
+//     first chunks, each its own.
+// So a stage's chunks land in order, and since kRing is a multiple of both
+// warp counts, a warp's own chunk kRing before the one it waits for has
+// passed the same barrier: a wait on phase p never meets phase p - 1
+// unfinished, nor p + 1 finished (that needs this chunk's backward).  A
+// chunk's g_pre on full_g also orders its x, which the forward warp read
+// after full_x.  At the end each warp writes its sums to its own row (the
+// forward warps' small sums into red_f (kFwdWarps, n_small) at their small
+// index, the backward warps' tiles into red_b (kBwdWarps, n_out) at their
+// output index); after a block barrier (a named one: the roles never
+// reconverge) the backward warps sum each over its warps in order into the
+// block's partial.  Every sum's order depends only on the rows and the
+// grid.
+template <class Head, int KS>
+__device__ __forceinline__ void tc_pipelined(const GradArgs& a,
+                                             float4* smem4) {
+  using Sh = TcShape<Head, KS>;
+  constexpr int NT = Sh::kNt, MT = Sh::kMt, LDX = Sh::kLdx, LDG = Sh::kLdg;
+  constexpr int NF = Sh::kFwdWarps, NB = Sh::kBwdWarps, R = Sh::kRing;
+  constexpr int W = Sh::kWarps, ST = Sh::kStageFloats;
+  constexpr int kOffG = 16 * LDX, kOffAux = kOffG + 16 * LDG;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* s_par = smem + Sh::kFragFloats;
+  float* stages = s_par + Head::kParamFloats;
+  uint64_t* full_x = reinterpret_cast<uint64_t*>(smem + Sh::kBarOff);
+  uint64_t* full_g = full_x + R;
+  const int in = a.in_size, hid = a.hidden;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // W1's fragments as float64 pairs (tc_grad_kernel's kFloat64 layout).
+  for (int i = tid; i < KS * NT * 32; i += W * 32) {
+    const int l = i & 31, nt = (i >> 5) % NT, ks = (i >> 5) / NT;
+    const int n = nt * 8 + (l >> 2), k = ks * 8 + (l & 3);
+    float b[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = k + 4 * h;
+      b[h] = n >= hid ? 0.f
+             : kk < in ? a.w1[n * in + kk]
+             : kk == in ? a.b1[n]
+                        : 0.f;
+    }
+    reinterpret_cast<double2*>(smem4)[i] = make_double2(b[0], b[1]);
+  }
+  Head head;
+  head.init(a, s_par, tid, W * 32);
+  // Every stage's x: the ones column of [x | 1], zeros elsewhere.
+  for (int i = tid; i < R * ST; i += W * 32) {
+    const int o = i % ST;
+    stages[i] = o < 16 * LDX && o % LDX == in ? 1.f : 0.f;
+  }
+  if (tid < R) {
+    mma::mbar_init(&full_x[tid], 32);
+    mma::mbar_init(&full_g[tid], 32);
+  }
+  __syncthreads();
+
+  const long long n = a.n_rows, n_chunks = (n + 15) / 16;
+  const long long grid = gridDim.x, b0 = blockIdx.x;
+  const long long n_local = b0 < n_chunks ? (n_chunks - b0 + grid - 1) / grid
+                                          : 0;
+  const int n_out = Head::n_out(in, hid), n_small = Head::n_small(hid);
+  float* red_b = smem + Sh::kRedOff;
+  float* red_f = red_b + NB * n_out;
+  // Bulk copies where obs rows and the per-row inputs start on 16 bytes.
+  const bool bulk =
+      a.vec4 && (reinterpret_cast<std::uintptr_t>(a.row[0]) |
+                 reinterpret_cast<std::uintptr_t>(a.row[1])) % 16 == 0;
+  // Local chunk i into its stage, completing on the stage's full_x.
+  auto load = [&](long long i) {
+    const int s = static_cast<int>(i % R);
+    float* st = stages + s * ST;
+    tc_fill_stage<LDX>(a, b0 + i * grid, bulk, st, st + kOffAux, &full_x[s],
+                       lane);
+  };
+
+  if (warp < NF) {
+    const double2* w = reinterpret_cast<const double2*>(smem4);
+    for (long long i = warp; i < n_local; i += NF) {
+      const int s = static_cast<int>(i % R);
+      mma::mbar_wait_suspended(&full_x[s],
+                               static_cast<unsigned>((i / R) & 1));
+      float* st = stages + s * ST;
+      float c[NT][4];
+      double p[Head::kSums];
+#pragma unroll
+      for (int q = 0; q < Head::kSums; ++q) p[q] = 0.0;
+      tc_forward_f64<Sh, Head, KS, NT, LDX, double, NT>(c, p, st, w, s_par,
+                                                         lane);
+      head.template rows<NT, LDG>(c, p, s_par, st + kOffAux,
+                                  (b0 + i * grid) * 16, n, g, t, 0, true,
+                                  st + kOffG, nullptr, nullptr);
+      mma::mbar_arrive(&full_g[s]);
+    }
+    head.store_small(red_f + warp * n_small, false, in, hid, g, t, lane);
+    mma::named_sync<W * 32>();
+  } else {
+    const int k = warp - NF;
+    for (long long i = k; i < R && i < n_local; i += NB) load(i);
+    float bacc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bacc[i][j][e] = 0.f;
+    for (long long i = k; i < n_local; i += NB) {
+      const int s = static_cast<int>(i % R);
+      mma::mbar_wait_suspended(&full_g[s],
+                               static_cast<unsigned>((i / R) & 1));
+      const float* st = stages + s * ST;
+      tc_backward_chunk<Sh>(bacc, st, st + kOffG, lane);
+      if (i + R < n_local) {
+        __syncwarp();  // every lane's reads of the stage before its refill
+        load(i + R);
+      }
+    }
+    float* my = red_b + k * n_out;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = Head::tile_index(i * 16 + g + 8 * (e >> 1),
+                                         j * 8 + 2 * t + (e & 1), in, hid,
+                                         16 * MT);
+          if (o >= 0) my[o] = bacc[i][j][e];
+        }
+    mma::named_sync<W * 32>();
+    float* out = a.partials + static_cast<long long>(blockIdx.x) * n_out;
+    const int bt = tid - NF * 32;
+    for (int o = 1 + bt; o < 1 + hid * (in + 1); o += NB * 32) {
+      float s = 0.f;
+      for (int q = 0; q < NB; ++q) s += red_b[q * n_out + o];
+      out[o] = s;
+    }
+    for (int q = bt; q < n_small; q += NB * 32) {
+      float s = 0.f;
+      for (int f = 0; f < NF; ++f) s += red_f[f * n_small + q];
+      out[Head::small_index(q, in, hid)] = s;
+    }
+  }
+}
+
 // Past 16 n-tiles (128 hidden units) the kernel runs kGroups passes over
 // its rows, pass q for the hidden units of n-tiles 16 q .. 16 q + 15: the
 // head needs every unit before a row's chain, so each pass takes the whole
@@ -1330,6 +1647,10 @@ __global__ void __launch_bounds__(TcShape<Head, KS>::kWarps * 32, 1)
   constexpr int WM = Sh::kWm, WN = Sh::kWn, MTW = Sh::kMtw, NTW = Sh::kNtw;
   constexpr int P = Head::kSums;
   extern __shared__ float4 smem4[];
+  if constexpr (Sh::kPipelined) {
+    tc_pipelined<Head, KS>(args, smem4);
+    return;
+  }
   float* smem = reinterpret_cast<float*>(smem4);
   const int in = args.in_size, hid = args.hidden;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -2423,8 +2744,9 @@ cudaError_t launch_tc(const GradArgs& args, int blocks, cudaStream_t s) {
   constexpr int W = Sh::kWarps;
   const int n_red = Sh::kShared ? Head::n_small(args.hidden)
                                 : Head::n_out(args.in_size, args.hidden);
-  const int floats =
-      Sh::kMainFloats > W * n_red ? Sh::kMainFloats : W * n_red;
+  const int floats = Sh::kPipelined || Sh::kMainFloats > W * n_red
+                         ? Sh::kMainFloats
+                         : W * n_red;
   if (floats > kSmemFloats) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(sizeof(float)) * floats;
   cudaError_t err = cudaFuncSetAttribute(
@@ -2459,13 +2781,16 @@ inline int hidden_nt(int hid) {
                                      : 32;
 }
 
-// The instance of Head for (KS, NT): its warps a block (0 where none is
+// The instance of Head for (KS, NT): the chunks of 16 rows a block takes a
+// round (its warps, or the pipelined body's forward warps; 0 where none is
 // built; one block an SM, every instance taking up to the full register
-// file a thread); with args, it is also launched, its error in *err.
+// file a thread); with args, it is also launched, its error in *err; with
+// pipelined, whether it takes the warp-specialised body (tc_pipelined).
 #define MARLNAV_TC(HEAD, KS_, NT_)                                   \
   if (ks == KS_ && nt == NT_) {                                      \
     if (args) *err = launch_tc<HEAD<NT_>, KS_>(*args, blocks, s);    \
-    return TcShape<HEAD<NT_>, KS_>::kWarps;                          \
+    if (pipelined) *pipelined = TcShape<HEAD<NT_>, KS_>::kPipelined; \
+    return TcShape<HEAD<NT_>, KS_>::kRoundChunks;                    \
   }
 #define MARLNAV_TC_NT(HEAD, KS_)                                       \
   MARLNAV_TC(HEAD, KS_, 4) MARLNAV_TC(HEAD, KS_, 7)                    \
@@ -2479,7 +2804,8 @@ inline int hidden_nt(int hid) {
 inline int critic_instance(int in, int hid, bool bf16,
                            const GradArgs* args = nullptr, int blocks = 0,
                            cudaStream_t s = nullptr,
-                           cudaError_t* err = nullptr) {
+                           cudaError_t* err = nullptr,
+                           bool* pipelined = nullptr) {
   const int ks = critic_ks(in), nt = hidden_nt(hid);
   if (bf16) {
     MARLNAV_TC(CriticHeadBf16, 5, 7) MARLNAV_TC(CriticHeadBf16, 9, 7)
@@ -2497,7 +2823,8 @@ inline int critic_instance(int in, int hid, bool bf16,
 inline int actor_instance(int f, int hid, bool bf16,
                           const GradArgs* args = nullptr, int blocks = 0,
                           cudaStream_t s = nullptr,
-                          cudaError_t* err = nullptr) {
+                          cudaError_t* err = nullptr,
+                          bool* pipelined = nullptr) {
   const int ks = actor_ks(f), nt = hidden_nt(hid);
   if (bf16) {
     MARLNAV_TC(ActorHeadBf16, 2, 7) MARLNAV_TC(ActorHeadBf16, 3, 7)
@@ -2581,11 +2908,19 @@ int marlnav_uncollapsed_max_obs() {
 }
 int marlnav_max_hidden() { return marlnav::update::kMaxHidden; }
 
-// Warps a block of the tensor-core kernel's instance for these widths (its
-// bf16 one where bf16 != 0), 16 rows a warp at a time (0 outside the
+// Chunks of 16 rows a block of the tensor-core kernel's instance for these
+// widths (its bf16 one where bf16 != 0) takes a round: its warps, each on
+// a chunk at a time, or the pipelined body's forward warps (0 outside the
 // instances built); one block an SM sizes the persistent grid.
 int marlnav_critic_warps(int in_size, int hidden, int bf16) {
   return marlnav::update::critic_instance(in_size, hidden, bf16 != 0);
+}
+// 1 where that instance takes the warp-specialised body (tc_pipelined).
+int marlnav_critic_pipelined(int in_size, int hidden, int bf16) {
+  bool pipelined = false;
+  marlnav::update::critic_instance(in_size, hidden, bf16 != 0, nullptr, 0,
+                                   nullptr, nullptr, &pipelined);
+  return pipelined ? 1 : 0;
 }
 int marlnav_uncollapsed_warps(int obs_size, int hidden, int bf16) {
   return marlnav::update::actor_instance(obs_size, hidden, bf16 != 0);

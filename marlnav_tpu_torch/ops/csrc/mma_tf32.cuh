@@ -23,7 +23,9 @@
 // mma.sync rather than wgmma: wgmma takes TF32 operands only K-major from
 // shared memory, so a backward product (a sum over rows) would need
 // transposed copies of its operands; mma.sync fragments load from any
-// layout.  wgmma and warp specialisation are later work.
+// layout.  Warp specialisation (forward and backward warps on a ring of
+// chunks that the backward warps refill) runs the float32 critic's narrow
+// float64 instances (fused_update.cu tc_pipelined); wgmma is later work.
 #pragma once
 
 #include <cstdint>
@@ -177,6 +179,21 @@ __device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
                : "memory");
 }
 
+// Arrive on bar (its count includes this thread).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arrive on bar once this thread's earlier cp.async copies have landed (its
+// count includes this thread).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // Wait until the phase of bar with this parity has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   unsigned done;
@@ -189,6 +206,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// As mbar_wait, but a waiting thread is suspended until the phase completes
+// (or a time limit, the hint of 10 ms, passes) rather than spinning, so
+// that waiting warps leave the issue slots to the warps at work.
+__device__ __forceinline__ void mbar_wait_suspended(uint64_t* bar,
+                                                    unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity), "r"(10000000u)
+        : "memory");
+  } while (!done);
+}
+
+// A barrier of the block's first N threads (named barrier 1), where warps
+// of different roles meet at different points of the code.
+template <int N>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
 
 // Order the block's earlier shared-memory reads (after a barrier) before

@@ -51,7 +51,10 @@ a product in place of the three TF32 ones.
 Routing, with no fallback: CPU tensors run the plain versions of
 ``ops/update_math.py``; CUDA tensors launch the kernel or raise (in bf16
 mode, the kernel's bf16 variant).  Each wrapper counts its launches in
-``.launches``.
+``.launches``; ``critic_grad_sums.pipelined_launches`` counts those of
+them that took the critic kernel's warp-specialised body (the float32
+instances of at most 64 hidden units and 39 input columns whose warps each
+hold every output tile: the default and curriculum critic, In 36 / H 50).
 
 Data parallelism (marlnav_tpu/ops/fused_update.py:544-548,
 fused_update_tiled.py:244-245, 369-370): each wrapper's ``mesh`` sums the
@@ -111,7 +114,8 @@ def _library():
     for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
-    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps):
+    for shape in (lib.marlnav_critic_warps, lib.marlnav_uncollapsed_warps,
+                  lib.marlnav_critic_pipelined):
         shape.argtypes, shape.restype = [i32, i32, i32], i32
     lib.marlnav_actor_tile_rows.argtypes = [i32]
     lib.marlnav_actor_tile_rows.restype = i32
@@ -286,7 +290,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
         ("ret", ret, (n,))))
     lib = _library()
     n_out = 1 + h * n_in + 2 * h + 1
-    # 16 rows a warp at a time; 0: no instance at these widths
+    # chunks of 16 rows a block takes a round; 0: no instance at these widths
     warps = lib.marlnav_critic_warps(n_in, h, int(bf16))
     if not warps:
         out = _rt_grad_sums(lib, False, obs, (vold, ret, None), w1, b1,
@@ -306,10 +310,13 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
         raise RuntimeError(f"critic grad kernel launch failed: CUDA error "
                            f"{err}")
     critic_grad_sums.launches += 1
+    if lib.marlnav_critic_pipelined(n_in, h, int(bf16)):
+        critic_grad_sums.pipelined_launches += 1
     return _split(out, shapes, mesh)
 
 
 critic_grad_sums.launches = 0
+critic_grad_sums.pipelined_launches = 0
 
 
 def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,

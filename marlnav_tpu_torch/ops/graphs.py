@@ -5,7 +5,8 @@ kernel wrapper's ``.launches`` counter moves only when the wrapper's Python
 code runs: once, at capture, when nothing runs on the card.
 ``CountedGraph`` records what each counter gained during the capture, takes
 it back, and adds it at every replay, so that the counters count what the
-card ran.
+card ran: ``.launches`` and, where a wrapper has it,
+``.pipelined_launches`` (``fused_update.critic_grad_sums``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import contextlib
 from typing import Dict, List, Tuple
 
 import torch
+
+# The counters a kernel wrapper may carry; each is counted where present.
+COUNTERS = ("launches", "pipelined_launches")
 
 
 def kernel_wrappers() -> Dict[str, object]:
@@ -42,26 +46,31 @@ class CountedGraph:
         for gen in generators:
             self.graph.register_generator_state(gen)
         self.launches: Dict[str, int] = {}
-        self._counted: List[Tuple[object, int]] = []  # (wrapper, launches)
+        # (wrapper, counter, gain at capture)
+        self._counted: List[Tuple[object, str, int]] = []
 
     @contextlib.contextmanager
     def capture(self):
         """Capture the work enqueued in the ``with`` body."""
         wrappers = kernel_wrappers()
-        before = {name: fn.launches for name, fn in wrappers.items()}
+        before = {(name, c): getattr(fn, c)
+                  for name, fn in wrappers.items() for c in COUNTERS
+                  if hasattr(fn, c)}
         try:
             with torch.cuda.graph(self.graph):
                 yield self
         finally:
-            self.launches = {name: fn.launches - before[name]
-                             for name, fn in wrappers.items()}
-            for name, fn in wrappers.items():
-                fn.launches = before[name]
-            # The wrappers a replay adds to, resolved once here.
-            self._counted = [(wrappers[name], n)
-                             for name, n in self.launches.items() if n]
+            gained = {key: getattr(wrappers[key[0]], key[1]) - n
+                      for key, n in before.items()}
+            for (name, c), n in before.items():
+                setattr(wrappers[name], c, n)
+            self.launches = {name: gained[(name, "launches")]
+                             for name in wrappers}
+            # The counters a replay adds to, resolved once here.
+            self._counted = [(wrappers[name], c, n)
+                             for (name, c), n in gained.items() if n]
 
     def replay(self) -> None:
         self.graph.replay()
-        for fn, n in self._counted:
-            fn.launches += n
+        for fn, c, n in self._counted:
+            setattr(fn, c, getattr(fn, c) + n)

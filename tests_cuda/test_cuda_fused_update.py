@@ -23,6 +23,13 @@ beside the float32 plain version's.
 tensor-core instances, float32 and bf16, to the card script's criterion
 (``timing.within_reach``): each output the tensor cores sum within 4x the
 plain version's error against float64, or 1% of its tolerance.
+``test_pipelined_critic_holds_the_criteria`` holds the critic kernel's
+warp-specialised body (its float32 instances of at most 64 hidden units
+and 39 input columns whose warps each hold every output tile) to the same
+criteria at three widths, over ragged row counts and on unshaped inputs,
+and
+``test_only_the_narrow_float32_critic_is_pipelined`` counts which launches
+take it.
 """
 
 import math
@@ -270,3 +277,81 @@ def test_kernels_match_plain_on_unshaped_inputs(cuda, kind):
                   f"float32 {err32:.3e}, tolerance {tol:.3e}")
             assert err <= tol, (f"F {f} H {h} output {i}: error {err} > "
                                 f"{tol} (plain float32 {err32})")
+
+
+def _critic_inputs(n, n_in, h, device, unshaped=False, seed=9):
+    """Critic inputs (w1, b1, w2, b2, obs, vold, ret) at any input width:
+    as ``_sum_inputs``'s critic (every row a margin from the clip edges and
+    the ReLU's kink, for eps 0.2), or with ``unshaped`` as
+    ``_unshaped_inputs``'s (no margin, for eps 0.01)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    if unshaped:
+        xs = (r(h, n_in) / 6.0, r(h), r(1, h) / 7.0, r(1), r(n, n_in), r(n),
+              r(n))
+    else:
+        w1, b1 = 0.5 * r(h, n_in) / n_in ** 0.5, 3.0 * torch.sign(r(h))
+        w2, b2, obs = r(1, h) / h ** 0.5, r(1), r(n, n_in)
+        v = torch.relu(obs @ w1.T + b1) @ w2[0] + b2
+        xs = (w1, b1, w2, b2, obs, v + _margins(r, n), r(n))
+    return tuple(x.to(device) for x in xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in, h", [(36, 50), (20, 32), (39, 56)])
+def test_pipelined_critic_holds_the_criteria(cuda, n_in, h):
+    """The critic kernel's warp-specialised body (the default critic's
+    instance, In 36 / H 50; KS 3 with NT 4 at In 20 / H 32; In 39 / H 56,
+    the widest of KS 5 with NT 7) over 1, 15, 17, 16 x SMs x 8 + 1 (one
+    block a chunk more than the rest) and 200,003 rows: each tensor-core
+    output within reach of the plain version (``timing.within_reach``),
+    every other output within 1e-4 of its largest magnitude (+1e-6) of
+    float64, two launches bitwise equal and both counted as pipelined.
+    Then on 100,003 unshaped rows (eps 0.01: rows on the ReLU's kink and
+    the clip edges), every output within 1e-4 of float64 and two launches
+    bitwise equal; with -s, every output's errors."""
+    lib = fu._library()
+    assert lib.marlnav_critic_pipelined(n_in, h, 0) == 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in (1, 15, 17, 16 * sms * 8 + 1, 200_003):
+        args = (*_critic_inputs(n, n_in, h, cuda), 0.2)
+        before = (fu.critic_grad_sums.launches,
+                  fu.critic_grad_sums.pipelined_launches)
+        got, again = fu.critic_grad_sums(*args), fu.critic_grad_sums(*args)
+        torch.cuda.synchronize()
+        assert (fu.critic_grad_sums.launches,
+                fu.critic_grad_sums.pipelined_launches) == (
+                    before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), n
+        errs = criterion_errors("fused_critic_grad", args, False)
+        core = TENSOR_CORE_OUTPUTS[("fused_critic_grad", False)]
+        for o, (err, plain, tol) in errs.items():
+            print(f"In {n_in} H {h} rows {n} {o}: kernel {err:.3e}, plain "
+                  f"{plain:.3e}, tolerance {tol:.3e}")
+            assert (within_reach(err, plain, tol) if o in core
+                    else err <= tol), (n, o, err, plain, tol)
+    args = (*_critic_inputs(100_003, n_in, h, cuda, unshaped=True), 0.01)
+    assert_matches_float64(fu.critic_grad_sums,
+                           um.critic_grad_sums_reference, args)
+
+
+@pytest.mark.cuda
+def test_only_the_narrow_float32_critic_is_pipelined(cuda):
+    """Launches that keep the per-warp or shared-row body, or take the
+    run-time-width route, do not count as pipelined: the critic at In 60 /
+    H 32 (per-warp, 5 m-tiles), H 64 (shared rows), H 128, H 256 (two
+    passes), In 120 (the run-time route) and its bf16 instance at the
+    default widths; the un-collapsed actor has no such counter.  The
+    default critic does."""
+    for n_in, h, bf16, pipelined in ((60, 32, False, 0), (36, 64, False, 0),
+                                     (36, 128, False, 0), (36, 256, False, 0),
+                                     (120, 50, False, 0), (36, 50, True, 0),
+                                     (36, 50, False, 1)):
+        args = _critic_inputs(1_000, n_in, h, cuda)
+        before = (fu.critic_grad_sums.launches,
+                  fu.critic_grad_sums.pipelined_launches)
+        fu.critic_grad_sums(*args, 0.2, bf16)
+        assert (fu.critic_grad_sums.launches,
+                fu.critic_grad_sums.pipelined_launches) == (
+                    before[0] + 1, before[1] + pipelined), (n_in, h, bf16)
+    assert not hasattr(fu.actor_grad_uncollapsed_sums, "pipelined_launches")

@@ -7,7 +7,8 @@ kernel reads its seed from device memory, so a replay after the seed is
 rewritten draws the new seed's stream.  Then whole blocks: ``train()``
 with ``jit_repeats`` 2 (and ``pipeline``) over 5 repeats, a first eager
 block, a graphed block and an eager tail, equals the per-repeat loop bit
-for bit on both collect routes, and the counters count what the card ran.
+for bit on both collect routes, and the counters count what the card ran
+(the critic's ``pipelined_launches`` too).
 """
 
 import copy
@@ -151,13 +152,15 @@ def test_graphed_blocks_equal_the_eager_loop(cuda, tmp_path, route,
     for jit in (1, 2):
         for fn in wrappers.values():
             fn.launches = 0
+        fu.critic_grad_sums.pipelined_launches = 0
         ts, state, log = train(_tiny(5, extra), device="cuda",
                                fused_collect=fused, verbose=False,
                                output_root=str(tmp_path / str(jit)),
                                jit_repeats=jit, pipeline=pipeline)
         torch.cuda.synchronize()
         runs.append((ts, state, log,
-                     {k: fn.launches for k, fn in wrappers.items()}))
+                     {k: fn.launches for k, fn in wrappers.items()}
+                     | {"pipelined": fu.critic_grad_sums.pipelined_launches}))
     (ts_a, st_a, log_a, n_a), (ts_b, st_b, log_b, n_b) = runs
     for x, y in zip([*ts_a.actor.parameters(), *ts_a.critic.parameters()],
                     [*ts_b.actor.parameters(), *ts_b.critic.parameters()]):
@@ -180,6 +183,10 @@ def test_graphed_blocks_equal_the_eager_loop(cuda, tmp_path, route,
     assert n_a["fused_collect"] == (5 if fused else 0)
     assert n_a["fused_actor_grad"] == n_a["fused_critic_grad"] == (
         5 * 2 if fused else 0)
+    # The default critic (In 36, H 50) takes the warp-specialised body in
+    # float32, on eager repeats and replays alike; its bf16 instance not.
+    assert n_a["pipelined"] == (0 if route == "fused-bf16" else
+                                n_a["fused_critic_grad"])
 
 
 @pytest.mark.cuda
