@@ -509,7 +509,8 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
     uniforms drawn from a generator seeded with ``seed``.  ``lanes`` forces
     the run-time instance's lanes an env (one of ``COLLECT_RT_LANES``;
     ``launch_shape``), for tests and timings; the plain version ignores it.
-    ``fused_collect_rows.launches`` counts kernel launches."""
+    ``fused_collect_rows.launches`` counts kernel launches,
+    ``fused_collect_rows.rt_launches`` those of the run-time instance."""
     device = rows.px.device
     a, num_envs = sm.a, rows.px.shape[-1]
     if device.type == "cpu":
@@ -522,8 +523,9 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
 
     lib, _ = _library()
     _check_launch(sm, rows, a_comp, c_comp, num_steps, noise)
+    max_obstacles = lib.marlnav_collect_max_obstacles()
     lanes, threads = launch_shape(
-        "fused collect", sm, num_envs, lib.marlnav_collect_max_obstacles(),
+        "fused collect", sm, num_envs, max_obstacles,
         lib.marlnav_collect_rt_smem, COLLECT_LANES, COLLECT_RT_LANES, lanes)
     seed = seed_tensor(seed, device)
     f32 = torch.float32
@@ -555,10 +557,12 @@ def fused_collect_rows(sm: StepMath, rows: RowState, a_comp: torch.Tensor,
         raise RuntimeError(f"fused collect kernel launch failed: CUDA error "
                            f"{err}")
     fused_collect_rows.launches += 1
+    fused_collect_rows.rt_launches += int(sm.o > max_obstacles)
     return out
 
 
 fused_collect_rows.launches = 0
+fused_collect_rows.rt_launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -54,7 +54,10 @@ mode, the kernel's bf16 variant).  Each wrapper counts its launches in
 ``.launches``; ``critic_grad_sums.pipelined_launches`` counts those of
 them that took the critic kernel's warp-specialised body (the float32
 instances of at most 64 hidden units and 39 input columns whose warps each
-hold every output tile: the default and curriculum critic, In 36 / H 50).
+hold every output tile: the default and curriculum critic, In 36 / H 50),
+and ``critic_grad_sums.rt_launches`` and
+``actor_grad_uncollapsed_sums.rt_launches`` those that took the
+run-time-width route (the critic from 15 obstacles on, In 108 and up).
 
 Data parallelism (marlnav_tpu/ops/fused_update.py:544-548,
 fused_update_tiled.py:244-245, 369-370): each wrapper's ``mesh`` sums the
@@ -297,6 +300,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
                             (w2, b2, None, None), n_in, h, eps, (0.0,) * 4,
                             bf16, n_out)
         critic_grad_sums.launches += 1
+        critic_grad_sums.rt_launches += 1
         return _split(out, shapes, mesh)
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -317,6 +321,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
 
 critic_grad_sums.launches = 0
 critic_grad_sums.pipelined_launches = 0
+critic_grad_sums.rt_launches = 0
 
 
 def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
@@ -350,6 +355,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
                             (1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5), bf16,
                             n_out)
         actor_grad_uncollapsed_sums.launches += 1
+        actor_grad_uncollapsed_sums.rt_launches += 1
         return _split(out, shapes, mesh)
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -369,6 +375,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
 
 
 actor_grad_uncollapsed_sums.launches = 0
+actor_grad_uncollapsed_sums.rt_launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -5,8 +5,10 @@ kernel wrapper's ``.launches`` counter moves only when the wrapper's Python
 code runs: once, at capture, when nothing runs on the card.
 ``CountedGraph`` records what each counter gained during the capture, takes
 it back, and adds it at every replay, so that the counters count what the
-card ran: ``.launches`` and, where a wrapper has it,
-``.pipelined_launches`` (``fused_update.critic_grad_sums``).
+card ran: ``.launches`` and, where a wrapper has them,
+``.pipelined_launches`` (``fused_update.critic_grad_sums``) and
+``.rt_launches`` (the run-time instances and route: the critic's, the
+un-collapsed actor's and the collect's wrappers).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, List, Tuple
 import torch
 
 # The counters a kernel wrapper may carry; each is counted where present.
-COUNTERS = ("launches", "pipelined_launches")
+COUNTERS = ("launches", "pipelined_launches", "rt_launches")
 
 
 def kernel_wrappers() -> Dict[str, object]:

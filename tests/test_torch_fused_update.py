@@ -478,6 +478,7 @@ def test_cpu_routing_runs_plain_version_and_launches_nothing():
     assert (fu.actor_grad_sums.launches,
             fu.critic_grad_sums.launches) == before == (0, 0)
     assert fu.critic_grad_sums.pipelined_launches == 0
+    assert fu.critic_grad_sums.rt_launches == 0
     meta_a = tuple(x.to("meta") for x in actor_in)
     meta_c = tuple(x.to("meta") for x in critic_in)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -503,20 +504,26 @@ def test_cpu_route_takes_widths_past_the_kernels():
     assert all(bool(torch.isfinite(x).all()) for out in outs for x in out)
     assert (fu.actor_grad_sums.launches, fu.critic_grad_sums.launches,
             fu.actor_grad_uncollapsed_sums.launches) == (0, 0, 0)
+    assert (fu.critic_grad_sums.rt_launches,
+            fu.actor_grad_uncollapsed_sums.rt_launches) == (0, 0)
 
 
 def test_counted_graph_counts_every_counter_of_a_wrapper():
     """``CountedGraph`` counts each of ``graphs.COUNTERS`` a wrapper
-    carries (the critic's ``launches`` and ``pipelined_launches``) and
-    leaves the others' alone: the critic kernel's wrapper carries both,
-    the other wrappers ``launches`` alone."""
+    carries (the critic's ``launches``, ``pipelined_launches`` and
+    ``rt_launches``) and leaves the others' alone: the critic kernel's
+    wrapper carries all three, the un-collapsed actor's and the collect's
+    ``launches`` and ``rt_launches``, the other wrappers ``launches``
+    alone."""
     from marlnav_tpu_torch.ops import graphs
 
     wrappers = graphs.kernel_wrappers()
     carried = {name: [c for c in graphs.COUNTERS if hasattr(fn, c)]
                for name, fn in wrappers.items()}
-    assert carried.pop("fused_critic_grad") == ["launches",
-                                                "pipelined_launches"]
+    assert carried.pop("fused_critic_grad") == [
+        "launches", "pipelined_launches", "rt_launches"]
+    for name in ("fused_actor_grad_uncollapsed", "fused_collect"):
+        assert carried.pop(name) == ["launches", "rt_launches"], name
     assert all(c == ["launches"] for c in carried.values())
 
 
