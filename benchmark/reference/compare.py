@@ -13,6 +13,10 @@ Train cells, for each compared repeat (the worst of the three is kept):
 * ``actor_loss_gap``, ``critic_loss_gap``: the loss of each of the first
   ``STEADY_STEPS`` Adam steps of the phase against the reference's,
   relative to the larger of its own size and the median step's.
+* ``actor_loss_gap_first_steps``: as ``actor_loss_gap`` over the first
+  ``FIRST_STEPS`` steps alone, which the actor at 17 obstacles compares:
+  there a sound seed's actor can part from the float64 reference inside
+  its first ten steps, as float32's does.
 * ``actor_update_gap``, ``critic_update_gap``: for each leaf of the
   network, the gap between the norms of the program's and the
   reference's change over the repeat, relative to the larger of the
@@ -54,6 +58,9 @@ ROW_FIELDS = ("px", "py", "dx", "dy", "sp", "obx", "oby", "tg", "misc")
 NOUGHT_GRADIENT = 1e-3
 # A phase's first Adam steps, whose losses are compared.
 STEADY_STEPS = 10
+# The actor's first Adam steps, before rounding that rows near the ratio
+# clip carry on can part it from the reference.
+FIRST_STEPS = 3
 
 
 def rows_gap(program: Dict[str, torch.Tensor],
@@ -129,6 +136,7 @@ def train_numbers(block_row, start: dict, end: dict, ref: dict,
         "mean_rew_gap": abs(float(row[0]) - mean_ref) / max(abs(mean_ref),
                                                             1e-30),
         "actor_loss_gap": _losses_gap(*actor, STEADY_STEPS),
+        "actor_loss_gap_first_steps": _losses_gap(*actor, FIRST_STEPS),
         "critic_loss_gap": _losses_gap(*critic, STEADY_STEPS),
         "actor_update_gap": max(leaf_gaps(start, end, ref, "actor")),
         "critic_update_gap": statistics.median(critic_leaves),

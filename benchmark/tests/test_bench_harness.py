@@ -193,3 +193,18 @@ def test_nothing_imports_jax_and_the_reference_nothing_of_the_program():
     from benchmark.harness.runner import forbidden_modules
 
     assert set(forbidden_modules()) <= {"jax", "jaxlib", "flax"}
+
+
+EXACT = ("rows_gap", "counts_gap", "mean_rew_gap", "adam_step_gap")
+
+
+def test_every_train_cell_holds_its_exact_numbers_at_0():
+    """The env rows, episode counts, mean return and Adam's step count are
+    computed alike on both sides: no train cell may loosen them."""
+    cells = [spec.find_cell(w["name"]) for w in _bench()["workloads"]]
+    train = [c for c in cells if c.traffic["kind"] == "train"]
+    assert train
+    for cell in train:
+        limits = cell.limits()
+        exact = {k: limits.get(k) for k in EXACT}
+        assert exact == dict.fromkeys(EXACT, 0.0), (cell.name, exact)
