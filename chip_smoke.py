@@ -286,12 +286,13 @@ def hmma_counts(sass, bf16=False, op="HMMA"):
 
 
 def rt_hmma_counts(sass):
-    """{(part, actor, bf16): HMMA instructions} of each instance of the
-    run-time-width route's rt_forward_kernel / rt_backward_kernel<kActor,
-    BF>."""
-    return sass_hmma(sass, r"rt_(forward|backward)_kernelILb(\d)ELb(\d)E",
-                     lambda m: (m.group(1), int(m.group(2)),
-                                int(m.group(3))))
+    """{(part, actor, bf16, one pass): HMMA instructions} of each instance
+    of the run-time-width route's rt_forward_kernel<kActor, BF, kOnePass> /
+    rt_backward_kernel<kActor, BF> (one pass 0)."""
+    return sass_hmma(sass, r"rt_(forward|backward)_kernelILb(\d)ELb(\d)E"
+                     r"(?:Lb(\d)E)?",
+                     lambda m: (m.group(1), int(m.group(2)), int(m.group(3)),
+                                int(m.group(4) or 0)))
 
 
 def collect_errors(k, r):
@@ -724,16 +725,18 @@ def main(out_dir):
     # past 8 obstacles at each lane width they have (collect 8, 16, 32;
     # rollout 4, 8, 16, 32 in both modes), the gradient route past the
     # tensor-core instances (forward and backward, critic and un-collapsed
-    # actor, float32 and bf16).  None may spill: the pin of every one of
-    # them is 0 bytes of spill stores.
+    # actor, float32 and bf16, and the critic's one pass in both).  None
+    # may spill: the pin of every one of them is 0 bytes of spill stores.
     record["runtime_ptxas"] = {}
     for lib_name, mangled in (
             *(("fused_collect", f"fused_collect_rt_kernelILi{g}E")
               for g in fc.COLLECT_RT_LANES),
             *(("fused_rollout", f"fused_rollout_rt_kernelILi{g}ELb{mean}E")
               for g in fr.ROLLOUT_RT_LANES for mean in (0, 1)),
-            *(("fused_update", f"rt_{part}_kernelILb{actor}ELb{bf16}E")
-              for part in ("forward", "backward") for actor in (0, 1)
+            *(("fused_update", f"rt_{part}_kernelILb{actor}ELb{bf16}E{one}")
+              for part, one in (("forward", "Lb0E"), ("backward", "E"))
+              for actor in (0, 1) for bf16 in (0, 1)),
+            *(("fused_update", f"rt_forward_kernelILb0ELb{bf16}ELb1E")
               for bf16 in (0, 1))):
         line = instance_line(builds[lib_name][1]["log"], mangled)
         print(f"{mangled}: {line}")
@@ -797,13 +800,15 @@ def main(out_dir):
         assert all(c > 0 for c in hmma16.values()), hmma16
         record["tc_hmma_bf16"] = {f"{k}": c for k, c in hmma16.items()}
         # The run-time-width route's products on the tensor cores too: HMMA
-        # in each of its eight kernels (their ptxas lines, no spill, above).
+        # in each of its ten kernels (their ptxas lines, no spill, above):
+        # the forward and the backward of each network and precision, and
+        # the critic's one pass in each precision.
         rt_hmma = rt_hmma_counts(sass)
-        for (part, actor, bf16), count in sorted(rt_hmma.items()):
+        for (part, actor, bf16, one), count in sorted(rt_hmma.items()):
             print(f"rt_{part}_kernel<{'actor' if actor else 'critic'}, "
-                  f"{'bf16' if bf16 else 'float32'}>: {count} HMMA in its "
-                  f"SASS")
-        assert len(rt_hmma) == 8 and all(c > 0 for c in rt_hmma.values()), \
+                  f"{'bf16' if bf16 else 'float32'}"
+                  f"{', one pass' if one else ''}>: {count} HMMA in its SASS")
+        assert len(rt_hmma) == 10 and all(c > 0 for c in rt_hmma.values()), \
             rt_hmma
         record["rt_hmma"] = {f"{k}": c for k, c in rt_hmma.items()}
     else:
@@ -1478,7 +1483,8 @@ def main(out_dir):
         def direct():
             return fu._rt_grad_sums(lib, False, x, (vold, ret, None), w1, b1,
                                     (w2, b2, None, None), n_in, h, eps,
-                                    (0.0,) * 4, False, n_out)
+                                    (0.0,) * 4, False, n_out,
+                                    bool(lib.marlnav_rt_one_pass(0, n_in, h)))
         r1, r2 = direct(), direct()
         want = um.critic_grad_sums_reference(
             *(v.double() if torch.is_tensor(v) else v for v in args))

@@ -2091,15 +2091,24 @@ inline cudaError_t reduce(const float* partials, int blocks, int n_out,
 //     registers; blocks (b, 0, 0) the loss and the head biases from rowbuf.
 //     Each writes its part of row block b's partial (B, n_out).
 //   reduce_partials_kernel: the row blocks' partials in order, in double.
+// Where one block of the backward's grid holds all of H and In (H <= kRtHc
+// and In <= kRtIc), its grid is (B, 1, 1) and a block holds a tile's whole
+// pre at the tile's end, so for the critic two launches do, in one pass
+// over x (marlnav_rt_one_pass): rt_forward_kernel<false, BF, true> is the
+// backward with the forward's tile end (the head input, the row chain) run
+// on that pre, each row's loss term and g kept in shared memory in place of
+// rowbuf; then the reduction.  Every sum keeps the three launches' order:
+// the same bits.
 // The grids depend only on the row count, the widths and the card, and no
 // sum takes an atomic, so two launches on the same inputs agree bit for bit.
 // Shared memory is the same at every width; the widths end where the
 // backward grid's y or z (65,535 chunks) or 32-bit output indices do.
-// Work: 3 products of In x H a row (the forward, its recompute, dW1), each
-// three TF32 passes; past 128 columns each In chunk recomputes the forward
-// once more.  On the H100 the route runs at 13-22% of the float32 CUDA-core
-// bound and far below the tensor cores' (PERF.md row 3); timed variants
-// point at the stage copies and the dW1 product, not the tensor cores.
+// Work: 3 products of In x H a row (the forward, its recompute, dW1; in
+// one pass 2, x read once), each three TF32 passes; past 128 columns each
+// In chunk recomputes the forward once more.  On the H100 the route runs at
+// 13-22% of the float32 CUDA-core bound and far below the tensor cores'
+// (PERF.md row 3); timed variants point at the stage copies and the dW1
+// product, not the tensor cores.
 constexpr int kRtRows = 128;         // rows a tile: 16 a warp
 constexpr int kRtHc = 64;            // hidden units a chunk
 constexpr int kRtNt = kRtHc / 8;     // n-tiles a chunk
@@ -2116,7 +2125,7 @@ constexpr int kRtMaxChunks = 65535;  // a grid's y or z
 struct RtArgs : GradArgs {
   int copy;       // floats a stage copy: 4, 2 or 1 (rows of x and W1 on
                   // 16 or 8 bytes, else 4)
-  float* rowbuf;  // (N, 1 + kOut): loss term, g
+  float* rowbuf;  // (N, 1 + kOut): loss term, g (unused in one pass)
 };
 
 // A block's shared memory, in floats: kRing stages (x (kRtRows, kRtLdx),
@@ -2125,13 +2134,15 @@ struct RtArgs : GradArgs {
 // and head weights; the backward's also the In chunk's x (kRtRows,
 // kRtLdi), g_pre (float32: its TF32 halves, (kRtRows, kRtLdg2) float2s;
 // bf16: (kRtRows, kRtLdg) floats) and two tiles' rowbuf rows (kRtRows,
-// kRow), the next one's copied while a tile runs.  The forward keeps two
-// stages in flight (kRing 3); the backward, whose tiles fill the rest, one
+// kRow; in one pass the rows' own inputs, then their chains), the next
+// one's copied while a tile runs.  The forward keeps two stages in flight
+// (kRing 3); the backward and the one pass, whose tiles fill the rest, one
 // (kRing 2).
 template <bool kActor, int kRing>
 struct RtShape {
   static constexpr int kOut = kActor ? 4 : 1;  // g_v, or g_z
   static constexpr int kRow = 1 + kOut;        // rowbuf floats a row
+  static constexpr int kIn = kActor ? 4 : 2;   // a row's own inputs
   static constexpr int kParams = (kRtRows + kRtHc) * kRtLdx;  // in a stage
   static constexpr int kStage = kParams + (1 + kOut) * kRtHc;
   static constexpr int kFrag = kRing * kStage;  // (k-steps, n-tiles, 32)
@@ -2331,9 +2342,100 @@ __device__ __forceinline__ int rt_steps(int in, int kq) {
   return left < kRtKc / kStep ? left : kRtKc / kStep;
 }
 
+// The address of a row's own input c (critic: old value, return; actor:
+// the action's two values, log-prob, advantage).
+template <bool kActor>
+__device__ __forceinline__ const float* rt_input(const RtArgs& a,
+                                                 long long row, int c) {
+  return !kActor ? a.row[c] + row
+         : c < 2 ? a.row[0] + 2 * row + c
+                 : a.row[c - 1] + row;
+}
+
+// Start the copies of rows r0 .. r0 + kRtRows - 1's own inputs into dst
+// (kRtRows, kRow), kIn of each row's kRow floats; zeros past n.
+template <bool kActor>
+__device__ __forceinline__ void rt_fetch_inputs(const RtArgs& a,
+                                                long long r0, float* dst,
+                                                int tid) {
+  using Sh = RtShape<kActor, 2>;
+  for (int i = tid; i < kRtRows * Sh::kIn; i += kThreads) {
+    const int c = i / kRtRows, r = i % kRtRows;
+    const bool ok = r0 + r < a.n_rows;
+    mma::cp_async4_zfill(dst + r * Sh::kRow + c,
+                         ok ? rt_input<kActor>(a, r0 + r, c) : a.obs, ok);
+  }
+}
+
+// A chunk's end: this lane's share of the head input over its units
+// (critic: w2 . relu(pre); actor: [Wmu; Wvar] pre, with pre = c + b1),
+// summed over the quad: p[2 o + h], output o of row g + 8 h.
 template <bool kActor, bool BF>
-__global__ void __launch_bounds__(kThreads, 2)
-    rt_forward_kernel(const RtArgs a) {
+__device__ __forceinline__ void rt_head_sums(const float (&c)[kRtNt][4],
+                                             const float* s_b1,
+                                             const float* s_head, int t,
+                                             float* p) {
+  constexpr int kOut = RtShape<kActor, 2>::kOut;
+#pragma unroll
+  for (int i = 0; i < 2 * kOut; ++i) p[i] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kRtNt; ++nt) {
+    const int j = nt * 8 + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(s_b1 + j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = c[nt][2 * h] + b.x, v1 = c[nt][2 * h + 1] + b.y;
+      if (!kActor) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+#pragma unroll
+      for (int o = 0; o < kOut; ++o) {
+        const float2 w =
+            *reinterpret_cast<const float2*>(s_head + o * kRtHc + j);
+        p[2 * o + h] = p[2 * o + h] + w.x * rt_r<BF>(v0);
+        p[2 * o + h] = p[2 * o + h] + w.y * rt_r<BF>(v1);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * kOut; ++i) {
+    p[i] = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 1);
+    p[i] = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 2);
+  }
+}
+
+// The row chain (critic_row or ppo_row) of row g + 8 t (lanes t = 0, 1 of
+// a quad) from the head input's row sums tot and the row's own inputs `in`:
+// its loss term, then g (g_v, or g_z), into out (kRow floats; it may be
+// `in`).
+template <bool kActor>
+__device__ __forceinline__ void rt_row(const RtArgs& a, const float* tot,
+                                       int t, const float* in, float* out) {
+  if constexpr (kActor) {
+    float z[4], gz[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o)
+      z[o] = (t ? tot[2 * o + 1] : tot[2 * o]) +
+             (o < 2 ? a.head[1][o] : a.head[3][o - 2]);
+    const float loss =
+        ppo_row(z, make_float2(in[0], in[1]), in[2], in[3], a.k, gz);
+    out[0] = loss;
+#pragma unroll
+    for (int o = 0; o < 4; ++o) out[1 + o] = gz[o];
+  } else {
+    float loss;
+    const float gv = critic_row((t ? tot[1] : tot[0]) + a.head[1][0], in[0],
+                                in[1], a.eps, &loss);
+    out[0] = loss;
+    out[1] = gv;
+  }
+}
+
+// The forward of the three launches (see above): each row's loss term and
+// g into rowbuf.
+template <bool kActor, bool BF>
+__device__ __forceinline__ void rt_forward_pass(const RtArgs& a) {
   using Sh = RtShape<kActor, 3>;
   constexpr int kOut = Sh::kOut, kRow = Sh::kRow;
   extern __shared__ float4 smem4[];
@@ -2392,68 +2494,34 @@ __global__ void __launch_bounds__(kThreads, 2)
     rt_stage_mma<BF>(c, xs + warp * 16 * kRtLdx, frag, rt_steps<BF>(in, kq),
                      lane);
     if (kq != n_k - 1) continue;
-    // The chunk's end: pre = c + b1, and this lane's share of the head
-    // input over its units (critic: w2 . relu(pre); actor: [Wmu; Wvar]
-    // pre), reduced over the quad, added to the row sums.
-    float p[2 * kOut];  // p[2 o + h]: output o, row g + 8 h
+    // The chunk's end: its share of the head input, added to the row sums
+    // in chunk order.
+    float p[2 * kOut];
+    rt_head_sums<kActor, BF>(c, s_b1, s_head, t, p);
 #pragma unroll
-    for (int i = 0; i < 2 * kOut; ++i) p[i] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kRtNt; ++nt) {
-      const int j = nt * 8 + 2 * t;
-      const float2 b = *reinterpret_cast<const float2*>(s_b1 + j);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0 = c[nt][2 * h] + b.x, v1 = c[nt][2 * h + 1] + b.y;
-        if (!kActor) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-#pragma unroll
-        for (int o = 0; o < kOut; ++o) {
-          const float2 w =
-              *reinterpret_cast<const float2*>(s_head + o * kRtHc + j);
-          p[2 * o + h] = p[2 * o + h] + w.x * rt_r<BF>(v0);
-          p[2 * o + h] = p[2 * o + h] + w.y * rt_r<BF>(v1);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2 * kOut; ++i) {
-      p[i] = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 1);
-      p[i] = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 2);
-      tot[i] = tot[i] + p[i];
-    }
+    for (int i = 0; i < 2 * kOut; ++i) tot[i] = tot[i] + p[i];
     if (chunk != n_chunks - 1) continue;
     // The tile's end: lanes t = 0, 1 of each quad take rows g and g + 8.
     const long long row = r0 + warp * 16 + g + 8 * t;
     if (t < 2 && row < a.n_rows) {
-      float* out = a.rowbuf + row * kRow;
-      if constexpr (kActor) {
-        float z[4], gz[4];
+      float ins[Sh::kIn];
 #pragma unroll
-        for (int o = 0; o < 4; ++o)
-          z[o] = (t ? tot[2 * o + 1] : tot[2 * o]) +
-                 (o < 2 ? a.head[1][o] : a.head[3][o - 2]);
-        out[0] = ppo_row(z, make_float2(a.row[0][2 * row],
-                                        a.row[0][2 * row + 1]),
-                         a.row[1][row], a.row[2][row], a.k, gz);
-#pragma unroll
-        for (int o = 0; o < 4; ++o) out[1 + o] = gz[o];
-      } else {
-        float loss;
-        out[1] = critic_row((t ? tot[1] : tot[0]) + a.head[1][0],
-                            a.row[0][row], a.row[1][row], a.eps, &loss);
-        out[0] = loss;
-      }
+      for (int i = 0; i < Sh::kIn; ++i) ins[i] = *rt_input<kActor>(a, row, i);
+      rt_row<kActor>(a, tot, t, ins, a.rowbuf + row * kRow);
     }
   }
   mma::cp_async_wait<0>();
 }
 
-template <bool kActor, bool BF>
-__global__ void __launch_bounds__(kThreads, 1)
-    rt_backward_kernel(const RtArgs a) {
+// The backward of the three launches, or with kOnePass the whole gradient
+// where one block holds all of H and In (grid (B, 1, 1)): the forward's
+// tile end on the pre-activations the backward has recomputed, each row's
+// chain in shared memory (in place of its inputs, fetched with the tile's
+// first stage), then the backward's own tile end.  The same operations in
+// the same order as the forward's and the backward's, so both modes give
+// the same bits.
+template <bool kActor, bool BF, bool kOnePass>
+__device__ __forceinline__ void rt_grad_pass(const RtArgs& a) {
   using Sh = RtShape<kActor, 2>;
   constexpr int kOut = Sh::kOut, kRow = Sh::kRow;
   extern __shared__ float4 smem4[];
@@ -2518,8 +2586,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     st.at(s, r0, chunk, kq);
     float* xs = smem + (s & 1) * Sh::kStage;
     rt_fetch(a, r0, j0, kq * kRtKc, xs, tid);
-    if (kq == 0)  // the tile's rowbuf rows, into its half of rg
-      rt_fetch_rows<kRow>(a, r0, rg + (s / n_k & 1) * kRtRows * kRow, tid);
+    if (kq == 0) {  // the tile's rowbuf rows, or inputs, into its half of rg
+      float* rows = rg + (s / n_k & 1) * kRtRows * kRow;
+      if constexpr (kOnePass)
+        rt_fetch_inputs<kActor>(a, r0, rows, tid);
+      else
+        rt_fetch_rows<kRow>(a, r0, rows, tid);
+    }
   };
   if (n_stages > 0) fetch(0);
   mma::cp_async_commit();
@@ -2550,10 +2623,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     rt_stage_mma<BF>(c, xs + warp * 16 * kRtLdx, frag, rt_steps<BF>(in, kq),
                      lane);
     if (kq != n_k - 1) continue;
+    float* rgt = rg + (s / n_k & 1) * kRtRows * kRow;
+    if constexpr (kOnePass) {
+      // The forward's tile end: the head input's row sums (its one chunk
+      // added to zero, as the forward adds it), then lanes t = 0, 1 of each
+      // quad take rows g and g + 8 through the row chain, over the rows'
+      // inputs in rgt (zeros past n, as rowbuf's copies read there).  A
+      // warp's rows are its own.
+      float p[2 * kOut], tot[2 * kOut];
+      rt_head_sums<kActor, BF>(c, s_b1, s_head, t, p);
+#pragma unroll
+      for (int i = 0; i < 2 * kOut; ++i) tot[i] = 0.f + p[i];
+      if (t < 2) {
+        const int r = warp * 16 + g + 8 * t;
+        float* row = rgt + r * kRow;
+        if (r0 + r < a.n_rows)
+          rt_row<kActor>(a, tot, t, row, row);
+        else
+#pragma unroll
+          for (int o = 0; o < kRow; ++o) row[o] = 0.f;
+      }
+      __syncwarp();
+    }
     // The tile's end.  g_pre (critic: (w2 g_v)(h > 0), with h = relu(pre))
     // or g_h (actor: [Wmu; Wvar]^T g_z, with h = pre) into gs (float32:
     // split into its TF32 halves once, here), and the column sums.
-    const float* rgt = rg + (s / n_k & 1) * kRtRows * kRow;
 #pragma unroll
     for (int nt = 0; nt < kRtNt; ++nt) {
       const int j = nt * 8 + 2 * t;
@@ -2713,13 +2807,41 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// kOnePass: the whole gradient in one launch (rt_grad_pass), on the
+// backward's grid and shared memory.  Either mode launches this kernel once
+// a gradient (the benchmark's critic_rt_grad_roofline_pct counts by it).
+template <bool kActor, bool BF, bool kOnePass>
+__global__ void __launch_bounds__(kThreads, kOnePass ? 1 : 2)
+    rt_forward_kernel(const RtArgs a) {
+  if constexpr (kOnePass)
+    rt_grad_pass<kActor, BF, true>(a);
+  else
+    rt_forward_pass<kActor, BF>(a);
+}
+
 template <bool kActor, bool BF>
-cudaError_t launch_rt(const RtArgs& args, int sms, int blocks, int n_out,
-                      float* out, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads, 1)
+    rt_backward_kernel(const RtArgs a) {
+  rt_grad_pass<kActor, BF, false>(a);
+}
+
+template <bool kActor, bool BF>
+cudaError_t launch_rt(const RtArgs& args, bool one_pass, int sms,
+                      int blocks, int n_out, float* out, cudaStream_t s) {
   const int fwd = 4 * RtShape<kActor, 3>::kForward;
   const int bwd = 4 * RtShape<kActor, 2>::kBackward;
+  if constexpr (!kActor) {  // the critic's alone: marlnav_rt_one_pass
+    if (one_pass) {
+      cudaError_t err = cudaFuncSetAttribute(
+          rt_forward_kernel<kActor, BF, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bwd);
+      if (err != cudaSuccess) return err;
+      rt_forward_kernel<kActor, BF, true><<<blocks, kThreads, bwd, s>>>(args);
+      return reduce(args.partials, blocks, n_out, out, s);
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      rt_forward_kernel<kActor, BF>,
+      rt_forward_kernel<kActor, BF, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, fwd);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(rt_backward_kernel<kActor, BF>,
@@ -2729,7 +2851,8 @@ cudaError_t launch_rt(const RtArgs& args, int sms, int blocks, int n_out,
   const long long tiles = (args.n_rows + kRtRows - 1) / kRtRows;
   const int forward_blocks =
       static_cast<int>(tiles < 2LL * sms ? tiles : 2LL * sms);
-  rt_forward_kernel<kActor, BF><<<forward_blocks, kThreads, fwd, s>>>(args);
+  rt_forward_kernel<kActor, BF, false>
+      <<<forward_blocks, kThreads, fwd, s>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid(blocks, (args.hidden + kRtHc - 1) / kRtHc,
@@ -2946,6 +3069,18 @@ int marlnav_rt_row_blocks(long long n_rows, int in_size, int hidden,
   return static_cast<int>(blocks < tiles ? blocks : tiles);
 }
 
+// 1 where the run-time route of the critic (actor == 0) or the
+// un-collapsed actor takes one pass over x (two launches: one block of its
+// backward's grid holds all of H and In), 0 where it takes three.  The
+// actor always takes three: its float32 one-pass instance, whose chain
+// (ppo_row) runs beside the five column sums' registers, took all 255
+// registers and spilled.
+int marlnav_rt_one_pass(int actor, int in_size, int hidden) {
+  using namespace marlnav::update;
+  return !actor && in_size >= 1 && hidden >= 1 && in_size <= kRtIc &&
+         hidden <= kRtHc;
+}
+
 // Each launches on `stream` (a cudaStream_t from
 // torch.cuda.current_stream()) and returns cudaGetLastError(): 0 when its
 // launches were accepted.
@@ -3046,24 +3181,26 @@ int marlnav_actor_grad_uncollapsed_sums(
       partials, blocks, ActorHead<4>::n_out(obs_size, hidden), out, s));
 }
 
-// The run-time-width route (three launches, see rt_forward_kernel) of the
-// critic (actor == 0: row0 old values, row1 returns; head0 w2, head1 b2)
-// or the un-collapsed actor (row0 actions, row1 log-probs, row2
-// advantages; head0..3 wmu, bmu, wvar, bvar), its backward on `blocks` row
-// blocks (marlnav_rt_row_blocks for `sms`); rowbuf (N, 2) or (N, 5),
-// partials (blocks, n_out); out as the tensor-core entry points'.
+// The run-time-width route (see rt_forward_kernel) of the critic (actor ==
+// 0: row0 old values, row1 returns; head0 w2, head1 b2) or the un-collapsed
+// actor (row0 actions, row1 log-probs, row2 advantages; head0..3 wmu, bmu,
+// wvar, bvar), its backward on `blocks` row blocks (marlnav_rt_row_blocks
+// for `sms`): in one pass where one_pass != 0 (only where
+// marlnav_rt_one_pass), else in three launches through rowbuf (N, 2) or (N,
+// 5); partials (blocks, n_out); out as the tensor-core entry points'.
 int marlnav_rt_grad_sums(int actor, const float* obs, const float* row0,
                          const float* row1, const float* row2,
                          const float* w1, const float* b1, const float* head0,
                          const float* head1, const float* head2,
                          const float* head3, long long n_rows, int in_size,
                          int hidden, float eps, float lo, float hi,
-                         float ent_c, float ent_half, int bf16, int sms,
-                         int blocks, float* rowbuf, float* partials,
+                         float ent_c, float ent_half, int bf16, int one_pass,
+                         int sms, int blocks, float* rowbuf, float* partials,
                          float* out, int device, void* stream) {
   using namespace marlnav::update;
   const int most = marlnav_rt_row_blocks(n_rows, in_size, hidden, sms);
-  if (!most || blocks < 1 || blocks > most)
+  if (!most || blocks < 1 || blocks > most ||
+      (one_pass && !marlnav_rt_one_pass(actor, in_size, hidden)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3079,12 +3216,15 @@ int marlnav_rt_grad_sums(int actor, const float* obs, const float* row0,
                     copy, rowbuf};
   const int n_out = actor ? ActorHead<4>::n_out(in_size, hidden)
                           : CriticHead<4>::n_out(in_size, hidden);
+  const bool one = one_pass != 0;
   if (actor)
-    err = bf16 ? launch_rt<true, true>(args, sms, blocks, n_out, out, s)
-               : launch_rt<true, false>(args, sms, blocks, n_out, out, s);
+    err = bf16 ? launch_rt<true, true>(args, one, sms, blocks, n_out, out, s)
+               : launch_rt<true, false>(args, one, sms, blocks, n_out, out,
+                                        s);
   else
-    err = bf16 ? launch_rt<false, true>(args, sms, blocks, n_out, out, s)
-               : launch_rt<false, false>(args, sms, blocks, n_out, out, s);
+    err = bf16 ? launch_rt<false, true>(args, one, sms, blocks, n_out, out, s)
+               : launch_rt<false, false>(args, one, sms, blocks, n_out, out,
+                                         s);
   return static_cast<int>(err);
 }
 

@@ -30,13 +30,14 @@ and H <= 256 (bf16: ten of those widths).  Every other width takes the
 run-time-width route (``fused_update.cu rt_forward_kernel``), which the
 wrapper picks by width before the launch: the same tensor-core products
 with K and H at run time, W1 streamed through shared memory a tile at a
-time, three launches (forward, backward, the fixed-order reduction), one
-count.  It raises ``ValueError`` only past its grid (over 4 million hidden
-units or 8 million input columns) or 32-bit output indices.  The affine
-actor takes any F <=
-1023 (a runtime width: its rows stream through shared memory in tiles
-sized by F; past 1023 its column groups of [x | 1] would outnumber a
-block's threads).
+time, three launches (forward, backward, the fixed-order reduction), or
+for the critic two, one pass over the rows, where one block holds all of
+H <= 64 and In <= 128 (``marlnav_rt_one_pass``; the same bits); one
+count.  It raises ``ValueError`` only past its grid (over 4 million
+hidden units or 8 million input columns) or 32-bit output indices.  The
+affine actor takes any F <= 1023 (a runtime width: its rows stream
+through shared memory in tiles sized by F; past 1023 its column groups of
+[x | 1] would outnumber a block's threads).
 
 The TPU needed two layouts of each (tiled and staged); here the Buffer's
 time slice is already a contiguous block of rows, so one kernel serves the
@@ -57,7 +58,10 @@ instances of at most 64 hidden units and 39 input columns whose warps each
 hold every output tile: the default and curriculum critic, In 36 / H 50),
 and ``critic_grad_sums.rt_launches`` and
 ``actor_grad_uncollapsed_sums.rt_launches`` those that took the
-run-time-width route (the critic from 15 obstacles on, In 108 and up).
+run-time-width route (the critic from 15 obstacles on, In 108 and up),
+their ``rt_one_pass_launches`` those of them that took it in one pass
+(among them the critic from 15 to 18 obstacles at H 50; the actor's
+route always takes three launches).
 
 Data parallelism (marlnav_tpu/ops/fused_update.py:544-548,
 fused_update_tiled.py:244-245, 369-370): each wrapper's ``mesh`` sums the
@@ -107,13 +111,15 @@ def _library():
         + [i32, i32, ptr, ptr, i32, ptr])
     lib.marlnav_rt_grad_sums.argtypes = (
         [i32] + [ptr] * 10 + [ctypes.c_longlong, i32, i32] + [f32] * 5
-        + [i32, i32, i32, ptr, ptr, ptr, i32, ptr])
+        + [i32, i32, i32, i32, ptr, ptr, ptr, i32, ptr])
     for fn in (lib.marlnav_actor_grad_sums, lib.marlnav_critic_grad_sums,
                lib.marlnav_actor_grad_uncollapsed_sums,
                lib.marlnav_rt_grad_sums):
         fn.restype = i32
     lib.marlnav_rt_row_blocks.argtypes = [ctypes.c_longlong, i32, i32, i32]
     lib.marlnav_rt_row_blocks.restype = i32
+    lib.marlnav_rt_one_pass.argtypes = [i32, i32, i32]
+    lib.marlnav_rt_one_pass.restype = i32
     for getter in (lib.marlnav_actor_max_obs, lib.marlnav_critic_max_in,
                    lib.marlnav_uncollapsed_max_obs, lib.marlnav_max_hidden):
         getter.argtypes, getter.restype = [], i32
@@ -174,11 +180,15 @@ def _launch_setup(device: torch.device, n_rows: int, rows_per_block: int):
 
 
 def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
-                  hidden: int, eps: float, ppo, bf16: bool, n_out: int):
+                  hidden: int, eps: float, ppo, bf16: bool, n_out: int,
+                  one_pass: bool):
     """The run-time-width route of the critic (``actor`` False) or the
-    un-collapsed actor: its three launches (forward, backward, the
-    fixed-order reduction of the row blocks' partials) on the current
-    stream; returns the flat sums.  Raises ``ValueError`` where the widths
+    un-collapsed actor on the current stream: in one pass over the rows
+    (the gradient, then the fixed-order reduction of the row blocks'
+    partials) where ``one_pass``, which the wrappers take from
+    ``marlnav_rt_one_pass`` (the library refuses it elsewhere), else its
+    three launches (forward, backward, the reduction); both give the same
+    bits.  Returns the flat sums.  Raises ``ValueError`` where the widths
     pass its backward grid (65,535 hidden chunks of 64 units or In chunks
     of 128 columns) or a 32-bit output index."""
     n = obs.shape[0]
@@ -191,8 +201,9 @@ def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
             f"input width {n_in} and hidden {hidden} pass the run-time "
             f"route's grid (65,535 chunks of 64 hidden units or of 128 "
             f"input columns) or 32-bit output indices")
-    rowbuf = torch.empty(n * (5 if actor else 2), dtype=torch.float32,
-                         device=obs.device)
+    # Each row's loss term and g, from the forward to the backward.
+    rowbuf = None if one_pass else torch.empty(
+        n * (5 if actor else 2), dtype=torch.float32, device=obs.device)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
                            device=obs.device)
     out = torch.empty(n_out, dtype=torch.float32, device=obs.device)
@@ -203,9 +214,9 @@ def _rt_grad_sums(lib, actor: bool, obs, rows, w1, b1, head, n_in: int,
     err = lib.marlnav_rt_grad_sums(
         int(actor), obs.data_ptr(), *(ptr(x) for x in rows), w1.data_ptr(),
         b1.data_ptr(), *(ptr(x) for x in head), n, n_in, hidden, eps, *ppo,
-        int(bf16), sms, blocks, rowbuf.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), index, torch.cuda.current_stream(obs.device)
-        .cuda_stream)
+        int(bf16), int(one_pass), sms, blocks, ptr(rowbuf),
+        partials.data_ptr(), out.data_ptr(), index,
+        torch.cuda.current_stream(obs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"run-time-width grad kernels launch failed: "
                            f"CUDA error {err}")
@@ -296,11 +307,13 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
     # chunks of 16 rows a block takes a round; 0: no instance at these widths
     warps = lib.marlnav_critic_warps(n_in, h, int(bf16))
     if not warps:
+        one_pass = bool(lib.marlnav_rt_one_pass(0, n_in, h))
         out = _rt_grad_sums(lib, False, obs, (vold, ret, None), w1, b1,
                             (w2, b2, None, None), n_in, h, eps, (0.0,) * 4,
-                            bf16, n_out)
+                            bf16, n_out, one_pass)
         critic_grad_sums.launches += 1
         critic_grad_sums.rt_launches += 1
+        critic_grad_sums.rt_one_pass_launches += one_pass
         return _split(out, shapes, mesh)
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -322,6 +335,7 @@ def critic_grad_sums(w1, b1, w2, b2, obs, vold, ret, eps: float,
 critic_grad_sums.launches = 0
 critic_grad_sums.pipelined_launches = 0
 critic_grad_sums.rt_launches = 0
+critic_grad_sums.rt_one_pass_launches = 0
 
 
 def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
@@ -350,12 +364,14 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
     # 16 rows a warp at a time; 0: no instance at these widths
     warps = lib.marlnav_uncollapsed_warps(f, h, int(bf16))
     if not warps:
+        one_pass = bool(lib.marlnav_rt_one_pass(1, f, h))
         out = _rt_grad_sums(lib, True, obs, (actions, log_probs, adv), w1, b1,
                             (wmu, bmu, wvar, bvar), f, h, 0.0,
                             (1.0 - eps, 1.0 + eps, ent_c, ent_c * 0.5), bf16,
-                            n_out)
+                            n_out, one_pass)
         actor_grad_uncollapsed_sums.launches += 1
         actor_grad_uncollapsed_sums.rt_launches += 1
+        actor_grad_uncollapsed_sums.rt_one_pass_launches += one_pass
         return _split(out, shapes, mesh)
     blocks, index, stream = _launch_setup(obs.device, n, 16 * warps)
     partials = torch.empty((blocks, n_out), dtype=torch.float32,
@@ -376,6 +392,7 @@ def actor_grad_uncollapsed_sums(w1, b1, wmu, bmu, wvar, bvar, obs, actions,
 
 actor_grad_uncollapsed_sums.launches = 0
 actor_grad_uncollapsed_sums.rt_launches = 0
+actor_grad_uncollapsed_sums.rt_one_pass_launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -6,9 +6,11 @@ code runs: once, at capture, when nothing runs on the card.
 ``CountedGraph`` records what each counter gained during the capture, takes
 it back, and adds it at every replay, so that the counters count what the
 card ran: ``.launches`` and, where a wrapper has them,
-``.pipelined_launches`` (``fused_update.critic_grad_sums``) and
+``.pipelined_launches`` (``fused_update.critic_grad_sums``),
 ``.rt_launches`` (the run-time instances and route: the critic's, the
-un-collapsed actor's and the collect's wrappers).
+un-collapsed actor's and the collect's wrappers) and
+``.rt_one_pass_launches`` (the route in one pass: the critic's and the
+un-collapsed actor's).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import Dict, List, Tuple
 import torch
 
 # The counters a kernel wrapper may carry; each is counted where present.
-COUNTERS = ("launches", "pipelined_launches", "rt_launches")
+COUNTERS = ("launches", "pipelined_launches", "rt_launches",
+            "rt_one_pass_launches")
 
 
 def kernel_wrappers() -> Dict[str, object]:

@@ -506,24 +506,29 @@ def test_cpu_route_takes_widths_past_the_kernels():
             fu.actor_grad_uncollapsed_sums.launches) == (0, 0, 0)
     assert (fu.critic_grad_sums.rt_launches,
             fu.actor_grad_uncollapsed_sums.rt_launches) == (0, 0)
+    assert (fu.critic_grad_sums.rt_one_pass_launches,
+            fu.actor_grad_uncollapsed_sums.rt_one_pass_launches) == (0, 0)
 
 
 def test_counted_graph_counts_every_counter_of_a_wrapper():
     """``CountedGraph`` counts each of ``graphs.COUNTERS`` a wrapper
-    carries (the critic's ``launches``, ``pipelined_launches`` and
-    ``rt_launches``) and leaves the others' alone: the critic kernel's
-    wrapper carries all three, the un-collapsed actor's and the collect's
-    ``launches`` and ``rt_launches``, the other wrappers ``launches``
-    alone."""
+    carries (the critic's ``launches``, ``pipelined_launches``,
+    ``rt_launches`` and ``rt_one_pass_launches``) and leaves the others'
+    alone: the critic kernel's wrapper carries all four, the un-collapsed
+    actor's ``launches``, ``rt_launches`` and ``rt_one_pass_launches``, the
+    collect's ``launches`` and ``rt_launches``, the other wrappers
+    ``launches`` alone."""
     from marlnav_tpu_torch.ops import graphs
 
     wrappers = graphs.kernel_wrappers()
     carried = {name: [c for c in graphs.COUNTERS if hasattr(fn, c)]
                for name, fn in wrappers.items()}
     assert carried.pop("fused_critic_grad") == [
-        "launches", "pipelined_launches", "rt_launches"]
-    for name in ("fused_actor_grad_uncollapsed", "fused_collect"):
-        assert carried.pop(name) == ["launches", "rt_launches"], name
+        "launches", "pipelined_launches", "rt_launches",
+        "rt_one_pass_launches"]
+    assert carried.pop("fused_actor_grad_uncollapsed") == [
+        "launches", "rt_launches", "rt_one_pass_launches"]
+    assert carried.pop("fused_collect") == ["launches", "rt_launches"]
     assert all(c == ["launches"] for c in carried.values())
 
 

@@ -230,3 +230,27 @@ def test_the_route_s_roofline_reader_on_a_canned_table():
     assert read(_ctx(mixed)) == pytest.approx(want_mixed, rel=1e-9)
     assert read(_ctx(others)) is None
     assert read(_ctx([])) is None
+
+
+RT_ONE_PASS = ("void marlnav::update::rt_forward_kernel<{}, false, true>"
+               "(marlnav::update::RtArgs)")
+
+
+def test_the_route_s_roofline_reader_on_one_pass_launches():
+    """Where the route takes one pass (In 120 / H 50: the one-pass
+    instance of ``rt_forward_kernel`` and the reduction, no backward), the
+    share comes from the critic's one-pass launches and its share of the
+    reductions alone; the actor's one-pass instance (``kActor`` true) is
+    not counted."""
+    read = spec.metric_reader("critic_rt_grad_roofline_pct")
+    rows = 999 * 1024
+    least = (rows * (4 * 120 + 8) + 4 * (2 * (50 * 120 + 2 * 50 + 1) + 1)
+             ) / 3.35e12
+    route = [(RT_ONE_PASS.format("false"), 200, 0.26), (REDUCE, 200, 0.004)]
+    want = 100 * least / ((0.26 + 0.004) / 200)
+    assert read(_ctx(route)) == pytest.approx(want, rel=1e-9)
+    actor = [(RT_ONE_PASS.format("true"), 100, 0.05)]
+    mixed = route[:1] + [(REDUCE, 300, 0.006)] + actor
+    want_mixed = 100 * least / ((0.26 + 0.006 * 200 / 300) / 200)
+    assert read(_ctx(mixed)) == pytest.approx(want_mixed, rel=1e-9)
+    assert read(_ctx(actor + [(REDUCE, 100, 0.002)])) is None

@@ -7,7 +7,8 @@ The run-time collect equals the benchmark's plain reference (its step op
 for op, its uniforms from Philox) bit for bit; graphed training repeats
 count the route's launches in ``rt_launches`` through ``CountedGraph``
 replays: 50 critic gradients and one collect a repeat, and none at 3
-obstacles."""
+obstacles; at In 120 / H 50 every gradient takes the route in one pass
+(``rt_one_pass_launches``)."""
 
 import json
 import os
@@ -93,13 +94,16 @@ def test_graphed_repeats_count_the_route_s_launches(cuda, tmp_path,
     replayed, an eager tail), 50 critic epochs each: at 17 obstacles
     ``critic_grad_sums.rt_launches`` counts 50 and
     ``fused_collect_rows.rt_launches`` 1 a repeat, replays included, as
-    ``launches`` does; the un-collapsed actor does not run (the affine
-    actor takes F 40).  At 3 obstacles both count nothing."""
+    ``launches`` does, and every critic gradient takes the route in one
+    pass (``rt_one_pass_launches`` 50 a repeat); the un-collapsed actor
+    does not run (the affine actor takes F 40).  At 3 obstacles none of
+    them counts."""
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-        if hasattr(fn, "rt_launches"):
-            fn.rt_launches = 0
+        for counter in ("rt_launches", "rt_one_pass_launches"):
+            if hasattr(fn, counter):
+                setattr(fn, counter, 0)
     _run(obstacles, 5, tmp_path)
     torch.cuda.synchronize()
     assert fc.fused_collect_rows.launches == 5
@@ -107,5 +111,8 @@ def test_graphed_repeats_count_the_route_s_launches(cuda, tmp_path,
     rt = obstacles == 17
     assert fc.fused_collect_rows.rt_launches == (5 if rt else 0)
     assert fu.critic_grad_sums.rt_launches == (5 * 50 if rt else 0)
+    assert fu.critic_grad_sums.rt_one_pass_launches == \
+        fu.critic_grad_sums.rt_launches
     assert fu.actor_grad_uncollapsed_sums.launches == 0
     assert fu.actor_grad_uncollapsed_sums.rt_launches == 0
+    assert fu.actor_grad_uncollapsed_sums.rt_one_pass_launches == 0

@@ -14,7 +14,9 @@ output by output, two launches bitwise equal, one count a call; at ragged
 row counts (one row, part of a warp's 16, part of a block's 128 and 200,003),
 at an input past 1,000 columns (the backward's In-chunk axis) and at
 4,000, and captured in a CUDA graph, whose replay
-equals the eager call bit for bit.
+equals the eager call bit for bit.  Where one block holds all of H and In
+the critic's route takes one pass, which equals its three launches bit for
+bit.
 """
 
 import pytest
@@ -372,3 +374,90 @@ def test_runtime_route_graphed_equals_eager(cuda, bf16):
                 assert torch.equal(x, y), f"replay {step}"
         critic[4].mul_(0.5)  # obs: the next replay reads the new rows
         actor[6].mul_(0.5)
+
+
+# (bf16, In, H) where the critic's route takes one pass: each precision,
+# obstacles17.train's width and the widest In and H.
+ONE_PASS_WIDTHS = ((False, 120, 50), (False, 104, 64), (True, 36, 64))
+ONE_PASS_ROWS = (1, 127, 129, 200_003, 1_022_976)
+
+
+def route_call(kind, n_in, h, inputs, bf16, n):
+    """The route through the C entry on the first n rows of ``inputs``
+    (``critic_inputs`` or ``_uncollapsed_inputs``), in the mode its
+    argument takes: ``call(one_pass)`` -> the flat sums."""
+    lib = fu._library()
+    if kind == "critic":
+        w1, b1, w2, b2, obs, vold, ret = inputs
+        rows, head = (vold[:n], ret[:n], None), (w2, b2, None, None)
+        eps, ppo, n_out = 0.2, (0.0,) * 4, 1 + h * n_in + 2 * h + 1
+    else:
+        w1, b1, *head, obs, act, lp, adv = inputs
+        rows = (act[:n], lp[:n], adv[:n])
+        eps, ppo = 0.0, (0.8, 1.2, 0.001, 0.0005)
+        n_out = 1 + h * n_in + 5 * h + 4
+
+    def call(one_pass):
+        return fu._rt_grad_sums(lib, kind != "critic", obs[:n], rows, w1, b1,
+                                head, n_in, h, eps, ppo, bf16, n_out,
+                                one_pass)
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16,n_in,h", ONE_PASS_WIDTHS)
+def test_runtime_route_one_pass_equals_three_launches(cuda, bf16, n_in, h):
+    """Through the C entry's mode argument, the critic's one-pass route
+    equals its three launches bit for bit in every output, at one row,
+    part of a tile, a tile and one row, 200,003 rows and
+    obstacles17.train's 1,022,976; two one-pass launches are equal."""
+    lib = fu._library()
+    assert lib.marlnav_rt_one_pass(0, n_in, h)
+    assert not lib.marlnav_critic_warps(n_in, h, int(bf16))
+    inputs = critic_inputs(max(ONE_PASS_ROWS), n_in, h, cuda)
+    for n in ONE_PASS_ROWS:
+        call = route_call("critic", n_in, h, inputs, bf16, n)
+        one, again, three = call(True), call(True), call(False)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(one).all()), n
+        differ = (one != three).nonzero()[:8, 0].tolist()
+        assert torch.equal(one, three), f"{n} rows: outputs {differ} differ"
+        assert torch.equal(one, again), f"{n} rows: two one-pass launches"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n_in,h,one_pass", [
+    ("critic", 120, 50, True), ("critic", 120, 65, False),
+    ("critic", 129, 50, False), ("uncollapsed", 40, 50, False)])
+def test_runtime_route_takes_one_pass_where_one_block_holds_h_and_in(
+        cuda, kind, n_in, h, one_pass):
+    """The critic's wrapper at In 120 / H 50 takes the one pass (its sums
+    those of the C entry in one-pass mode, bit for bit) and counts it in
+    ``rt_one_pass_launches``; at H 65 and at In 129 (one hidden unit or one
+    column past a block), and for the un-collapsed actor at F 40 / H 50
+    (whose one-pass instance spilled), ``rt_one_pass_launches`` does not
+    move and the C entry refuses the one-pass mode, so the wrapper made the
+    three launches."""
+    lib = fu._library()
+    actor = kind != "critic"
+    assert bool(lib.marlnav_rt_one_pass(int(actor), n_in, h)) == one_pass
+    if actor:
+        fn = fu.actor_grad_uncollapsed_sums
+        inputs = _uncollapsed_inputs(N, n_in, h, cuda)
+        args = (*inputs, 0.2, 0.001)
+    else:
+        fn = fu.critic_grad_sums
+        inputs = critic_inputs(N, n_in, h, cuda)
+        args = (*inputs, 0.2)
+    before = (fn.rt_launches, fn.rt_one_pass_launches)
+    got = torch.cat([x.reshape(-1) for x in fn(*args)])
+    assert (fn.rt_launches, fn.rt_one_pass_launches) == (
+        before[0] + 1, before[1] + one_pass)
+    call = route_call(kind, n_in, h, inputs, False, N)
+    if one_pass:
+        want = call(True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    else:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call(True)
